@@ -16,18 +16,41 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    WARMUP calls), with the least
    time the card could take (bytes over 3.35 TB/s or f32 operations over
    67 TFLOP/s, the larger);
-4. the slice: `SceneInpainter.predict` on the flagship scene (V=65536) and
-   model (ngf=64, 9 bottleneck blocks, random weights from seed 0) on the
-   kernel path, with the kernels' launch counts read around that one call;
-   the output checked (shape, finite, tanh range), held against the plain
-   path on the card (PATH_TOL) and, on a small scene, against the plain
-   path on the CPU; then timed end to end and split into its phases (host
-   build, host-to-device copy, forward, copy back).
+4. the serving slice: `SceneInpainter.predict` on the flagship scene
+   (V=65536) and model (ngf=64, 9 bottleneck blocks, random weights from
+   seed 0) on the kernel path, with the kernels' launch counts read around
+   that one call; the output checked (shape, finite, tanh range), held
+   against the plain path on the card (PATH_TOL) and, on a small scene,
+   against the plain path on the CPU; then timed end to end and split into
+   its phases (host build, host-to-device copy, forward, copy back);
+5. the windowed build: the flagship scene built with windowed=True (scipy
+   RCM), each edge set's V_pad, width, slots and halo, and which convs of a
+   forward dispatch the windowed kernels (K3); the band of every K3 table
+   checked on the card;
+6. the train kernels: one plain-path forward and backward of the bf16
+   config's model records the inputs of every K3a (relu, step), K3c, bf16
+   K1, K1 dp, K1 dq and K2 call; each kernel is held against its plain
+   version on them (bit for bit; K2 within K2_RTOL/K2_ATOL) and timed
+   beside it and beside its bound, each K3 call also beside K1's kernel on
+   the same banded inputs (K3's bound counts each gathered row once, as
+   K1's does; the bytes it stages per tile are printed beside it);
+7. the train slice: `make_inpainting_steps` with the bf16 config's model
+   (full width and depth), optimizer and loss, STEPS steps on the kernel
+   path and STEPS on the plain path from the same weights, on the windowed
+   flagship scene; losses finite, each within TRAIN_TOL of the plain
+   path's, parameters finite and moved, the launches of one step equal to
+   the calls phase 6 recorded (checkpointed blocks run their forward
+   twice); one step on a small scene against the CPU plain path
+   (SMALL_TRAIN_TOL); then ms/step by CUDA events, split into forward,
+   backward and optimizer, and the peak device memory of a step.
 
 The last two lines are the kernel record and the result, one JSON object
 each. Without a CUDA card the script exits nonzero and prints no result.
 """
+import contextlib
+import copy
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -41,6 +64,13 @@ PATH_TOL = 1e-3             # flagship output, kernel path vs plain path
 SMALL_TOL = 1e-4            # small scene, card kernel path vs CPU plain
 WARMUP, REPS, INNER = 5, 25, 10
 PREDICT_REPS = 10
+BF16_CONFIG = ("experiments/3d_inpainting/config/"
+               "config_stinet_surfacetextureinpainting_bf16.json")
+STEPS = 5                   # train steps per path
+STEP_REPS = 10              # timed train steps
+TRAIN_TOL = 1e-3            # each step's loss, kernel path vs plain path
+SMALL_TRAIN_TOL = 1e-2      # small scene, card kernel path vs CPU plain
+MIN_K3_CONVS = 5            # windowed convs per flagship bf16 forward
 
 
 def say(phase, msg):
@@ -224,6 +254,386 @@ def check_k2(torch, calls):
                 bound_by="bytes" if kinds == {"bytes"} else "operations")
 
 
+
+# --- the bf16 windowed train path -----------------------------------------
+
+def conv_uses(model):
+    """(level, dilation or None, H) of every EdgeConv of one forward, in the
+    model's order: H = 2 * out_features is the width of its P and Q."""
+    L = model.n_levels
+    uses = [(0, None, 2 * b.first_filter.out_features)
+            for b in model.input_blocks]
+    uses += [(i + 1, None, 2 * b.first_filter.out_features)
+             for i, b in enumerate(model.encoder_blocks)]
+    uses += [(L, d if d > 1 else None, 2 * b.first_filter.out_features)
+             for d, b in zip(model.dilations, model.bottleneck_blocks)]
+    uses += [(L - i - 1, None, 2 * b.first_filter.out_features)
+             for i, b in enumerate(model.decoder_blocks)]
+    uses += [(0, None, 2 * b.first_filter.out_features)
+             for b in model.output_blocks]
+    return uses
+
+
+def windowed_build(torch, scene, model):
+    """Phase 5: the windowed flagship graph, placed on the card, with the
+    K3 dispatch of each conv printed; returns the placed graph."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.ops.message_passing import windowed_kernel_applies
+    from stinet_tpu_torch.ops.windowed import band_violations, default_tile
+    from stinet_tpu_torch.serving import PackedPlacer
+    t0 = time.perf_counter()
+    host = build_hierarchical_graph([scene], geometric=True, windowed=True)
+    secs = time.perf_counter() - t0
+    k3 = 0
+    for level, dist, h in conv_uses(model):
+        lv = host.levels[level]
+        e = lv.edges if dist is None else lv.dilated[dist]
+        v = lv.num_padded_vertices
+        meta = torch.empty(v, h, dtype=torch.bfloat16, device="meta")
+        uses_k3 = e.nbr is not None and windowed_kernel_applies(meta, e.halo)
+        k3 += uses_k3
+        say("windowed", f"level {level} {'dil ' + str(dist) if dist else 'base'}"
+            f": V_pad={v} H={h} D={None if e.nbr is None else e.nbr.shape[1]}"
+            f" halo={e.halo} -> {'K3 (windowed)' if uses_k3 else 'K1 (ELL)'}")
+    check(k3 >= MIN_K3_CONVS, f"{k3} convs per forward take the windowed "
+          f"kernels, expected at least {MIN_K3_CONVS}")
+    graph = PackedPlacer(next(model.parameters()).device)(host)
+    for lv in graph.levels:
+        for e in (lv.edges, *lv.dilated.values()):
+            if e.halo is None or e.nbr is None:
+                continue
+            tile = default_tile(e.nbr.shape[0])
+            bad = (band_violations(e.nbr, e.ell_degree, e.halo, tile)
+                   + band_violations(e.rev_dst, e.out_degree, e.halo, tile))
+            check(bad == 0, f"{bad} live slots outside their tile's window "
+                  f"(V={e.nbr.shape[0]}, halo={e.halo})")
+    say("windowed", f"host build {secs * 1e3:.1f} ms (scipy RCM); "
+        f"{k3} of {len(conv_uses(model))} convs per forward on K3; every K3 "
+        "table within its band")
+    return graph
+
+
+@contextlib.contextmanager
+def record_calls(targets):
+    """Swap each module function named in `targets` ({key: (module,
+    name)}) for a wrapper that records its arguments; yields {key: [args,
+    ...]}."""
+    calls = {k: [] for k in targets}
+    saved = []
+    for key, (mod, name) in targets.items():
+        fn = getattr(mod, name)
+
+        def wrapper(*args, _fn=fn, _key=key):
+            calls[_key].append(args)
+            return _fn(*args)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def capture_train_calls(torch, model, graph, cfg):
+    """Phase 6, first half: one plain-path train step of a copy of `model`
+    with the plain functions of every kernel on the path recorded."""
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    from stinet_tpu_torch.trainers import graph_common as gc
+    model = copy.deepcopy(model)
+    opt, lr = gc.build_optimizer(model.parameters(), cfg["optimizer"])
+    step, _ = gc.make_inpainting_steps(
+        model, opt, cfg["trainer"]["use_mask_weighted_loss"], impl="plain")
+    targets = {"k3a": (windowed, "windowed_edge_conv_sum"),
+               "k3c": (windowed, "windowed_dq"),
+               "k1": (ell, "ell_edge_conv_sum_plain"),
+               "k1dp": (ell, "ell_edge_conv_dp_plain"),
+               "k1dq": (ell, "ell_edge_conv_dq_plain"),
+               "k2": (norms, "masked_instance_norm_plain")}
+    with record_calls(targets) as calls:
+        step(graph, lr)
+        torch.cuda.synchronize()
+    return calls
+
+
+def _live(idx, count):
+    """[V, D] bool: the live slots (slot < count) of an index table."""
+    import torch
+    cols = torch.arange(idx.shape[1], device=idx.device)
+    return cols[None, :] < count[:, None]
+
+
+def _slot_bytes(idx, count, es, h, reads_local):
+    """Bytes an ELL slot loop's data needs: count and out of every row, the
+    live slots of idx, `reads_local` local rows of each row with a slot,
+    and each gathered row once."""
+    import torch
+    live = _live(idx, count)
+    slots = int(live.sum())
+    gathered = int(torch.unique(idx[live]).numel())
+    rows = int(torch.count_nonzero(count))
+    v = idx.shape[0]
+    return (4 * v + es * v * h + 4 * slots
+            + es * h * (reads_local * rows + gathered)), slots
+
+
+def _dq_bytes(rev, dout, es, h):
+    """Bytes the sender-side gradient's data needs: as `_slot_bytes` with q
+    of each sender with a slot, and g and p of each referenced receiver
+    (two gathered rows) once."""
+    import torch
+    nbytes, slots = _slot_bytes(rev, dout, es, h, 1)
+    receivers = int(torch.unique(rev[_live(rev, dout)]).numel())
+    return nbytes + es * h * receivers, slots
+
+
+def _staged_bytes(v, h, es, halo, tile, windows):
+    """Bytes a windowed kernel stages into shared memory: every tile's
+    window rows, `windows` arrays of them. Printed beside the bound, which
+    counts each gathered row once."""
+    from stinet_tpu_torch.ops.windowed import window_geometry
+    _, w = window_geometry(v, tile, halo)
+    return (v // tile) * w * h * es * windows
+
+
+def check_train_kernels(torch, calls):
+    """Phase 6, second half: every recorded call on the kernel and on the
+    plain version (bitwise; K2 within K2_RTOL/K2_ATOL), timed, with its
+    bound; each K3 call also timed with K1's kernel on the same banded
+    inputs, each K2 call with `F.batch_norm`."""
+    import torch.nn.functional as F
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    rows = {}
+
+    def run(key, label, kernel, plain, nbytes, flops, ab=None, tol=None,
+            lib=None):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype and got.shape == want.shape,
+              f"{label}: kernel gives {got.dtype} {tuple(got.shape)}, plain "
+              f"version {want.dtype} {tuple(want.shape)}")
+        if tol is None:
+            view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+            check(torch.equal(got.view(view), want.view(view)),
+                  f"{label}: kernel and plain version differ")
+            err, verdict = 0.0, "bitwise equal"
+        else:
+            err = (got - want).abs().max().item()
+            check(torch.allclose(got, want, rtol=tol[0], atol=tol[1]),
+                  f"{label}: max |diff| {err:.3e} exceeds rtol {tol[0]} / "
+                  f"atol {tol[1]}")
+            verdict = f"max |diff| {err:.3e}"
+        ms = median_ms(torch, kernel)
+        plain_ms = median_ms(torch, plain)
+        b_ms, b_by = bound(nbytes, flops)
+        r = rows.setdefault(key, dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+            library_ms=None if lib is None else 0.0, kinds=set(), calls=0,
+            ab_ms=0.0))
+        r["ms"] += ms
+        r["plain_ms"] += plain_ms
+        r["bound_ms"] += b_ms
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["kinds"].add(b_by)
+        r["calls"] += 1
+        extra = ""
+        if ab is not None:
+            ab_ms = median_ms(torch, ab)
+            r["ab_ms"] += ab_ms
+            extra = f"; K1 on the same inputs {ab_ms:.4f} ms"
+        if lib is not None:
+            lib_ms = median_ms(torch, lib)
+            r["library_ms"] += lib_ms
+            extra = f"; batch_norm {lib_ms:.4f} ms"
+        say("train-kernels", f"{label}: {verdict}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
+
+    for i, (p, q, nbr, deg, halo, tile, mode, _) in enumerate(calls["k3a"]):
+        v, h = p.shape
+        nbytes, slots = _slot_bytes(nbr, deg, 2, h, 1)
+        staged = _staged_bytes(v, h, 2, halo, tile, 1)
+        ones = torch.ones_like(p)
+        run("k3a", f"K3a {mode} {i:2d} V={v} H={h} D={nbr.shape[1]} "
+            f"halo={halo} tile={tile} staged {staged / 1e6:.1f} MB",
+            lambda: windowed.windowed_edge_conv_sum_kernel(
+                p, q, nbr, deg, halo, tile, mode),
+            lambda: windowed.windowed_edge_conv_sum_plain(p, q, nbr, deg,
+                                                          mode),
+            nbytes, 4 * h * slots,
+            ab=(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
+            if mode == "relu" else
+            (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, ones)))
+    for i, (q, g, p, rev, dout, halo, tile, _) in enumerate(calls["k3c"]):
+        v, h = q.shape
+        nbytes, slots = _dq_bytes(rev, dout, 2, h)
+        staged = _staged_bytes(v, h, 2, halo, tile, 2)
+        run("k3c", f"K3c {i:2d} V={v} H={h} D={rev.shape[1]} halo={halo} "
+            f"tile={tile} staged {staged / 1e6:.1f} MB",
+            lambda: windowed.windowed_dq_kernel(q, g, p, rev, dout, halo,
+                                                tile),
+            lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, dout),
+            nbytes, 4 * h * slots,
+            ab=lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout))
+    for i, (p, q, nbr, deg) in enumerate(calls["k1"]):
+        v, h = p.shape
+        nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 1)
+        run("k1", f"K1 {p.dtype} {i:2d} V={v} H={h} D={nbr.shape[1]}",
+            lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg),
+            lambda: ell.ell_edge_conv_sum_plain(p, q, nbr, deg),
+            nbytes, 4 * h * slots)
+    for i, (p, q, nbr, deg, g) in enumerate(calls["k1dp"]):
+        v, h = p.shape
+        nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 2)
+        run("k1dp", f"K1 dp {i:2d} V={v} H={h} D={nbr.shape[1]}",
+            lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, g),
+            lambda: ell.ell_edge_conv_dp_plain(p, q, nbr, deg, g),
+            nbytes, 4 * h * slots)
+    for i, (q, g, p, rev, dout) in enumerate(calls["k1dq"]):
+        v, h = q.shape
+        nbytes, slots = _dq_bytes(rev, dout, q.element_size(), h)
+        run("k1dq", f"K1 dq {i:2d} V={v} H={h} D={rev.shape[1]}",
+            lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout),
+            lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, dout),
+            nbytes, 4 * h * slots)
+    for i, (x, _, _, nv, eps) in enumerate(calls["k2"]):
+        v, c = x.shape
+        n = int(nv)
+        # the valid rows of x read once, every row of out written once
+        run("k2", f"K2 {i:2d} V={v} C={c} valid={n}",
+            lambda: norms.masked_instance_norm_kernel(x, nv, eps),
+            lambda: norms.masked_instance_norm_plain(x, None, 1, nv, eps),
+            4 * c * (n + v), 7 * n * c, tol=(K2_RTOL, K2_ATOL),
+            lib=lambda: F.batch_norm(x[:n], None, None, training=True,
+                                     eps=eps))
+    for r in rows.values():
+        r["bound_by"] = ("bytes" if r.pop("kinds") == {"bytes"}
+                         else "operations")
+    return rows
+
+
+def train_slice(torch, card, model, graph, cfg, captured):
+    """Phase 7: the bf16 train steps on the kernel and the plain path, the
+    launch counts of one step, the small-scene check against the CPU, and
+    the timings. Returns the launch counts of the kernel path's STEPS
+    steps."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    from stinet_tpu_torch.serving import PackedPlacer
+    from stinet_tpu_torch.trainers import graph_common as gc
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    counters = {"k3a": windowed.windowed_edge_conv_sum_kernel,
+                "k3c": windowed.windowed_dq_kernel,
+                "k1": ell.ell_edge_conv_sum_kernel,
+                "k1dp": ell.ell_edge_conv_dp_kernel,
+                "k1dq": ell.ell_edge_conv_dq_kernel,
+                "k2": norms.masked_instance_norm_kernel}
+    weighted = cfg["trainer"]["use_mask_weighted_loss"]
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def stepper(dev, impl=None):
+        m = copy.deepcopy(model).to(dev)
+        m.load_state_dict(start)
+        opt, base_lr = gc.build_optimizer(m.parameters(), cfg["optimizer"])
+        lr = gc.step_lr(base_lr, cfg["lr_scheduler"])(1)
+        step, _ = gc.make_inpainting_steps(m, opt, weighted, impl=impl)
+        return m, opt, lr, step
+
+    dev = next(model.parameters()).device
+    kmodel, kopt, lr, kstep = stepper(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    losses = [float(kstep(graph, lr)["loss"])]
+    one_step = {k: fn.launches for k, fn in counters.items()}
+    want = {k: len(v) for k, v in captured.items()}
+    check(one_step == want, f"launches in one step {one_step} differ from "
+          f"the calls recorded on the plain path {want}")
+    losses += [float(kstep(graph, lr)["loss"]) for _ in range(STEPS - 1)]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the train path never launched: {launches}")
+    _, _, _, pstep = stepper(dev, impl="plain")
+    plain = [float(pstep(graph, lr)["loss"]) for _ in range(STEPS)]
+    check(all(map(lambda x: x == x and abs(x) < float("inf"),
+                  losses + plain)), f"non-finite loss: {losses} / {plain}")
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    rel = max(rels)
+    check(rel <= TRAIN_TOL, f"losses {losses} vs plain path {plain}: "
+          f"relative {rel:.3e} > {TRAIN_TOL}")
+    moved = 0
+    for k, v in kmodel.state_dict().items():
+        check(bool(torch.isfinite(v).all()), f"parameter {k} not finite")
+        moved += not torch.equal(v, start[k])
+    check(moved == len(start), f"only {moved} of {len(start)} parameter "
+          "tensors moved")
+    say("train", f"{STEPS} steps, kernel path losses "
+        f"{[round(x, 6) for x in losses]}; plain path "
+        f"{[round(x, 6) for x in plain]}; relative "
+        f"{', '.join(f'{x:.2e}' for x in rels)}; "
+        f"launches per step {one_step}")
+
+    small = build_hierarchical_graph(
+        [synthetic_scene(**dict(FLAGSHIP_SCENE,
+                                num_vertices=SMALL_VERTICES))],
+        geometric=True, windowed=True)
+    _, _, _, card_step = stepper(dev)
+    card_loss = float(card_step(PackedPlacer(dev)(small), lr)["loss"])
+    _, _, _, cpu_step = stepper(torch.device("cpu"))
+    cpu_loss = float(cpu_step(small, lr)["loss"])
+    rel_small = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    check(rel_small <= SMALL_TRAIN_TOL, f"small scene, card {card_loss} vs "
+          f"CPU {cpu_loss}: relative {rel_small:.3e} > {SMALL_TRAIN_TOL}")
+    say("train", f"small scene V={SMALL_VERTICES}: card kernel path loss "
+        f"{card_loss:.6f}, CPU plain path {cpu_loss:.6f}, relative "
+        f"{rel_small:.3e}")
+
+    # timings: the step as a whole, then the same step split by events
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    step_ms = statistics.median(
+        [timed(lambda: kstep(graph, lr)) for _ in range(STEP_REPS)])
+    plain_ms = statistics.median(
+        [timed(lambda: pstep(graph, lr)) for _ in range(3)])
+    split = {"forward": [], "backward": [], "optimizer": []}
+    vmask = gc.vertex_mask(graph)
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    for _ in range(STEP_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with full_f32_matmuls():
+            ev[0].record()
+            kopt.zero_grad(set_to_none=True)
+            loss, _ = gc.inpainting_loss(kmodel(graph), graph.color,
+                                         graph.mask, vmask, weighted)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            kopt.step()
+            ev[3].record()
+        ev[3].synchronize()
+        for k, a, b in (("forward", 0, 1), ("backward", 1, 2),
+                        ("optimizer", 2, 3)):
+            split[k].append(ev[a].elapsed_time(ev[b]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kstep(graph, lr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    nv = FLAGSHIP_SCENE["num_vertices"]
+    say("train", f"train step {step_ms:.2f} ms/step = {nv / step_ms * 1e3:.0f}"
+        f" vertices/s (median of {STEP_REPS}, CUDA events); plain path "
+        f"{plain_ms:.2f} ms/step; split, median ms: " + ", ".join(
+            f"{k} {statistics.median(v):.2f}" for k, v in split.items())
+        + f"; peak memory {peak:.2f} GiB; on {card}")
+    return launches
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -331,16 +741,52 @@ def main():
         f"of {PREDICT_REPS}: {split}; device forward {fwd_ms:.3f} ms "
         f"kernel path, {plain_fwd_ms:.3f} ms plain path; on {card}")
 
+    # --- the bf16 windowed train path
+    cfg = json.loads(pathlib.Path(BF16_CONFIG).read_text())
+    del server, plain_server, graph
+    train_model = define_G(**cfg["archs"]["SurfaceTextureInpaintingNet"][
+        "args"], generator=torch.Generator().manual_seed(0)).cuda()
+    wgraph = windowed_build(torch, scene, train_model)
+    captured = capture_train_calls(torch, train_model, wgraph, cfg)
+    say("train-kernels", "calls recorded in one plain-path step: "
+        + ", ".join(f"{k} {len(v)}" for k, v in captured.items()))
+    train_rows = check_train_kernels(torch, captured)
+    for key, r in train_rows.items():
+        say("train-kernels", f"{key}: {r['calls']} calls, kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms"
+            + (f", K1 on the same inputs {r['ab_ms']:.4f} ms"
+               if key in ("k3a", "k3c") else ""))
+    train_launches = train_slice(torch, card, train_model, wgraph, cfg,
+                                 captured)
+
+    cu = "stinet_tpu_torch/ops/cuda/"
     kernels = [
         dict(name="ell_edge_conv_sum", route="cuda",
-             source="stinet_tpu_torch/ops/cuda/ell_edge_conv.cu",
+             source=cu + "ell_edge_conv.cu",
              replaces="stinet_tpu/ops/pallas/gather_pipeline.py:102",
              launches=launches["ell_edge_conv_sum"], **k1),
         dict(name="masked_instance_norm", route="cuda",
-             source="stinet_tpu_torch/ops/cuda/instance_norm.cu",
+             source=cu + "instance_norm.cu",
              replaces="stinet_tpu/ops/pallas/instance_norm.py:77",
              launches=launches["masked_instance_norm"], **k2),
     ]
+    for key, name, src, replaces in (
+            ("k1", "ell_edge_conv_sum_bf16", "ell_edge_conv.cu",
+             "stinet_tpu/ops/pallas/gather_pipeline.py:102"),
+            ("k1dp", "ell_edge_conv_dp", "ell_edge_conv.cu",
+             "stinet_tpu/ops/ell.py:100"),
+            ("k1dq", "ell_edge_conv_dq", "ell_edge_conv.cu",
+             "stinet_tpu/ops/ell.py:100"),
+            ("k3a", "windowed_edge_conv_sum", "windowed_edge_conv.cu",
+             "stinet_tpu/ops/pallas/onehot_gather.py:252"),
+            ("k3c", "windowed_dq", "windowed_edge_conv.cu",
+             "stinet_tpu/ops/pallas/onehot_gather.py:307"),
+            ("k2", "masked_instance_norm_train_step", "instance_norm.cu",
+             "stinet_tpu/ops/pallas/instance_norm.py:77")):
+        kernels.append(dict(name=name, route="cuda", source=cu + src,
+                            replaces=replaces,
+                            launches=train_launches[key], **train_rows[key]))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys}

@@ -1,7 +1,8 @@
 """Host-side (numpy) construction of padded `HierarchicalGraph`s.
 
-A numpy-only copy of the non-windowed path of `stinet_tpu/graph/build.py`,
-which the tests hold leaf for leaf against the JAX package's builder.
+A numpy-only copy of `stinet_tpu/graph/build.py` (the RCM reorder takes
+scipy's `reverse_cuthill_mckee`, not the JAX package's native one), which
+the tests hold leaf for leaf against the JAX package's builder.
 Graphs are batched by concatenation with vertex-offset shifts, then padded
 up to bucket shapes; every edge set gets hybrid ELL(+COO spill) tables.
 The result holds CPU tensors that share memory with the numpy arrays;
@@ -65,24 +66,32 @@ def _stable_argsort_int(keys: np.ndarray) -> np.ndarray:
 
 
 def _build_ell(src, dst, e, v_pad, trash, max_deg=ELL_MAX_DEGREE,
-               cap_quantile=0.97, max_spill_frac=0.25):
+               cap_quantile=0.97, max_spill_frac=0.25, window_halo=None):
     """Hybrid ELL(+spill) tables from the (dst-sorted) valid edges.
 
     The slot axis is capped near the `cap_quantile` in-degree: receivers
     with more edges keep their first D_cap edges in ELL and spill the rest
-    to a COO list. Returns a dict with nbr / rev_dst / out_degree /
+    to a COO list. With `window_halo`, edges with |src - dst| > window_halo
+    spill too, so the tables are banded and the windowed kernels apply
+    (ops/windowed.py). Returns a dict with nbr / rev_dst / out_degree /
     ell_degree / spill, or None when a mostly-empty table would lose to
     pure COO."""
     vs, vd = src[:e].astype(np.int64), dst[:e].astype(np.int64)
     if e == 0:
         return None
-    deg = np.bincount(vd, minlength=v_pad)
-    d_in = int(deg.max())
+    win_ok = (np.abs(vs - vd) <= window_halo if window_halo is not None
+              else np.ones(e, bool))
+    deg = np.bincount(vd[win_ok], minlength=v_pad)
+    d_in = int(deg.max()) if win_ok.any() else 0
+    if d_in == 0:
+        return None
     nz = deg[deg > 0]
     d_cap = max(int(np.quantile(nz, cap_quantile)), 4)
     d_cap = min(d_cap, d_in, max_deg)
-    spill_count = int(np.maximum(deg - d_cap, 0).sum())
-    if d_cap >= d_in or spill_count > max_spill_frac * e:
+    spill_count = (int(np.maximum(deg - d_cap, 0).sum())
+                   + int((~win_ok).sum()))
+    if (d_cap >= d_in or spill_count > max_spill_frac * e) \
+            and window_halo is None:
         # spilling at the quantile cap is unnecessary or unprofitable:
         # widen to the full degree where it fits under max_deg, and give up
         # on ELL when even a max-width table leaves too much in COO
@@ -92,13 +101,15 @@ def _build_ell(src, dst, e, v_pad, trash, max_deg=ELL_MAX_DEGREE,
             if spill_at_cap > max_spill_frac * e:
                 return None
 
-    # slot = position within the receiver's (dst-sorted) run
+    # slot = position within the receiver's (dst-sorted) run of in-window
+    # edges: csum_ok[i] counts in-window edges before i
+    csum_ok = np.cumsum(win_ok) - win_ok
+    run_start_ok = np.zeros(v_pad, np.int64)
     first = np.flatnonzero(np.diff(vd, prepend=vd[0] - 1))
     uniq = vd[first]
-    run_start = np.zeros(v_pad, np.int64)
-    run_start[uniq] = first
-    slot = np.arange(e) - run_start[vd]
-    keep = slot < d_cap
+    run_start_ok[uniq] = csum_ok[first]
+    slot = np.where(win_ok, csum_ok - run_start_ok[vd], d_cap)
+    keep = win_ok & (slot < d_cap)
 
     # sender-side cap: edges past a sender's first max_deg kept slots spill
     # too, and receiver slots re-pack so valid slots stay contiguous
@@ -171,9 +182,11 @@ def _t(a):
 
 def _pad_edge_set(edges: np.ndarray, e_pad: int, trash: int, v_pad: int,
                   ell_max_degree: int = ELL_MAX_DEGREE,
-                  cap_quantile: float = 0.97) -> EdgeSet:
+                  cap_quantile: float = 0.97,
+                  window_halo: Optional[int] = None) -> EdgeSet:
     """Sort a [2, E] COO edge array by destination, pad it to e_pad with
-    trash self-edges, and add the valid in-degree and the ELL tables."""
+    trash self-edges, and add the valid in-degree and the ELL tables
+    (banded to `window_halo` when given)."""
     src, dst = np.asarray(edges[0]), np.asarray(edges[1])
     if src.shape[0] > e_pad:
         raise ValueError(f"edge bucket too small: {src.shape[0]} > {e_pad}")
@@ -181,7 +194,7 @@ def _pad_edge_set(edges: np.ndarray, e_pad: int, trash: int, v_pad: int,
     src, dst = src[order], dst[order]
     e = src.shape[0]
     ell = _build_ell(src, dst, e, v_pad, trash, ell_max_degree,
-                     cap_quantile=cap_quantile)
+                     cap_quantile=cap_quantile, window_halo=window_halo)
     pad = e_pad - e
     src = np.concatenate([src, np.full(pad, trash, dtype=np.int64)])
     dst = np.concatenate([dst, np.full(pad, trash, dtype=np.int64)])
@@ -192,10 +205,99 @@ def _pad_edge_set(edges: np.ndarray, e_pad: int, trash: int, v_pad: int,
         kw = dict(nbr=_t(ell["nbr"]), rev_dst=_t(ell["rev_dst"]),
                   out_degree=_t(ell["out_degree"]),
                   ell_degree=_t(ell["ell_degree"]),
-                  spill_src=_t(spill[0]), spill_dst=_t(spill[1]))
+                  spill_src=_t(spill[0]), spill_dst=_t(spill[1]),
+                  halo=window_halo)
     return EdgeSet(src=_t(src.astype(np.int32)), dst=_t(dst.astype(np.int32)),
                    num_edges=torch.tensor(e, dtype=torch.int32),
                    degree=_t(degree), **kw)
+
+
+def rcm_perm(edges: np.ndarray, nv: int):
+    """Reverse-Cuthill-McKee ordering of one level (scipy's
+    `reverse_cuthill_mckee`): returns ``(order, inv)`` with
+    ``order[new_id] = old_id`` and ``inv[old_id] = new_id``."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    ones = np.ones(edges.shape[1], np.int8)
+    adj = csr_matrix((ones, (edges[0], edges[1])), shape=(nv, nv))
+    order = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=False),
+                       np.int64)
+    inv = np.empty(nv, np.int64)
+    inv[order] = np.arange(nv)
+    return order, inv
+
+
+def reorder_bandwidth(sample: RawHierarchy) -> RawHierarchy:
+    """Relabel every level's vertices by reverse-Cuthill-McKee so edges
+    become banded (|src - dst| small), which the windowed kernels need.
+    The graph, features, traces and dilated edge sets are only relabelled;
+    `_auto_halo` reads the band from whatever ordering was achieved."""
+    perms, newids = [], []   # perms[l][new] = old; newids[l][old] = new
+    for l, nv in enumerate(sample.num_vertices):
+        order, inv = rcm_perm(sample.level_edges[l], nv)
+        perms.append(order)
+        newids.append(inv)
+
+    def remap_edges(e, l):
+        return newids[l][np.asarray(e, np.int64)]
+
+    new_traces = [newids[l + 1][sample.traces[l].astype(np.int64)][perms[l]]
+                  for l in range(len(sample.traces))]
+    new_dilated = {l: {d: remap_edges(e, l) for d, e in dists.items()}
+                   for l, dists in sample.dilated.items()}
+    p0 = perms[0]
+    return dataclasses.replace(
+        sample, x=sample.x[p0], color=sample.color[p0], mask=sample.mask[p0],
+        labels=sample.labels[p0] if sample.labels is not None else None,
+        level_edges=[remap_edges(e, l)
+                     for l, e in enumerate(sample.level_edges)],
+        traces=new_traces, dilated=new_dilated)
+
+
+# a scene whose every level already ladders to a halo at or below this (the
+# windowed dispatch caps, ops/message_passing.py) skips the reorder
+_BANDED_SKIP_HALO = 384
+
+
+def _is_banded(sample: RawHierarchy, quantile: float) -> bool:
+    """True when every level's edge band already ladders to a halo small
+    enough that reordering would not change the kernel dispatch. The band
+    quantile runs on a strided subsample of at most ~32k edges."""
+    for l in range(len(sample.num_vertices)):
+        e = sample.level_edges[l]
+        ne = e.shape[1]
+        if ne == 0:
+            continue
+        step = max(ne // 32768, 1)
+        band = np.abs(e[0, ::step].astype(np.int64)
+                      - e[1, ::step].astype(np.int64))
+        if max(int(np.quantile(band, quantile)), 1) > _BANDED_SKIP_HALO:
+            return False
+    return True
+
+
+# Halos are rounded up onto this ladder, so the set of window shapes stays
+# bounded over arbitrary scenes; the dispatch caps (384) are rungs of it
+_HALO_LADDER = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
+
+
+def _auto_halo(edges: np.ndarray, v_pad: int, quantile: float,
+               tile: int = 256, max_window_frac: float = 0.75):
+    """The window halo from the achieved band distribution (a strided
+    subsample of at most ~64k edges), rounded up onto _HALO_LADDER; None
+    when the band exceeds the ladder or the window would cover most of the
+    graph."""
+    ne = edges.shape[1]
+    if ne == 0:
+        return None
+    step = max(ne // 65536, 1)
+    band = np.abs(edges[0, ::step].astype(np.int64)
+                  - edges[1, ::step].astype(np.int64))
+    need = max(int(np.quantile(band, quantile)), 1)
+    halo = next((h for h in _HALO_LADDER if h >= need), None)
+    if halo is None or tile + 2 * halo > max_window_frac * v_pad:
+        return None
+    return halo
 
 
 def _concat_features(arrs, pad_rows, pad_value=0):
@@ -214,17 +316,23 @@ def build_hierarchical_graph(
         pad_multiple: int = 128,
         geometric: bool = False,
         ell_cap_quantile: float = 0.97,
-        windowed: bool = False) -> HierarchicalGraph:
+        windowed: bool = False,
+        window_quantile: float = 0.999) -> HierarchicalGraph:
     """Batch and pad raw hierarchies into one static-shape graph.
 
     Vertex ids of sample g at level l are shifted by the vertex count of
     samples 0..g-1 at that level. Buckets default to the batched totals plus
     one trash row, rounded up to `pad_multiple` (geometrically with
-    `geometric`). The bandwidth-ordered `windowed` build is not ported yet.
+    `geometric`).
+
+    With `windowed`, samples are RCM-reordered (`reorder_bandwidth`) unless
+    their ids are already banded (`_is_banded`), and each edge set's ELL
+    tables are banded to a halo read from the band's `window_quantile`
+    (out-of-band edges spill to COO), which the windowed kernels need.
     """
     if windowed:
-        raise NotImplementedError(
-            "windowed (bandwidth-ordered) graph builds are not ported yet")
+        samples = [s if (s.banded or _is_banded(s, window_quantile))
+                   else reorder_bandwidth(s) for s in samples]
     num_levels = len(samples[0].num_vertices)
     num_graphs = len(samples)
 
@@ -252,8 +360,10 @@ def build_hierarchical_graph(
              for g, s in enumerate(samples)], axis=1)
         e_pad = (int(e_buckets[l]) if e_buckets is not None
                  else bucket_size(edges.shape[1], pad_multiple, geometric))
+        halo = (_auto_halo(edges, v_pad, window_quantile) if windowed
+                else None)
         base = _pad_edge_set(edges, e_pad, trash, v_pad,
-                             cap_quantile=ell_cap_quantile)
+                             cap_quantile=ell_cap_quantile, window_halo=halo)
 
         dil = {}
         for dist in sorted({d for s in samples for d in s.dilated.get(l, {})}):
@@ -263,8 +373,11 @@ def build_hierarchical_graph(
                     dist, np.zeros((2, 0), np.int64)) + offsets[l, g]
                  for g, s in enumerate(samples)], axis=1)
             de_pad = bucket_size(de.shape[1], pad_multiple, geometric)
+            dhalo = (_auto_halo(de, v_pad, window_quantile) if windowed
+                     else None)
             dil[int(dist)] = _pad_edge_set(de, de_pad, trash, v_pad,
-                                           cap_quantile=ell_cap_quantile)
+                                           cap_quantile=ell_cap_quantile,
+                                           window_halo=dhalo)
 
         graph_id = np.full(v_pad, num_graphs, dtype=np.int32)
         for g in range(num_graphs):

@@ -1,8 +1,10 @@
 """Generator factory with the config surface of the reference define_G
 (and of `stinet_tpu/models/factory.py`). Only the STINet branch is ported.
-Knobs that only shape training or the reference's torch setup (init type
-and gain, GPU ids, checkpointing, remat, dropout) are accepted so a config's
-archs section passes unchanged, and have no effect on inference."""
+Knobs of the reference's torch setup that the JAX model also ignores (init
+type and gain, GPU ids, dropout) are accepted so a config's archs section
+passes unchanged. `dtype` ("bfloat16" / "float32" as JSON configs spell
+them) is the compute dtype, and the checkpointing knobs place
+`torch.utils.checkpoint` as the JAX model places `nn.remat`."""
 from typing import Optional
 
 import torch
@@ -30,11 +32,25 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
         raise NotImplementedError("the 2D Resnet generator is not ported yet")
     if use_label_embedding:
         raise NotImplementedError("label embedding is not ported yet")
-    if dtype not in (None, "float32", "f32", torch.float32):
-        raise NotImplementedError(f"dtype {dtype!r}: only float32 is ported")
     from stinet_tpu_torch.models.stinet import SurfaceTextureInpaintingNet
     return SurfaceTextureInpaintingNet(
         input_nc=input_nc, output_nc=output_nc, ngf=ngf,
         filter_type=filter_type, norm=norm, n_blocks=n_blocks,
         n_levels=n_levels, n_repeated_io_convs=n_repeated_io_convs,
-        pooling_type=pooling_type, dilations=dilations, generator=generator)
+        pooling_type=pooling_type, dilations=dilations,
+        checkpoint_bottleneck=checkpoint_bottleneck,
+        num_blocks_per_uncheckpointed_block=(
+            num_blocks_per_uncheckpointed_block),
+        remat_io_blocks=remat_io_blocks, dtype=resolve_dtype(dtype),
+        generator=generator)
+
+
+def resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """The compute dtype of a config: None for f32, torch.bfloat16 for
+    "bfloat16" / "bf16"."""
+    if dtype in (None, "float32", "f32", torch.float32):
+        return None
+    if dtype in ("bfloat16", "bf16", torch.bfloat16):
+        return torch.bfloat16
+    raise NotImplementedError(f"dtype {dtype!r}: float32 and bfloat16 are "
+                              "ported")

@@ -9,8 +9,17 @@ per-vertex matmuls (P, Q) plus the per-edge pass of
 Parameter names follow the reference's state dict
 (`input_blocks.0.first_filter.nn.0.weight`, `bottleneck_blocks.3.shortcut
 .bias`, `final_linear2.weight`, ...), so a reference checkpoint loads with
-`load_state_dict` as it is. Inference only in this slice: there is no
-activation checkpointing.
+`load_state_dict` as it is.
+
+`dtype` (None = f32, or torch.bfloat16) is the compute dtype, as the JAX
+model's: parameters stay f32 and are cast at each matmul, each filter casts
+its input, and every norm runs in f32 between casts.
+
+Activation checkpointing (`torch.utils.checkpoint`, non-reentrant) sits where
+the JAX model puts `nn.remat`: on the io, encoder and decoder blocks when
+`remat_io_blocks`, and on the bottleneck blocks per `checkpoint_bottleneck`
+and `num_blocks_per_uncheckpointed_block`. It acts only when gradients are
+recorded; a checkpointed block runs its forward again in the backward.
 
 `impl` (None | "plain") is passed down to the ops: None runs the CUDA
 kernels on a CUDA graph and the plain versions on a CPU graph; "plain"
@@ -22,6 +31,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph)
@@ -62,11 +72,13 @@ class GraphNormLayer(nn.Module):
         self.features, self.norm_type, self.eps = features, norm_type, eps
 
     def forward(self, x, level: GraphLevel, num_graphs: int, impl=None):
+        # statistics in >= f32 (bf16 means over 10^5 rows drift)
         if self.norm_type == "none":
             return x
-        return masked_instance_norm(x, level.graph_id, num_graphs,
+        xa = x.to(torch.promote_types(x.dtype, torch.float32))
+        return masked_instance_norm(xa, level.graph_id, num_graphs,
                                     level.num_vertices, eps=self.eps,
-                                    impl=impl)
+                                    impl=impl).to(x.dtype)
 
 
 class EdgeConvFilter(nn.Module):
@@ -81,37 +93,49 @@ class EdgeConvFilter(nn.Module):
     nn.2); the ReLU in it is applied inside the aggregation."""
 
     def __init__(self, in_features: int, out_features: int,
-                 trans_inv: bool = False):
+                 trans_inv: bool = False, dtype=None):
         super().__init__()
         hidden = 2 * out_features
         self.in_features, self.out_features = in_features, out_features
-        self.trans_inv = trans_inv
+        self.trans_inv, self.dtype = trans_inv, dtype
         fan_in = in_features if trans_inv else 2 * in_features
         self.nn = nn.Sequential(_linear(fan_in, hidden), nn.ReLU(),
                                 _linear(hidden, out_features))
 
     def projections(self, x):
-        """The per-vertex projections (P, Q), each [V, 2*out_features]."""
-        w1, b1 = self.nn[0].weight, self.nn[0].bias
+        """The per-vertex projections (P, Q), each [V, 2*out_features], in
+        the compute dtype (x and the weights cast to it first)."""
+        dt = self.dtype or x.dtype
+        x = x.to(dt)
+        w1, b1 = self.nn[0].weight, self.nn[0].bias.to(dt)
         if self.trans_inv:
-            xw = x @ w1.T
+            xw = x @ w1.to(dt).T
             return b1 - xw, xw
         c = self.in_features
-        wi, wd = w1[:, :c], w1[:, c:]
+        wi, wd = w1[:, :c].to(dt), w1[:, c:].to(dt)
         return x @ (wi - wd).T + b1, x @ wd.T
 
     def forward(self, x, edges: EdgeSet, impl=None):
         p, q = self.projections(x)
         agg = edge_conv_aggregate(p, q, edges, impl=impl)
-        return self.nn[2](agg)
+        return _dense(self.nn[2], agg, self.dtype)
 
 
-def make_filter(filter_type: str, dim_in: int, dim_out: int, first: bool):
+def _dense(linear: nn.Linear, x, dtype):
+    """`linear(x)` in the compute dtype, as flax's Dense(dtype=...) casts
+    the input, kernel and bias (f32 when dtype is None)."""
+    dt = dtype or x.dtype
+    return F.linear(x.to(dt), linear.weight.to(dt), linear.bias.to(dt))
+
+
+def make_filter(filter_type: str, dim_in: int, dim_out: int, first: bool,
+                dtype=None):
     """The trans-inv variant is used only for the very first conv."""
     if filter_type in ("edgeconv", "edgeconvtransinv"):
         return EdgeConvFilter(
             dim_in, dim_out,
-            trans_inv=(filter_type == "edgeconvtransinv" and first))
+            trans_inv=(filter_type == "edgeconvtransinv" and first),
+            dtype=dtype)
     raise NotImplementedError(f"filter type {filter_type!r} is not ported "
                               "yet")
 
@@ -120,19 +144,31 @@ class GraphResnetBlock(nn.Module):
     """filter -> norm -> ELU, plus the (linearly projected) input."""
 
     def __init__(self, dim_in: int, dim_out: int, filter_type: str,
-                 norm_type: str = "instance", first: bool = False):
+                 norm_type: str = "instance", first: bool = False,
+                 dtype=None):
         super().__init__()
-        self.first_filter = make_filter(filter_type, dim_in, dim_out, first)
+        self.first_filter = make_filter(filter_type, dim_in, dim_out, first,
+                                        dtype)
         self.first_norm = GraphNormLayer(dim_out, norm_type)
         self.shortcut = (_linear(dim_in, dim_out) if dim_in != dim_out
                          else None)
+        self.dtype = dtype
+        self.checkpointed = False
 
     def forward(self, x, edges: EdgeSet, level: GraphLevel,
                 num_graphs: int = 1, impl=None):
+        if self.checkpointed and torch.is_grad_enabled():
+            # no random draws inside a block: nothing to replay
+            return checkpoint(self._forward, x, edges, level, num_graphs,
+                              impl, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self._forward(x, edges, level, num_graphs, impl)
+
+    def _forward(self, x, edges, level, num_graphs, impl):
         out = self.first_filter(x, edges, impl=impl)
         out = F.elu(self.first_norm(out, level, num_graphs, impl=impl))
         if self.shortcut is not None:
-            x = self.shortcut(x)
+            x = _dense(self.shortcut, x, self.dtype)
         return x + out
 
 
@@ -160,6 +196,10 @@ class SurfaceTextureInpaintingNet(nn.Module):
                  n_levels: int = 2, n_repeated_io_convs: int = 1,
                  pooling_type: str = "max",
                  dilations: Optional[Sequence[int]] = None,
+                 checkpoint_bottleneck: bool = False,
+                 num_blocks_per_uncheckpointed_block: int = 1,
+                 remat_io_blocks: bool = True,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dilations = (list(dilations) if dilations is not None
@@ -169,27 +209,34 @@ class SurfaceTextureInpaintingNet(nn.Module):
                              "bottleneck blocks")
         self.dilations = [int(d) for d in dilations]
         self.n_levels, self.pooling_type = n_levels, pooling_type
+        self.dtype = dtype
         L = n_levels
 
+        def block(dim_in, dim_out, first=False):
+            return GraphResnetBlock(dim_in, dim_out, filter_type, norm,
+                                    first=first, dtype=dtype)
+
         self.input_blocks = nn.ModuleList(
-            GraphResnetBlock(input_nc,
-                             ngf if i == n_repeated_io_convs - 1 else input_nc,
-                             filter_type, norm, first=(i == 0))
+            block(input_nc, ngf if i == n_repeated_io_convs - 1 else input_nc,
+                  first=(i == 0))
             for i in range(n_repeated_io_convs))
         self.encoder_blocks = nn.ModuleList(
-            GraphResnetBlock(ngf * 2 ** i, ngf * 2 ** (i + 1), filter_type,
-                             norm)
-            for i in range(L))
+            block(ngf * 2 ** i, ngf * 2 ** (i + 1)) for i in range(L))
         self.bottleneck_blocks = nn.ModuleList(
-            GraphResnetBlock(ngf * 2 ** L, ngf * 2 ** L, filter_type, norm)
-            for _ in range(n_blocks))
+            block(ngf * 2 ** L, ngf * 2 ** L) for _ in range(n_blocks))
         self.decoder_blocks = nn.ModuleList(
-            GraphResnetBlock(ngf * 2 ** (L - i), ngf * 2 ** (L - i) // 2,
-                             filter_type, norm)
+            block(ngf * 2 ** (L - i), ngf * 2 ** (L - i) // 2)
             for i in range(L))
         self.output_blocks = nn.ModuleList(
-            GraphResnetBlock(ngf, ngf, filter_type, norm)
-            for _ in range(n_repeated_io_convs))
+            block(ngf, ngf) for _ in range(n_repeated_io_convs))
+        # checkpoint placement of the JAX model's nn.remat (stinet.py:279-335)
+        for blocks in (self.input_blocks, self.encoder_blocks,
+                       self.decoder_blocks, self.output_blocks):
+            for b in blocks:
+                b.checkpointed = remat_io_blocks
+        for i, b in enumerate(self.bottleneck_blocks):
+            b.checkpointed = (checkpoint_bottleneck and (i + 1)
+                              % num_blocks_per_uncheckpointed_block == 0)
         self.final_linear1 = _linear(ngf, ngf)
         self.final_norm1 = GraphNormLayer(ngf, norm)
         self.final_linear2 = _linear(ngf, output_nc)
@@ -216,14 +263,18 @@ class SurfaceTextureInpaintingNet(nn.Module):
             out = block(out, edges, coarse, ng, impl=impl)
 
         for i, block in enumerate(self.decoder_blocks):
-            fine = g.levels[L - i - 1]
+            f = L - i - 1
+            fine = g.levels[f]
             # unpool: every fine vertex copies its coarse representative
-            out = ell_unpool(out, g.traces[L - i - 1], None, None)
+            has_children = bool(g.children) and g.children[f] is not None
+            out = ell_unpool(out, g.traces[f],
+                             g.children[f] if has_children else None,
+                             g.child_counts[f] if has_children else None)
             out = block(out, fine.edges, fine, ng, impl=impl)
 
         for block in self.output_blocks:
             out = block(out, g.levels[0].edges, g.levels[0], ng, impl=impl)
 
-        out = self.final_linear1(out)
+        out = _dense(self.final_linear1, out, self.dtype)
         out = F.elu(self.final_norm1(out, g.levels[0], ng, impl=impl))
-        return torch.tanh(self.final_linear2(out))
+        return torch.tanh(_dense(self.final_linear2, out, self.dtype))

@@ -23,7 +23,7 @@ SRC_DIR = Path(__file__).resolve().parent / "cuda"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-SOURCES = ("ell_edge_conv", "instance_norm")
+SOURCES = ("ell_edge_conv", "instance_norm", "windowed_edge_conv")
 
 
 def use_kernel(t: torch.Tensor, impl) -> bool:
@@ -47,7 +47,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
+    # the key covers the source, every shared header and the flags
+    src = b"".join(f.read_bytes() for f in
+                   [SRC_DIR / f"{name}.cu", *sorted(SRC_DIR.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
@@ -93,6 +95,26 @@ _SIGNATURES = {
         # p, q, nbr, deg, out, V, H, D, device, stream
         "ell_edge_conv_sum_fwd_f32":
             [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "ell_edge_conv_sum_fwd_bf16":
+            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # p, q, nbr, deg, g, out, V, H, D, device, stream
+        "ell_edge_conv_dp_f32":
+            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "ell_edge_conv_dp_bf16":
+            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # q, g, p, rev, deg_out, out, V, H, D, device, stream
+        "ell_edge_conv_dq_f32":
+            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "ell_edge_conv_dq_bf16":
+            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    },
+    "windowed_edge_conv": {
+        # p, q, nbr, deg, out, V, H, D, tile, halo, W, mode, device, stream
+        "windowed_edge_conv_sum_bf16":
+            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+        # q, g, p, rev, deg_out, out, V, H, D, tile, halo, W, device, stream
+        "windowed_dq_bf16":
+            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     },
     "instance_norm": {
         # x, num_valid, out, scratch, V, C, eps, device, stream

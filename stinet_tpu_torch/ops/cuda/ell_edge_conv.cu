@@ -1,10 +1,19 @@
-// EdgeConv message sum over ELL neighbour tables, f32 forward.
+// EdgeConv message sum over ELL neighbour tables, and its backward.
 //
 //   out[v, :] = sum_{d < min(deg[v], D)} relu(p[v, :] + q[nbr[v, d], :])
 //
 // Replaces the TPU kernel K1, pallas_ell_edge_conv_sum
 // (stinet_tpu/ops/pallas/gather_pipeline.py:102, kernel :38-99), which
-// computes the same sum as the f32 XLA path stinet_tpu/ops/ell.py:66-93.
+// computes the same sum as the XLA path stinet_tpu/ops/ell.py:66-93, and
+// that path's backward (stinet_tpu/ops/ell.py:100-161, XLA in JAX):
+//
+//   dp[v] = sum_{d < deg[v]} g[v] * step(p[v] + q[nbr[v, d]])
+//   dq[s] = sum_{j < deg_out[s]} g[r] * step(p[r] + q[s]),  r = rev[s, j]
+//
+// The f32 forward is the kernel below. The bf16 forward and the dp and dq
+// kernels (f32 and bf16) are the slot loops of slot_loop.cuh with rows read
+// from device memory; the windowed kernels (windowed_edge_conv.cu) run the
+// same loops on a window staged in shared memory.
 //
 // Bound: bytes. Each output element costs 3 flops per valid slot (add, max,
 // add) against one gathered 4-byte q element, far below the card's ratio of
@@ -22,6 +31,8 @@
 // starts at +0.0 and only adds values >= 0 unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "slot_loop.cuh"
 
 namespace {
 
@@ -87,6 +98,69 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
+// Slot loops on rows read from device memory (slot_loop.cuh). One block
+// covers kRows rows of one 64-channel slice: a warp a row, two channels a
+// lane. Bound: bytes, as the f32 forward above; the nbr / rev indices are
+// warp-uniform loads and the gathered rows coalesced 2 * 32-element reads.
+constexpr int kSlice = 64;
+constexpr int kRows = stinet::kThreads / (kSlice / 2);
+
+template <typename T, int kMode>
+__global__ void __launch_bounds__(stinet::kThreads)
+    ell_receiver(const T* __restrict__ p, const T* __restrict__ g,
+                 const T* __restrict__ q, const int* __restrict__ nbr,
+                 const float* __restrict__ deg, T* __restrict__ out, int V,
+                 int H, int D) {
+  const int r0 = blockIdx.x * kRows;
+  const stinet::GlobalRows<T> rows{q, H};
+  stinet::receiver_rows<T, kMode>(p, g, rows, nbr, deg, out, r0,
+                                  min(r0 + kRows, V), H, D,
+                                  blockIdx.y * kSlice, kSlice);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(stinet::kThreads)
+    ell_sender(const T* __restrict__ q, const T* __restrict__ g,
+               const T* __restrict__ p, const int* __restrict__ rev,
+               const float* __restrict__ deg_out, T* __restrict__ out, int V,
+               int H, int D) {
+  const int s0 = blockIdx.x * kRows;
+  const stinet::GlobalRows<T> g_rows{g, H}, p_rows{p, H};
+  stinet::sender_rows<T>(q, g_rows, p_rows, rev, deg_out, out, s0,
+                         min(s0 + kRows, V), H, D, blockIdx.y * kSlice,
+                         kSlice);
+}
+
+dim3 slice_grid(int V, int H) {
+  return dim3((V + kRows - 1) / kRows, (H + kSlice - 1) / kSlice);
+}
+
+template <typename T, int kMode>
+int launch_receiver(const void* p, const void* g, const void* q,
+                    const int* nbr, const float* deg, void* out, int V, int H,
+                    int D, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (V <= 0 || H <= 0) return cudaSuccess;
+  ell_receiver<T, kMode><<<slice_grid(V, H), stinet::kThreads, 0, stream>>>(
+      static_cast<const T*>(p), static_cast<const T*>(g),
+      static_cast<const T*>(q), nbr, deg, static_cast<T*>(out), V, H, D);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_sender(const void* q, const void* g, const void* p, const int* rev,
+                  const float* deg_out, void* out, int V, int H, int D,
+                  int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (V <= 0 || H <= 0) return cudaSuccess;
+  ell_sender<T><<<slice_grid(V, H), stinet::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(g),
+      static_cast<const T*>(p), rev, deg_out, static_cast<T*>(out), V, H, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* stinet_cuda_error_string(int code) {
@@ -111,4 +185,50 @@ extern "C" int ell_edge_conv_sum_fwd_f32(const float* p, const float* q,
     ell_fwd_scalar<<<grid, block, 0, stream>>>(p, q, nbr, deg, out, V, H, D);
   }
   return cudaGetLastError();
+}
+
+// The same sum on bf16 rows: z = bf16(p + q) (round to nearest even),
+// relu and accumulation in f32, output rounded to bf16.
+extern "C" int ell_edge_conv_sum_fwd_bf16(const void* p, const void* q,
+                                          const int* nbr, const float* deg,
+                                          void* out, int V, int H, int D,
+                                          int device, cudaStream_t stream) {
+  return launch_receiver<__nv_bfloat16, stinet::kRelu>(
+      p, nullptr, q, nbr, deg, out, V, H, D, device, stream);
+}
+
+// dp = sum_d g * step(p + q[nbr]); p, q, g, out: [V, H] of one dtype.
+extern "C" int ell_edge_conv_dp_f32(const void* p, const void* q,
+                                    const int* nbr, const float* deg,
+                                    const void* g, void* out, int V, int H,
+                                    int D, int device, cudaStream_t stream) {
+  return launch_receiver<float, stinet::kGradStep>(p, g, q, nbr, deg, out, V,
+                                                   H, D, device, stream);
+}
+
+extern "C" int ell_edge_conv_dp_bf16(const void* p, const void* q,
+                                     const int* nbr, const float* deg,
+                                     const void* g, void* out, int V, int H,
+                                     int D, int device, cudaStream_t stream) {
+  return launch_receiver<__nv_bfloat16, stinet::kGradStep>(
+      p, g, q, nbr, deg, out, V, H, D, device, stream);
+}
+
+// dq[s] = sum_j g[rev[s, j]] * step(p[rev[s, j]] + q[s]); rev: [V, D].
+extern "C" int ell_edge_conv_dq_f32(const void* q, const void* g,
+                                    const void* p, const int* rev,
+                                    const float* deg_out, void* out, int V,
+                                    int H, int D, int device,
+                                    cudaStream_t stream) {
+  return launch_sender<float>(q, g, p, rev, deg_out, out, V, H, D, device,
+                              stream);
+}
+
+extern "C" int ell_edge_conv_dq_bf16(const void* q, const void* g,
+                                     const void* p, const int* rev,
+                                     const float* deg_out, void* out, int V,
+                                     int H, int D, int device,
+                                     cudaStream_t stream) {
+  return launch_sender<__nv_bfloat16>(q, g, p, rev, deg_out, out, V, H, D,
+                                      device, stream);
 }

@@ -1,0 +1,228 @@
+// Slot loops of the EdgeConv message sum and its backward, shared by the
+// ELL kernels (ell_edge_conv.cu: gathered rows read from device memory) and
+// the windowed kernels (windowed_edge_conv.cu: gathered rows read from a
+// window staged in shared memory).
+//
+// Receiver side, one output row v, slots d < min(deg[v], D), s = idx[v, d]:
+//   kRelu:     out[v] = sum_d relu(z)        z = T(p[v] + q[s])
+//   kStep:     out[v] = sum_d step(z)        (step(z) = z > 0 ? 1 : 0)
+//   kGradStep: out[v] = sum_d g[v] * step(z) (dp of the relu sum)
+// Sender side (dq), one output row s, slots j < min(deg_out[s], D),
+// r = rev[s, j]:
+//   out[s] = sum_j g[r] * step(T(p[r] + q[s]))
+//
+// Bit-identity with the plain torch versions (ops/ell.py, ops/windowed.py):
+// the add p + q rounds to the element type T as torch's add does (f32 add,
+// then round to nearest even for bf16); compare and relu run in f32, relu as
+// x < 0 ? 0 : x so NaN passes; slots accumulate in f32 in slot order; slots
+// past the degree are skipped, which equals the plain version's "+0.0" since
+// the sum starts at +0.0 and never becomes -0.0; the output rounds to T with
+// round to nearest even. The only product, g * step, is exact, so an FMA
+// contraction cannot change a result either.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace stinet {
+
+constexpr int kThreads = 256;  // threads of every slot-loop block
+
+enum Mode { kRelu = 0, kStep = 1, kGradStep = 2 };
+
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float get(const float* p) { return *p; }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return a + b;
+  }
+  static __device__ __forceinline__ float put(float v) { return v; }
+  static __device__ __forceinline__ float zero() { return 0.f; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float get(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __bfloat162float(__float2bfloat16_rn(a + b));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 put(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() {
+    return __float2bfloat16_rn(0.f);
+  }
+};
+
+__device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
+__device__ __forceinline__ float step(float x) { return x > 0.f ? 1.f : 0.f; }
+
+// Where a block reads its gathered rows. Global: straight from device
+// memory, row stride H. Window: rows [w0, w0 + W) of channels [c0, c0 + cs)
+// staged in shared memory, row stride cs; an index outside the window
+// breaks the band contract of the caller and traps.
+template <typename T>
+struct GlobalRows {
+  const T* base;
+  int H;
+  __device__ __forceinline__ float get(int row, int c, int) const {
+    return Elem<T>::get(base + static_cast<int64_t>(row) * H + c);
+  }
+  __device__ __forceinline__ int local(int row) const { return row; }
+};
+
+template <typename T>
+struct WindowRows {
+  const T* win;
+  int w0, W, cs;
+  __device__ __forceinline__ float get(int row, int, int off) const {
+    return Elem<T>::get(win + row * cs + off);
+  }
+  __device__ __forceinline__ int local(int row) const {
+    const int r = row - w0;
+    if (static_cast<unsigned>(r) >= static_cast<unsigned>(W)) __trap();
+    return r;
+  }
+};
+
+// Copy rows [w0, w0 + W) x channels [c0, c0 + cs) of src ([V, H]) into
+// win ([W, cs]), zero past channel H; coalesced along the channels. Rows
+// whose slice is whole 16-byte chunks (H and cs multiples of 16 / sizeof(T),
+// src 16-byte aligned) move as 16-byte loads, four in flight a thread;
+// other shapes element by element.
+template <typename T>
+__device__ void stage_window(T* win, const T* __restrict__ src, int w0,
+                             int W, int H, int c0, int cs) {
+  constexpr int kVec = 16 / sizeof(T);
+  if (H % kVec == 0 && cs % kVec == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
+    const int chunks = cs / kVec;          // 16-byte chunks of a window row
+    const int present = (H - c0) / kVec;   // of them inside the H channels
+    const int total = W * chunks;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < total; i += blockDim.x) {
+      const int r = i / chunks, k = i - r * chunks;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < present) {
+        v = __ldg(reinterpret_cast<const uint4*>(
+            src + static_cast<int64_t>(w0 + r) * H + c0 + k * kVec));
+      }
+      reinterpret_cast<uint4*>(win)[i] = v;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < W * cs; i += blockDim.x) {
+    const int r = i / cs, c = c0 + i % cs;
+    win[i] = c < H ? src[static_cast<int64_t>(w0 + r) * H + c]
+                   : Elem<T>::zero();
+  }
+}
+
+// Slot indices are read kAhead at a time, so their loads (and the gathers
+// that follow) overlap; the sums still run in slot order.
+constexpr int kAhead = 8;
+
+// The receiver-side loop over rows [r_begin, r_end) of one channel slice
+// [c0, c0 + cs): each lane owns two channels of one row, cs / 2 lanes a row.
+template <typename T, int kMode, typename Rows>
+__device__ void receiver_rows(const T* __restrict__ p, const T* __restrict__ g,
+                              const Rows& q, const int* __restrict__ idx,
+                              const float* __restrict__ deg,
+                              T* __restrict__ out, int r_begin, int r_end,
+                              int H, int D, int c0, int cs) {
+  const int lanes = cs / 2;
+  const int off = 2 * (threadIdx.x % lanes);
+  const int c = c0 + off;
+  const bool has0 = c < H, has1 = c + 1 < H;
+  for (int r = r_begin + threadIdx.x / lanes; r < r_end;
+       r += blockDim.x / lanes) {
+    const int64_t row = static_cast<int64_t>(r) * H;
+    const float p0 = has0 ? Elem<T>::get(p + row + c) : 0.f;
+    const float p1 = has1 ? Elem<T>::get(p + row + c + 1) : 0.f;
+    float g0 = 0.f, g1 = 0.f;
+    if (kMode == kGradStep) {
+      g0 = has0 ? Elem<T>::get(g + row + c) : 0.f;
+      g1 = has1 ? Elem<T>::get(g + row + c + 1) : 0.f;
+    }
+    const int dv = min(static_cast<int>(deg[r]), D);
+    const int* irow = idx + static_cast<int64_t>(r) * D;
+    float a0 = 0.f, a1 = 0.f;
+    for (int d0 = 0; d0 < dv; d0 += kAhead) {
+      int slot[kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        // read the slot only when it is live, then index with it
+        slot[k] = d0 + k < dv ? __ldg(irow + d0 + k) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        if (d0 + k >= dv) break;
+        const int s = q.local(slot[k]);
+        if (has0) {
+          const float z = Elem<T>::add(p0, q.get(s, c, off));
+          a0 = a0 + (kMode == kRelu ? relu(z)
+                     : kMode == kStep ? step(z) : g0 * step(z));
+        }
+        if (has1) {
+          const float z = Elem<T>::add(p1, q.get(s, c + 1, off + 1));
+          a1 = a1 + (kMode == kRelu ? relu(z)
+                     : kMode == kStep ? step(z) : g1 * step(z));
+        }
+      }
+    }
+    if (has0) out[row + c] = Elem<T>::put(a0);
+    if (has1) out[row + c + 1] = Elem<T>::put(a1);
+  }
+}
+
+// The sender-side (dq) loop: gathered rows of g and of p, local q.
+template <typename T, typename Rows>
+__device__ void sender_rows(const T* __restrict__ q, const Rows& g,
+                            const Rows& p, const int* __restrict__ rev,
+                            const float* __restrict__ deg_out,
+                            T* __restrict__ out, int s_begin, int s_end,
+                            int H, int D, int c0, int cs) {
+  const int lanes = cs / 2;
+  const int off = 2 * (threadIdx.x % lanes);
+  const int c = c0 + off;
+  const bool has0 = c < H, has1 = c + 1 < H;
+  for (int s = s_begin + threadIdx.x / lanes; s < s_end;
+       s += blockDim.x / lanes) {
+    const int64_t row = static_cast<int64_t>(s) * H;
+    const float q0 = has0 ? Elem<T>::get(q + row + c) : 0.f;
+    const float q1 = has1 ? Elem<T>::get(q + row + c + 1) : 0.f;
+    const int dv = min(static_cast<int>(deg_out[s]), D);
+    const int* irow = rev + static_cast<int64_t>(s) * D;
+    float a0 = 0.f, a1 = 0.f;
+    for (int j0 = 0; j0 < dv; j0 += kAhead) {
+      int slot[kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        slot[k] = j0 + k < dv ? __ldg(irow + j0 + k) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        if (j0 + k >= dv) break;
+        const int r = g.local(slot[k]);
+        if (has0) {
+          const float z = Elem<T>::add(p.get(r, c, off), q0);
+          a0 = a0 + g.get(r, c, off) * step(z);
+        }
+        if (has1) {
+          const float z = Elem<T>::add(p.get(r, c + 1, off + 1), q1);
+          a1 = a1 + g.get(r, c + 1, off + 1) * step(z);
+        }
+      }
+    }
+    if (has0) out[row + c] = Elem<T>::put(a0);
+    if (has1) out[row + c + 1] = Elem<T>::put(a1);
+  }
+}
+
+}  // namespace stinet

@@ -1,42 +1,82 @@
 """ELL (padded neighbour table) message passing and children-table pooling.
 
 PyTorch counterpart of `stinet_tpu/ops/ell.py`. Graph builders emit, beside
-the COO edge list, a neighbour table
+the COO edge list, a neighbour table and its reverse
 
-  nbr [V_pad, D] — for receiver v, slot d: sender id (pad slots -> trash)
+  nbr     [V_pad, D]     — for receiver v, slot d: sender id (pad -> trash)
+  rev_dst [V_pad, D_out] — for sender s, slot j: receiver of its j-th edge
 
 and the EdgeConv message sum runs over the slot axis as row gathers with no
-scatter. On a CUDA tensor `ell_edge_conv_sum` launches the hand-written
-kernel `ops/cuda/ell_edge_conv.cu`; on a CPU tensor, or with impl="plain",
-it runs `ell_edge_conv_sum_plain`, the same slot-ordered f32 sum in torch.
-Forward only: the backward (dp step-sum, dq through `rev_dst`) comes with
-the training slice.
+scatter. Its gradient is gathers too:
+
+  dp[v] = sum_{d < deg[v]} g[v] * step(p[v] + q[nbr[v, d]])
+  dq[s] = sum_{j < deg_out[s]} g[r] * step(p[r] + q[s]),  r = rev_dst[s, j]
+
+On a CUDA tensor each of the three launches a hand-written kernel
+(`ops/cuda/ell_edge_conv.cu`), in f32 or bf16; on a CPU tensor, or with
+impl="plain", it runs the plain torch slot loop beside it. Both do the
+arithmetic of the JAX code: p + q in the working dtype, compare and relu in
+f32, f32 accumulation in slot order, one rounding to the working dtype.
 
 Children-table pooling: the trace map (fine -> coarse) induces a children
 table (coarse -> its fine vertices). Pooling is a gather + reduce over child
-slots and unpooling a trace gather.
+slots, unpooling a trace gather, and their gradients are gathers as well
+(max routes to the lowest achieving child slot, as torch_scatter's
+scatter_max routes to one argmax).
 """
 import torch
 
 from stinet_tpu_torch.ops import _cuda
 
 
-def ell_edge_conv_sum(p, q, nbr, deg, impl=None):
+def ell_edge_conv_sum(p, q, nbr, deg, rev_dst=None, out_degree=None,
+                      impl=None):
     """out[v] = sum_{d < deg[v]} relu(p[v] + q[nbr[v, d]]).
 
-    p, q: [V, H] f32; nbr: [V, D] int32 (every slot a valid row of q, pad
-    slots at the trash row); deg: [V] f32 count of ELL-resident edges.
-    Callers divide by the TOTAL degree (after adding any COO spill) for
-    mean aggregation."""
-    if _cuda.use_kernel(p, impl):
-        return ell_edge_conv_sum_kernel(p, q, nbr, deg)
-    return ell_edge_conv_sum_plain(p, q, nbr, deg)
+    p, q: [V, H] f32 or bf16; nbr: [V, D] int32 (every slot a valid row of
+    q, pad slots at the trash row); deg: [V] f32 count of ELL-resident
+    edges. Differentiable in p and q; the backward needs `rev_dst` and
+    `out_degree` ([V] f32). Callers divide by the TOTAL degree (after adding
+    any COO spill) for mean aggregation."""
+    return _EllEdgeConvSum.apply(p, q, nbr, deg, rev_dst, out_degree, impl)
+
+
+class _EllEdgeConvSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, q, nbr, deg, rev_dst, out_degree, impl):
+        ctx.impl = impl
+        ctx.save_for_backward(p, q, nbr, deg, rev_dst, out_degree)
+        if _cuda.use_kernel(p, impl):
+            return ell_edge_conv_sum_kernel(p, q, nbr, deg)
+        return ell_edge_conv_sum_plain(p, q, nbr, deg)
+
+    @staticmethod
+    def backward(ctx, g):
+        p, q, nbr, deg, rev_dst, out_degree = ctx.saved_tensors
+        g = g.contiguous()
+        dp = dq = None
+        if ctx.needs_input_grad[0]:
+            dp = (ell_edge_conv_dp_kernel(p, q, nbr, deg, g)
+                  if _cuda.use_kernel(p, ctx.impl)
+                  else ell_edge_conv_dp_plain(p, q, nbr, deg, g))
+        if ctx.needs_input_grad[1]:
+            if rev_dst is None or out_degree is None:
+                raise ValueError("the gradient in q needs the edge set's "
+                                 "rev_dst and out_degree tables")
+            dq = (ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree)
+                  if _cuda.use_kernel(q, ctx.impl)
+                  else ell_edge_conv_dq_plain(q, g, p, rev_dst, out_degree))
+        return dp, dq, None, None, None, None, None
+
+
+def _acc_dtype(t):
+    return torch.promote_types(t.dtype, torch.float32)
 
 
 def ell_edge_conv_sum_plain(p, q, nbr, deg):
     """Plain torch version: slots accumulated in f32 in order d=0..D-1, as
     stinet_tpu/ops/ell.py:_forward does, so the two agree bit for bit."""
-    acc_dt = torch.promote_types(p.dtype, torch.float32)
+    acc_dt = _acc_dtype(p)
     deg_i = deg.to(torch.int32)
     acc = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
     zero = torch.zeros((), dtype=acc_dt, device=p.device)
@@ -46,26 +86,85 @@ def ell_edge_conv_sum_plain(p, q, nbr, deg):
     return acc.to(p.dtype)
 
 
+def ell_edge_conv_dp_plain(p, q, nbr, deg, g):
+    """dp[v] = sum_{d < deg[v]} g[v] * step(p[v] + q[nbr[v, d]]), the slot
+    loop of stinet_tpu/ops/ell.py:_bwd_rule (f32 accumulation in slot
+    order, so the two agree bit for bit)."""
+    acc_dt = _acc_dtype(p)
+    deg_i = deg.to(torch.int32)
+    g32 = g.to(acc_dt)
+    acc = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+    zero = torch.zeros((), dtype=acc_dt, device=p.device)
+    for d in range(nbr.shape[1]):
+        mask = (p + q.index_select(0, nbr[:, d]) > 0).to(acc_dt)
+        acc = acc + torch.where((d < deg_i)[:, None], g32 * mask, zero)
+    return acc.to(p.dtype)
+
+
+def ell_edge_conv_dq_plain(q, g, p, rev_dst, out_degree):
+    """dq[s] = sum_{j < deg_out[s]} g[r] * step(p[r] + q[s]) with
+    r = rev_dst[s, j], the sender-side slot loop of
+    stinet_tpu/ops/ell.py:_bwd_rule."""
+    acc_dt = _acc_dtype(q)
+    deg_o = out_degree.to(torch.int32)
+    acc = torch.zeros(q.shape, dtype=acc_dt, device=q.device)
+    zero = torch.zeros((), dtype=acc_dt, device=q.device)
+    for j in range(rev_dst.shape[1]):
+        r = rev_dst[:, j]
+        contrib = (g.index_select(0, r).to(acc_dt)
+                   * (p.index_select(0, r) + q > 0).to(acc_dt))
+        acc = acc + torch.where((j < deg_o)[:, None], contrib, zero)
+    return acc.to(q.dtype)
+
+
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_rows(names, tensors, dev):
+    """Raise unless the [V, H] operands share one supported dtype and
+    shape; returns the dtype's suffix of the C launchers."""
+    dtype = tensors[0].dtype
+    if dtype not in _DTYPES:
+        raise TypeError(f"{names[0]}: the kernel takes float32 or bfloat16, "
+                        f"got {dtype}")
+    for name, t in zip(names, tensors):
+        _cuda.check_tensor(name, t, dtype, 2, dev)
+        if t.shape != tensors[0].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{tuple(tensors[0].shape)}")
+    return _DTYPES[dtype]
+
+
+def _check_table(idx, count, v, dev):
+    _cuda.check_tensor("index table", idx, torch.int32, 2, dev)
+    _cuda.check_tensor("degree", count, torch.float32, 1, dev)
+    if idx.shape[0] != v or count.shape[0] != v:
+        raise ValueError(f"tables of {idx.shape[0]} / {count.shape[0]} rows "
+                         f"for {v} rows of features")
+
+
 def ell_edge_conv_sum_kernel(p, q, nbr, deg):
-    """Launch `ell_edge_conv_sum_fwd_f32` (ops/cuda/ell_edge_conv.cu) on
-    the current stream. Raises on a tensor it does not take or a failed
+    """Launch `ell_edge_conv_sum_fwd_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
+    on the current stream. Raises on a tensor it does not take or a failed
     launch; it never falls back to the plain version."""
     dev = p.device
-    _cuda.check_tensor("p", p, torch.float32, 2, dev)
-    _cuda.check_tensor("q", q, torch.float32, 2, dev)
-    _cuda.check_tensor("nbr", nbr, torch.int32, 2, dev)
-    _cuda.check_tensor("deg", deg, torch.float32, 1, dev)
-    v, h = p.shape
-    if q.shape[1] != h or nbr.shape[0] != v or deg.shape[0] != v:
+    _cuda.check_tensor("p", p, p.dtype, 2, dev)
+    _cuda.check_tensor("q", q, p.dtype, 2, dev)
+    if p.dtype not in _DTYPES:
+        raise TypeError(f"p: the kernel takes float32 or bfloat16, got "
+                        f"{p.dtype}")
+    if q.shape[1] != p.shape[1]:
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, q "
-                         f"{tuple(q.shape)}, nbr {tuple(nbr.shape)}, deg "
-                         f"{tuple(deg.shape)}")
+                         f"{tuple(q.shape)}")
+    _check_table(nbr, deg, p.shape[0], dev)
+    v, h = p.shape
     out = torch.empty_like(p)
     lib = _cuda.library("ell_edge_conv")
-    rc = lib.ell_edge_conv_sum_fwd_f32(
+    fn = f"ell_edge_conv_sum_fwd_{_DTYPES[p.dtype]}"
+    rc = getattr(lib, fn)(
         p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
         out.data_ptr(), v, h, nbr.shape[1], dev.index, _cuda.stream_of(dev))
-    _cuda.check_status(lib, "ell_edge_conv_sum_fwd_f32", rc)
+    _cuda.check_status(lib, fn, rc)
     ell_edge_conv_sum_kernel.launches += 1
     return out
 
@@ -73,10 +172,55 @@ def ell_edge_conv_sum_kernel(p, q, nbr, deg):
 ell_edge_conv_sum_kernel.launches = 0
 
 
+def ell_edge_conv_dp_kernel(p, q, nbr, deg, g):
+    """Launch `ell_edge_conv_dp_{f32,bf16}` (ops/cuda/ell_edge_conv.cu):
+    the receiver-side gradient, bit for bit `ell_edge_conv_dp_plain`."""
+    dev = p.device
+    suffix = _check_rows(("p", "q", "g"), (p, q, g), dev)
+    _check_table(nbr, deg, p.shape[0], dev)
+    v, h = p.shape
+    out = torch.empty_like(p)
+    lib = _cuda.library("ell_edge_conv")
+    fn = f"ell_edge_conv_dp_{suffix}"
+    rc = getattr(lib, fn)(
+        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+        g.data_ptr(), out.data_ptr(), v, h, nbr.shape[1], dev.index,
+        _cuda.stream_of(dev))
+    _cuda.check_status(lib, fn, rc)
+    ell_edge_conv_dp_kernel.launches += 1
+    return out
+
+
+ell_edge_conv_dp_kernel.launches = 0
+
+
+def ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree):
+    """Launch `ell_edge_conv_dq_{f32,bf16}` (ops/cuda/ell_edge_conv.cu):
+    the sender-side gradient through `rev_dst`, bit for bit
+    `ell_edge_conv_dq_plain`."""
+    dev = q.device
+    suffix = _check_rows(("q", "g", "p"), (q, g, p), dev)
+    _check_table(rev_dst, out_degree, q.shape[0], dev)
+    v, h = q.shape
+    out = torch.empty_like(q)
+    lib = _cuda.library("ell_edge_conv")
+    fn = f"ell_edge_conv_dq_{suffix}"
+    rc = getattr(lib, fn)(
+        q.data_ptr(), g.data_ptr(), p.data_ptr(), rev_dst.data_ptr(),
+        out_degree.data_ptr(), out.data_ptr(), v, h, rev_dst.shape[1],
+        dev.index, _cuda.stream_of(dev))
+    _cuda.check_status(lib, fn, rc)
+    ell_edge_conv_dq_kernel.launches += 1
+    return out
+
+
+ell_edge_conv_dq_kernel.launches = 0
+
+
 def _pool_sum(x, children, counts):
     """Child-slot sum in >= f32, slots in order."""
     cnt = counts.to(torch.int32)
-    acc_dt = torch.promote_types(x.dtype, torch.float32)
+    acc_dt = _acc_dtype(x)
     acc = torch.zeros((children.shape[0], x.shape[1]), dtype=acc_dt,
                       device=x.device)
     zero = torch.zeros((), dtype=acc_dt, device=x.device)
@@ -88,26 +232,81 @@ def _pool_sum(x, children, counts):
 
 
 def ell_pool_mean(x, trace, children, counts):
-    """Mean of each coarse vertex's children; empty rows give 0."""
-    s = _pool_sum(x, children, counts)
-    return (s / torch.clamp(counts.to(s.dtype), min=1.0)[:, None]).to(x.dtype)
+    """Mean of each coarse vertex's children; empty rows give 0. The
+    gradient is the gather g[trace] / count[trace]."""
+    return _PoolMean.apply(x, trace, children, counts)
+
+
+class _PoolMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, trace, children, counts):
+        ctx.save_for_backward(trace, counts)
+        s = _pool_sum(x, children, counts)
+        return (s / torch.clamp(counts.to(s.dtype), min=1.0)[:, None]).to(
+            x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        trace, counts = ctx.saved_tensors
+        inv = 1.0 / torch.clamp(counts, min=1.0)
+        return ((g * inv[:, None]).index_select(0, trace).to(g.dtype),
+                None, None, None)
 
 
 def ell_pool_max(x, trace, children, counts):
     """Max of each coarse vertex's children; empty rows give 0. A later
     child replaces the running max only when strictly greater, so ties go
-    to the lowest child slot (the argmax the training slice will route
-    gradients to)."""
-    cnt = counts.to(torch.int32)
-    neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
-    acc = neg.expand(children.shape[0], x.shape[1])
-    for c in range(children.shape[1]):
-        cand = torch.where((c < cnt)[:, None],
-                           x.index_select(0, children[:, c]), neg)
-        acc = torch.where(cand > acc, cand, acc)
-    return torch.where((cnt > 0)[:, None], acc, acc.new_zeros(()))
+    to the lowest child slot, and the gradient of each (coarse row,
+    feature) goes whole to that child (stinet_tpu/ops/ell.py:229-261)."""
+    return _PoolMax.apply(x, trace, children, counts)
 
 
-def ell_unpool(x, trace, children, counts):
-    """out[f] = x[trace[f]]: every fine vertex copies its coarse row."""
-    return x.index_select(0, trace)
+class _PoolMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, trace, children, counts):
+        cnt = counts.to(torch.int32)
+        neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
+        acc = neg.expand(children.shape[0], x.shape[1])
+        arg = torch.full(acc.shape, -1, dtype=torch.int32, device=x.device)
+        for c in range(children.shape[1]):
+            child = children[:, c]
+            cand = torch.where((c < cnt)[:, None],
+                               x.index_select(0, child), neg)
+            better = cand > acc
+            acc = torch.where(better, cand, acc)
+            arg = torch.where(better, child[:, None], arg)
+        ctx.save_for_backward(trace, arg)
+        return torch.where((cnt > 0)[:, None], acc, acc.new_zeros(()))
+
+    @staticmethod
+    def backward(ctx, g):
+        trace, arg = ctx.saved_tensors
+        # fine row f takes the gradient iff it is THE recorded argmax of
+        # its coarse row
+        fine = torch.arange(trace.shape[0], dtype=torch.int32,
+                            device=trace.device)
+        routed = arg.index_select(0, trace) == fine[:, None]
+        return (g.index_select(0, trace) * routed.to(g.dtype),
+                None, None, None)
+
+
+def ell_unpool(x, trace, children=None, counts=None):
+    """out[f] = x[trace[f]]: every fine vertex copies its coarse row. With a
+    children table the gradient is the child-slot sum (in f32, slot order);
+    without one it is index_select's own scatter-add, as JAX's gather VJP
+    is."""
+    if children is None:
+        return x.index_select(0, trace)
+    return _Unpool.apply(x, trace, children, counts)
+
+
+class _Unpool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, trace, children, counts):
+        ctx.save_for_backward(children, counts)
+        return x.index_select(0, trace)
+
+    @staticmethod
+    def backward(ctx, g):
+        children, counts = ctx.saved_tensors
+        return _pool_sum(g, children, counts).to(g.dtype), None, None, None

@@ -12,6 +12,15 @@ hand-written kernel `ops/cuda/instance_norm.cu`; a CPU tensor, or
 impl="plain", takes `masked_instance_norm_plain`. Batched graphs
 (num_graphs > 1) run only the plain version until batched serving is
 ported, and raise on the kernel path.
+
+A single-graph call is an autograd Function whose backward is the exact
+gradient of the centered-variance forward, in f32 torch ops (JAX's is XLA):
+with c = (x - mean) * w, r = (var + eps)^-1/2 and y = c * r,
+
+    g_c = r * (g - y * sum_v(w * g * y) / n),
+    dx  = w * (g_c - sum_v(w * g_c) / n).
+
+Batched calls differentiate through the plain torch ops.
 """
 import torch
 
@@ -22,21 +31,51 @@ def masked_instance_norm(x, graph_id, num_graphs, num_valid, eps=1e-5,
                          impl=None):
     """x: [V, C]; graph_id: [V] int (pad rows = num_graphs); num_valid: 0-d
     int tensor or int, the number of valid rows."""
+    if num_graphs == 1:
+        return _InstanceNorm.apply(x, num_valid, eps, impl)
     if _cuda.use_kernel(x, impl):
-        if num_graphs != 1:
-            raise NotImplementedError(
-                "the instance-norm kernel takes one graph; batched "
-                "(num_graphs > 1) graphs are not ported to the card yet")
-        return masked_instance_norm_kernel(x, num_valid, eps)
+        raise NotImplementedError(
+            "the instance-norm kernel takes one graph; batched "
+            "(num_graphs > 1) graphs are not ported to the card yet")
     return masked_instance_norm_plain(x, graph_id, num_graphs, num_valid, eps)
+
+
+def _valid_weight(x, num_valid):
+    """[V, 1] f32 weight: 1 on the valid rows [0, num_valid), 0 after."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    nv = torch.as_tensor(num_valid, device=x.device)
+    return (rows < nv).to(torch.promote_types(x.dtype, torch.float32))[:, None]
+
+
+class _InstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, num_valid, eps, impl):
+        ctx.eps = eps
+        ctx.save_for_backward(x, torch.as_tensor(num_valid, device=x.device))
+        if _cuda.use_kernel(x, impl):
+            return masked_instance_norm_kernel(x, num_valid, eps)
+        return masked_instance_norm_plain(x, None, 1, num_valid, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, num_valid = ctx.saved_tensors
+        w = _valid_weight(x, num_valid)
+        xa, ga = x.to(w.dtype), g.to(w.dtype)
+        n = torch.clamp(w.sum(), min=1.0)
+        mean = (xa * w).sum(0, keepdim=True) / n
+        c = (xa - mean) * w
+        r = ((c * c).sum(0, keepdim=True) / n + ctx.eps) ** -0.5
+        y = c * r
+        g_c = r * (ga - y * (w * ga * y).sum(0, keepdim=True) / n)
+        dx = w * (g_c - (w * g_c).sum(0, keepdim=True) / n)
+        return dx.to(x.dtype), None, None, None
 
 
 def masked_instance_norm_plain(x, graph_id, num_graphs, num_valid, eps=1e-5):
     """Plain torch version, the arithmetic of stinet_tpu/ops/norms.py:79-104:
     masked mean, then the centered variance, then (x-mean)*(var+eps)^-0.5."""
     acc = torch.promote_types(x.dtype, torch.float32)
-    rows = torch.arange(x.shape[0], device=x.device)
-    w = (rows < torch.as_tensor(num_valid, device=x.device)).to(acc)[:, None]
+    w = _valid_weight(x, num_valid)
     xa = x.to(acc)
     if num_graphs == 1:
         n = torch.clamp(w.sum(), min=1.0)

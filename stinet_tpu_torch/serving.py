@@ -6,12 +6,8 @@ the host (geometric bucket padding, so scene sizes land on a short ladder
 of shapes), moves it to the device in ONE copy, runs the generator and
 returns the valid level-0 rows.
 
-Host to device: only the leaves the inference forward reads are copied.
-Every one is 4 bytes wide (int32 or float32), so they are packed into one
-pinned int32 buffer, copied with
-`non_blocking=True`, and sliced back into typed views on the device. The
-pinned buffer is reused across requests; an event recorded after each copy
-guards it from being refilled while a copy still reads it.
+Host to device: only the leaves the inference forward reads are copied,
+in one copy (`PackedPlacer`, which the trainer's placement shares).
 
 Matmul precision: the forward runs its f32 matmuls in full f32, with TF32
 off (`full_f32_matmuls`), since TF32 would move the numbers away from the
@@ -82,34 +78,20 @@ def inference_graph(graph: HierarchicalGraph) -> HierarchicalGraph:
                                levels=levels)
 
 
-class SceneInpainter:
-    """Serve `model(graph)` over preprocessed scene hierarchies.
+class PackedPlacer:
+    """Moves a host graph to `device` in ONE host-to-device copy: every
+    leaf (int32 or float32) is packed into a pinned int32 buffer, copied
+    with `non_blocking=True`, and sliced back into typed views on the
+    device. The pinned buffer is reused across calls; an event recorded
+    after each copy guards it from being refilled while a copy still reads
+    it. On a CPU device the graph is moved leaf by leaf."""
 
-    model: a port generator (models/factory.define_G); state_dict: its
-    weights (reference key layout). impl=None runs the CUDA kernels on a
-    CUDA device; impl="plain" runs the plain torch versions there. The
-    server keeps its own copy of `model`; the caller's is left as it is.
-    """
-
-    def __init__(self, model: torch.nn.Module, state_dict, *,
-                 device="cuda", impl: Optional[str] = None):
-        self.device = resolve_device(device)
-        self.impl = impl
-        model = copy.deepcopy(model)
-        model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval()
+    def __init__(self, device: torch.device):
+        self.device = device
         self._pinned = None        # reusable pinned host buffer (int32)
         self._copy_done = None     # event after the last copy out of it
 
-    def build(self, scene: RawHierarchy) -> HierarchicalGraph:
-        """The scene's padded hierarchy, on the host, padded to the
-        geometric bucket ladder (as the JAX server pads)."""
-        return build_hierarchical_graph([scene], geometric=True)
-
-    def place(self, graph: HierarchicalGraph) -> HierarchicalGraph:
-        """Move the leaves of a host graph that the forward reads to the
-        device, in one host-to-device copy."""
-        graph = inference_graph(graph)
+    def __call__(self, graph: HierarchicalGraph) -> HierarchicalGraph:
         if self.device.type != "cuda":
             return graph.to(self.device)
         leaves = tensor_leaves(graph)
@@ -142,6 +124,35 @@ class SceneInpainter:
             return view
 
         return map_tensors(graph, unpack)
+
+
+class SceneInpainter:
+    """Serve `model(graph)` over preprocessed scene hierarchies.
+
+    model: a port generator (models/factory.define_G); state_dict: its
+    weights (reference key layout). impl=None runs the CUDA kernels on a
+    CUDA device; impl="plain" runs the plain torch versions there. The
+    server keeps its own copy of `model`; the caller's is left as it is.
+    """
+
+    def __init__(self, model: torch.nn.Module, state_dict, *,
+                 device="cuda", impl: Optional[str] = None):
+        self.device = resolve_device(device)
+        self.impl = impl
+        model = copy.deepcopy(model)
+        model.load_state_dict(state_dict)
+        self.model = model.to(self.device).eval()
+        self._placer = PackedPlacer(self.device)
+
+    def build(self, scene: RawHierarchy) -> HierarchicalGraph:
+        """The scene's padded hierarchy, on the host, padded to the
+        geometric bucket ladder (as the JAX server pads)."""
+        return build_hierarchical_graph([scene], geometric=True)
+
+    def place(self, graph: HierarchicalGraph) -> HierarchicalGraph:
+        """Move the leaves of a host graph that the forward reads to the
+        device, in one host-to-device copy."""
+        return self._placer(inference_graph(graph))
 
     @torch.inference_mode()
     def forward(self, graph: HierarchicalGraph) -> torch.Tensor:

@@ -1,20 +1,24 @@
-"""Where the device time of one flagship forward goes.
+"""Where the device time of one flagship forward, or train step, goes.
 
-    python -m stinet_tpu_torch.utils.profile_forward [--impl plain] [--reps 5]
+    python -m stinet_tpu_torch.utils.profile_forward [--impl plain]
+        [--train] [--reps 5]
 
-Builds the flagship scene and model (the ones chip_smoke.py drives), places
-the graph on the card, warms up, times `--reps` forwards with CUDA events
-(no profiler), then traces `--reps` more with torch.profiler. Prints, per
-forward: the untraced wall time, the device busy time of the traced
-forwards (the sum of kernel durations: one stream, so kernels do not
-overlap), the idle share (1 - busy / untraced wall: tracing slows the
-host's launches, so the traced window's own wall time overstates it), the
-number of kernel launches, and the busy time split by kind of kernel and by
-the top kernels. Needs a CUDA card; fails if the profiler records no device
-time.
+Builds the flagship scene and model (the ones chip_smoke.py drives): the
+f32 serving forward, or with --train the bf16 windowed train step of the
+production bf16 config. Places the graph on the card, warms up, times
+`--reps` runs with CUDA events (no profiler), then traces `--reps` more
+with torch.profiler. Prints, per run: the untraced wall time, the device
+busy time of the traced runs (the sum of kernel durations: one stream, so
+kernels do not overlap), the idle share (1 - busy / untraced wall: tracing
+slows the host's launches, so the traced window's own wall time overstates
+it), the number of kernel launches, and the busy time split by kind of
+kernel and by the top kernels. Needs a CUDA card; fails if the profiler
+records no device time.
 """
 import argparse
 import collections
+import json
+import pathlib
 import sys
 
 import torch
@@ -23,6 +27,10 @@ from torch.profiler import ProfilerActivity, profile
 
 # kernel-name fragments -> kind, first match wins
 KINDS = (("ell_fwd", "K1 edge-conv sum"),
+         ("ell_receiver", "K1 bf16 sum / dp"), ("ell_sender", "K1 dq"),
+         ("windowed_receiver", "K3a windowed sum"),
+         ("windowed_sender", "K3c windowed dq"),
+         ("multi_tensor", "optimizer"),
          ("column_partials", "K2 instance norm"),
          ("finalize", "K2 instance norm"),
          ("normalize_rows", "K2 instance norm"),
@@ -43,27 +51,62 @@ def _self_device_us(evt) -> float:
     raise AttributeError("profiler event has no device time field")
 
 
+BF16_CONFIG = (pathlib.Path(__file__).resolve().parents[2] / "experiments"
+               / "3d_inpainting" / "config"
+               / "config_stinet_surfacetextureinpainting_bf16.json")
+
+
+def serving_forward(impl):
+    """One f32 serving forward on the flagship graph."""
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    server = SceneInpainter(model, model.state_dict(), device="cuda",
+                            impl=impl)
+    graph = server.place(server.build(synthetic_scene(**FLAGSHIP_SCENE)))
+    return lambda: server.forward(graph)
+
+
+def train_step(impl):
+    """One bf16 train step of the production bf16 config on the windowed
+    flagship graph."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.models.factory import define_G
+    from stinet_tpu_torch.serving import PackedPlacer
+    from stinet_tpu_torch.trainers import graph_common as gc
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    cfg = json.loads(BF16_CONFIG.read_text())
+    model = define_G(**cfg["archs"]["SurfaceTextureInpaintingNet"]["args"],
+                     generator=torch.Generator().manual_seed(0)).cuda()
+    graph = PackedPlacer(torch.device("cuda", torch.cuda.current_device()))(
+        build_hierarchical_graph([synthetic_scene(**FLAGSHIP_SCENE)],
+                                 geometric=True, windowed=True))
+    opt, base_lr = gc.build_optimizer(model.parameters(), cfg["optimizer"])
+    lr = gc.step_lr(base_lr, cfg["lr_scheduler"])(1)
+    step, _ = gc.make_inpainting_steps(
+        model, opt, cfg["trainer"]["use_mask_weighted_loss"], impl=impl)
+    return lambda: step(graph, lr)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", choices=("kernel", "plain"), default="kernel",
                     help="the CUDA kernels, or their plain torch versions")
+    ap.add_argument("--train", action="store_true",
+                    help="the bf16 train step instead of the serving forward")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_forward: needs a CUDA card", file=sys.stderr)
         return 1
 
-    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
-    from stinet_tpu_torch.serving import SceneInpainter
-    from stinet_tpu_torch.utils.synthetic import (
-        FLAGSHIP_SCENE, synthetic_scene)
-
-    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    server = SceneInpainter(model, model.state_dict(), device="cuda",
-                            impl=None if args.impl == "kernel" else "plain")
-    graph = server.place(server.build(synthetic_scene(**FLAGSHIP_SCENE)))
+    impl = None if args.impl == "kernel" else "plain"
+    run = train_step(impl) if args.train else serving_forward(impl)
     for _ in range(3):
-        server.forward(graph)
+        run()
     torch.cuda.synchronize()
 
     def wall_ms():
@@ -71,7 +114,7 @@ def main(argv=None) -> int:
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.reps):
-            server.forward(graph)
+            run()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / args.reps
@@ -81,8 +124,11 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         traced_wall = wall_ms()
 
+    # device events, less the ranges of user annotations (the optimizer
+    # marks its step on the device timeline): kernels only
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(_self_device_us(e) for e in kernels) / 1e3 / args.reps
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -92,8 +138,9 @@ def main(argv=None) -> int:
         by_kind[kind_of(e.key)] += _self_device_us(e) / 1e3 / args.reps
 
     card = torch.cuda.get_device_name(0)
+    what = "train step" if args.train else "forward"
     print(f"[profile] impl={args.impl} on {card}: {wall:.3f} ms wall per "
-          f"forward untraced ({traced_wall:.3f} ms traced), {busy:.3f} ms "
+          f"{what} untraced ({traced_wall:.3f} ms traced), {busy:.3f} ms "
           f"device busy, idle share {max(0.0, 1 - busy / wall):.1%}, "
           f"{launches:.0f} kernel launches")
     for kind, ms in by_kind.most_common():

@@ -12,7 +12,9 @@ import torch
 
 from stinet_tpu_torch.graph.build import build_hierarchical_graph
 from stinet_tpu_torch.models.factory import define_G
-from stinet_tpu_torch.ops import _cuda, ell, norms
+from stinet_tpu_torch.ops import _cuda, ell, norms, windowed
+from stinet_tpu_torch.serving import PackedPlacer
+from stinet_tpu_torch.trainers import graph_common as gc
 from stinet_tpu_torch.utils.synthetic import synthetic_scene
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +122,135 @@ def test_model_kernel_path_matches_plain_path(dev):
     torch.testing.assert_close(got[:nv], want[:nv], rtol=0, atol=1e-4)
     torch.testing.assert_close(got[:nv].cpu(), cpu_out[:nv], rtol=0,
                                atol=1e-4)
+
+
+def _bitwise(a, b):
+    assert a.dtype == b.dtype and a.shape == b.shape
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+def _table_case(rng, v, h, d, dtype, dev, halo=None):
+    """p, q, g, nbr, deg, rev, deg_out on the card; banded to `halo` when
+    given, with deg = 0 rows either way."""
+    base = np.arange(v)
+    if halo is None:
+        nbr = rng.integers(0, v, size=(v, d))
+    else:
+        nbr = np.clip(base[:, None] + rng.integers(-halo, halo + 1,
+                                                   size=(v, d)), 0, v - 1)
+    nbr = nbr.astype(np.int32)
+    deg = rng.integers(0, d + 1, size=v).astype(np.float32)
+    src = np.concatenate([nbr[i, :int(deg[i])] for i in range(v)])
+    dst = np.repeat(base, deg.astype(np.int64))
+    deg_out = np.bincount(src, minlength=v)
+    rev = np.full((v, max(int(deg_out.max()), 1)), v - 1, np.int32)
+    order = np.argsort(src, kind="stable")
+    slot = np.arange(len(src)) - np.concatenate(
+        [[0], np.cumsum(deg_out)])[src[order]]
+    rev[src[order], slot] = dst[order]
+    feats = [_cuda_t((rng.normal(size=(v, h))
+                      * 10.0 ** rng.integers(-2, 3, size=(v, 1)))
+                     .astype(np.float32), dev).to(dtype) for _ in range(3)]
+    return (*feats, _cuda_t(nbr, dev), _cuda_t(deg, dev), _cuda_t(rev, dev),
+            _cuda_t(deg_out.astype(np.float32), dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("v,h,d", [(300, 16, 6), (257, 20, 12),
+                                   (1000, 130, 9), (4096, 128, 6),
+                                   (64, 512, 16), (7, 4, 0)])
+def test_ell_forward_and_backward_kernels_bitwise(dev, v, h, d, dtype):
+    rng = np.random.default_rng(v + h + d)
+    p, q, g, nbr, deg, rev, deg_out = _table_case(rng, v, h, d, dtype, dev)
+    counts = (ell.ell_edge_conv_sum_kernel.launches,
+              ell.ell_edge_conv_dp_kernel.launches,
+              ell.ell_edge_conv_dq_kernel.launches)
+    pairs = [
+        (ell.ell_edge_conv_sum_kernel(p, q, nbr, deg),
+         ell.ell_edge_conv_sum_plain(p, q, nbr, deg)),
+        (ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, g),
+         ell.ell_edge_conv_dp_plain(p, q, nbr, deg, g)),
+        (ell.ell_edge_conv_dq_kernel(q, g, p, rev, deg_out),
+         ell.ell_edge_conv_dq_plain(q, g, p, rev, deg_out))]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(pairs):
+        assert _bitwise(got, want), i
+    assert (ell.ell_edge_conv_sum_kernel.launches,
+            ell.ell_edge_conv_dp_kernel.launches,
+            ell.ell_edge_conv_dq_kernel.launches) == tuple(
+                c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("v,h,d,halo,tile", [
+    (1024, 128, 12, 96, 256), (512, 72, 5, 40, 128),
+    (1024, 130, 12, 200, 256),   # window clamped at both ends of V
+    (72704, 128, 6, 256, 256), (23680, 256, 6, 192, 128),
+    (512, 64, 8, 512, 128)])     # halo past V: the window is all of V
+def test_windowed_kernels_bitwise(dev, v, h, d, halo, tile):
+    rng = np.random.default_rng(v + h)
+    p, q, g, nbr, deg, rev, deg_out = _table_case(
+        rng, v, h, d, torch.bfloat16, dev, halo=halo)
+    assert windowed.band_violations(nbr, deg, halo, tile) == 0
+    assert windowed.band_violations(rev, deg_out, halo, tile) == 0
+    before = (windowed.windowed_edge_conv_sum_kernel.launches,
+              windowed.windowed_dq_kernel.launches)
+    for mode in ("relu", "step"):
+        got = windowed.windowed_edge_conv_sum(p, q, nbr, deg, halo, tile,
+                                              mode)
+        want = windowed.windowed_edge_conv_sum(p, q, nbr, deg, halo, tile,
+                                               mode, impl="plain")
+        torch.cuda.synchronize()
+        assert _bitwise(got, want), mode
+    got = windowed.windowed_dq(q, g, p, rev, deg_out, halo, tile)
+    want = windowed.windowed_dq(q, g, p, rev, deg_out, halo, tile,
+                                impl="plain")
+    torch.cuda.synchronize()
+    assert _bitwise(got, want)
+    assert (windowed.windowed_edge_conv_sum_kernel.launches,
+            windowed.windowed_dq_kernel.launches) == (before[0] + 2,
+                                                       before[1] + 1)
+
+
+def test_windowed_kernels_reject_what_they_do_not_take(dev):
+    p = torch.zeros(256, 128, dtype=torch.bfloat16, device=dev)
+    nbr = torch.zeros(256, 4, dtype=torch.int32, device=dev)
+    deg = torch.zeros(256, device=dev)
+    with pytest.raises(TypeError):
+        windowed.windowed_edge_conv_sum_kernel(p.float(), p.float(), nbr,
+                                               deg, 32, 128)
+    with pytest.raises(ValueError):
+        windowed.windowed_edge_conv_sum_kernel(p, p, nbr, deg, 32, 96)
+    with pytest.raises(RuntimeError):   # a window taller than shared memory
+        big = torch.zeros(65536, 8, dtype=torch.bfloat16, device=dev)
+        windowed.windowed_dq_kernel(
+            big, big, big, torch.zeros(65536, 2, dtype=torch.int32,
+                                       device=dev),
+            torch.zeros(65536, device=dev), 65536, 256)
+
+
+def test_bf16_train_step_kernel_path_matches_plain_path(dev):
+    """One bf16 step on a windowed scene: every kernel of the path runs,
+    and the loss equals the plain path's from the same weights."""
+    args = dict(input_nc=10, output_nc=3, ngf=64,
+                filter_type="edgeconvtransinv", norm="instance", n_blocks=2,
+                dilations=[1, 2], pooling_type="max", dtype="bfloat16",
+                checkpoint_bottleneck=True)
+    graph = build_hierarchical_graph(
+        [synthetic_scene(4096, levels=3, seed=2, dilation_dists=(2,))],
+        geometric=True, windowed=True)
+    g = PackedPlacer(dev)(graph)
+    losses = []
+    for impl in (None, "plain"):
+        model = define_G(**args, generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        opt, lr = gc.build_optimizer(model.parameters(),
+                                     {"type": "Adam", "args": {
+                                         "lr": 7e-5, "amsgrad": True}})
+        step, _ = gc.make_inpainting_steps(model, opt, True, impl=impl)
+        before = windowed.windowed_dq_kernel.launches
+        losses.append(float(step(g, lr)["loss"]))
+        assert (windowed.windowed_dq_kernel.launches > before) == (
+            impl is None)
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])

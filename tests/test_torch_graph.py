@@ -120,12 +120,6 @@ def test_bucket_size_matches_jax(n, multiple, geometric):
             == jax_build.bucket_size(n, multiple, geometric))
 
 
-def test_windowed_build_is_not_ported():
-    scene = port_synthetic.synthetic_scene(512, levels=2, seed=0)
-    with pytest.raises(NotImplementedError):
-        port_build.build_hierarchical_graph([scene], windowed=True)
-
-
 def test_graph_to_device_keeps_every_leaf():
     g = port_build.build_hierarchical_graph(
         [port_synthetic.synthetic_scene(1024, levels=3, seed=0)])

@@ -193,5 +193,7 @@ def test_unported_options_raise():
         define_G(**{**CFG, "filter_type": "sageconv"})
     with pytest.raises(NotImplementedError):
         define_G(**CFG, use_label_embedding=True)
+    with pytest.raises(NotImplementedError):
+        define_G(**CFG, dtype="float16")
     with pytest.raises(ValueError):
         state_dict_from_jax_params({"label_embedding": {"embedding": 0}})
