@@ -42,7 +42,23 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    the calls phase 6 recorded (checkpointed blocks run their forward
    twice); one step on a small scene against the CPU plain path
    (SMALL_TRAIN_TOL); then ms/step by CUDA events, split into forward,
-   backward and optimizer, and the peak device memory of a step.
+   backward and optimizer, and the peak device memory of a step;
+8. serving-windowed: the flagship f32 server with windowed=True on phase
+   5's build; every K3b call of one plain-path forward held bit for bit
+   against its plain version and against f32 K1 on the same inputs, each
+   of the three timed, with K3b's bound; the K3b launches of one predict
+   equal to the convs the dispatch sends to it (at least 1); the output
+   (in the scene's vertex order) within PATH_TOL of phase 4's and of the
+   windowed plain path; ms/scene split into phases;
+9. serving-batched: `predict_batch` at B = BATCH (flagship scenes of seeds
+   0..B-1) stacked and concatenated, each scene within PATH_TOL of its own
+   forward; every multi-graph K2 call of the concatenated forward within
+   K2_RTOL/K2_ATOL of its plain version, timed beside `F.instance_norm` on
+   the [B, C, V/B] view of the valid rows; ms per batch and ms/scene in
+   both layouts, and one scene's forward as a view of the stack, copied,
+   and placed alone; then `predict_stream` over STREAM scenes, in order
+   and each within PATH_TOL of its own forward, with its ms/scene over the
+   whole stream and after the first result, and `stream_stats()`.
 
 The last two lines are the kernel record and the result, one JSON object
 each. Without a CUDA card the script exits nonzero and prints no result.
@@ -71,6 +87,10 @@ STEP_REPS = 10              # timed train steps
 TRAIN_TOL = 1e-3            # each step's loss, kernel path vs plain path
 SMALL_TRAIN_TOL = 1e-2      # small scene, card kernel path vs CPU plain
 MIN_K3_CONVS = 5            # windowed convs per flagship bf16 forward
+WINDOWED_REPS = 3           # timed windowed predicts (the RCM build is slow)
+BATCH = 4                   # scenes in a predict_batch
+BATCH_REPS = 2              # timed predict_batch calls per layout
+STREAM = 8                  # scenes in the predict_stream run
 
 
 def say(phase, msg):
@@ -254,6 +274,38 @@ def check_k2(torch, calls):
                 bound_by="bytes" if kinds == {"bytes"} else "operations")
 
 
+def time_predict(torch, server, scene, reps):
+    """`server.predict(scene)` end to end by the host clock (host build,
+    copy, forward, copy back; median of `reps` after 2 warm calls), then
+    the same steps one by one, each run to its end, so the phases of one
+    request are read in one loop. Returns (ms, "phase ms, ...")."""
+    nv = scene.num_vertices[0]
+    for _ in range(2):
+        server.predict(scene)
+    e2e = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        server.predict(scene)
+        e2e.append((time.perf_counter() - t) * 1e3)
+    phases = {"build": [], "place": [], "forward": [], "copy back": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        host = server.build(scene)
+        t1 = time.perf_counter()
+        placed = server.place(host)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dev_out = server.forward(placed)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        dev_out[:nv].cpu().numpy()
+        t4 = time.perf_counter()
+        for k, a, b in (("build", t0, t1), ("place", t1, t2),
+                        ("forward", t2, t3), ("copy back", t3, t4)):
+            phases[k].append((b - a) * 1e3)
+    return statistics.median(e2e), ", ".join(
+        f"{k} {statistics.median(v):.2f}" for k, v in phases.items())
+
 
 # --- the bf16 windowed train path -----------------------------------------
 
@@ -274,27 +326,36 @@ def conv_uses(model):
     return uses
 
 
-def windowed_build(torch, scene, model):
-    """Phase 5: the windowed flagship graph, placed on the card, with the
-    K3 dispatch of each conv printed; returns the placed graph."""
-    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+def windowed_convs(torch, phase, model, host, dtype):
+    """How many convs of one forward of `model` on the host graph `host`
+    the dispatch sends to the windowed kernels, for rows of `dtype`; each
+    conv's edge set and route printed."""
     from stinet_tpu_torch.ops.message_passing import windowed_kernel_applies
-    from stinet_tpu_torch.ops.windowed import band_violations, default_tile
-    from stinet_tpu_torch.serving import PackedPlacer
-    t0 = time.perf_counter()
-    host = build_hierarchical_graph([scene], geometric=True, windowed=True)
-    secs = time.perf_counter() - t0
     k3 = 0
     for level, dist, h in conv_uses(model):
         lv = host.levels[level]
         e = lv.edges if dist is None else lv.dilated[dist]
         v = lv.num_padded_vertices
-        meta = torch.empty(v, h, dtype=torch.bfloat16, device="meta")
+        meta = torch.empty(v, h, dtype=dtype, device="meta")
         uses_k3 = e.nbr is not None and windowed_kernel_applies(meta, e.halo)
         k3 += uses_k3
-        say("windowed", f"level {level} {'dil ' + str(dist) if dist else 'base'}"
+        say(phase, f"level {level} {'dil ' + str(dist) if dist else 'base'}"
             f": V_pad={v} H={h} D={None if e.nbr is None else e.nbr.shape[1]}"
             f" halo={e.halo} -> {'K3 (windowed)' if uses_k3 else 'K1 (ELL)'}")
+    return k3
+
+
+def windowed_build(torch, scene, model):
+    """Phase 5: the windowed flagship graph, placed on the card, with the
+    K3 dispatch of each conv printed; returns the host and the placed
+    graph."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.ops.windowed import band_violations, default_tile
+    from stinet_tpu_torch.serving import PackedPlacer
+    t0 = time.perf_counter()
+    host = build_hierarchical_graph([scene], geometric=True, windowed=True)
+    secs = time.perf_counter() - t0
+    k3 = windowed_convs(torch, "windowed", model, host, torch.bfloat16)
     check(k3 >= MIN_K3_CONVS, f"{k3} convs per forward take the windowed "
           f"kernels, expected at least {MIN_K3_CONVS}")
     graph = PackedPlacer(next(model.parameters()).device)(host)
@@ -310,7 +371,7 @@ def windowed_build(torch, scene, model):
     say("windowed", f"host build {secs * 1e3:.1f} ms (scipy RCM); "
         f"{k3} of {len(conv_uses(model))} convs per forward on K3; every K3 "
         "table within its band")
-    return graph
+    return host, graph
 
 
 @contextlib.contextmanager
@@ -634,6 +695,288 @@ def train_slice(torch, card, model, graph, cfg, captured):
         + f"; peak memory {peak:.2f} GiB; on {card}")
     return launches
 
+
+# --- windowed f32 and batched serving ----------------------------------------
+
+def _counters():
+    """Launch counters of the kernels on the f32 serving paths: (wrapper,
+    its counter attribute); the K2 wrapper counts its one-graph and its
+    multi-graph launches apart."""
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    k2 = norms.masked_instance_norm_kernel
+    return {"k3b": (windowed.windowed_edge_conv_sum_f32_kernel, "launches"),
+            "k1": (ell.ell_edge_conv_sum_kernel, "launches"),
+            "k2": (k2, "launches"),
+            "k2mg": (k2, "multigraph_launches")}
+
+
+def _zero(counters):
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _read(counters):
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def serving_windowed(torch, card, scene, whost, weights, ref_out):
+    """Phase 8: the flagship f32 server with windowed=True. Every K3b call
+    of one plain-path forward is recorded and held bitwise against its
+    plain version and against f32 K1 on the same inputs, each timed; one
+    predict on the kernel path, counted; its output against the
+    non-windowed kernel path's (`ref_out`) and against the
+    windowed plain path; then ms/scene by phase. Returns (server, K3b row,
+    launches of the predict)."""
+    from stinet_tpu_torch.graph.build import windowed_layout
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.ops import ell, windowed
+    from stinet_tpu_torch.serving import SceneInpainter, _scene_order
+    model = define_G(**FLAGSHIP)
+    server = SceneInpainter(model, weights, windowed=True, device="cuda")
+    plain = SceneInpainter(model, weights, windowed=True, device="cuda",
+                           impl="plain")
+    host = server._normalize_widths(whost)    # phase 5's windowed build
+    graph = server.place(host)
+    dispatched = windowed_convs(torch, "serving-windowed", model, host,
+                                torch.float32)
+    with record_calls({"k3b": (windowed, "windowed_edge_conv_sum_f32")}) \
+            as calls:
+        plain_dev = plain.forward(graph)
+    calls = calls["k3b"]
+    check(len(calls) == dispatched >= 1, f"{len(calls)} K3b calls recorded "
+          f"in one forward, the dispatch sends {dispatched} convs")
+    row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, k1_ms=0.0,
+               max_abs_err=0.0, library_ms=None, kinds=set())
+    for i, (p, q, nbr, deg, halo, tile, _) in enumerate(calls):
+        v, h = p.shape
+        got = windowed.windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
+                                                         halo, tile)
+        want = windowed.windowed_edge_conv_sum_f32(p, q, nbr, deg, halo,
+                                                   tile, impl="plain")
+        k1 = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+        torch.cuda.synchronize()
+        for other, what in ((want, "its plain version"), (k1, "f32 K1")):
+            check(torch.equal(got.view(torch.int32), other.view(torch.int32)),
+                  f"K3b call {i} V={v} H={h}: kernel and {what} differ")
+        ms = median_ms(torch, lambda: windowed.
+                       windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
+                                                         halo, tile))
+        plain_ms = median_ms(torch, lambda: windowed.
+                             windowed_edge_conv_sum_f32(p, q, nbr, deg, halo,
+                                                        tile, impl="plain"))
+        k1_ms = median_ms(torch, lambda: ell.ell_edge_conv_sum_kernel(
+            p, q, nbr, deg))
+        nbytes, slots = _slot_bytes(nbr, deg, 4, h, 1)
+        b_ms, b_by = bound(nbytes, 3 * h * slots)
+        staged = _staged_bytes(v, h, 4, halo, tile, 1)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                       ("k1_ms", k1_ms)):
+            row[k] += val
+        row["kinds"].add(b_by)
+        say("serving-windowed", f"K3b call {i} V={v} H={h} D={nbr.shape[1]} "
+            f"halo={halo} tile={tile} staged {staged / 1e6:.1f} MB: bitwise "
+            f"equal to its plain version and to f32 K1; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    row["bound_by"] = "bytes" if row.pop("kinds") == {"bytes"} else \
+        "operations"
+
+    counters = _counters()
+    _zero(counters)
+    out = server.predict(scene)
+    launches = _read(counters)
+    check(launches["k3b"] == dispatched,
+          f"K3b launched {launches['k3b']} times in one predict, the "
+          f"dispatch sends {dispatched} convs")
+    check(launches["k1"] > 0 and launches["k2"] > 0,
+          f"a kernel of the windowed forward never launched: {launches}")
+    nv = scene.num_vertices[0]
+    check(out.shape == (nv, 3), f"shape {out.shape}")
+    check(bool(torch.isfinite(torch.from_numpy(out)).all()), "non-finite")
+    check(float(abs(out).max()) <= 1.0, "output outside the tanh range")
+    ref_err = float(abs(out - ref_out).max())
+    plain_out = _scene_order(plain_dev[:nv].cpu().numpy(),
+                             windowed_layout(scene)[1])
+    plain_err = float(abs(out - plain_out).max())
+    check(ref_err <= PATH_TOL and plain_err <= PATH_TOL,
+          f"windowed predict vs non-windowed kernel path {ref_err:.3e}, vs "
+          f"windowed plain path {plain_err:.3e}: over {PATH_TOL}")
+    say("serving-windowed", f"predict {list(out.shape)} finite in [-1, 1]; "
+        f"launches {launches}; max |diff| against the non-windowed kernel "
+        f"path {ref_err:.3e}, against the windowed plain path "
+        f"{plain_err:.3e}")
+    ms, split = time_predict(torch, server, scene, WINDOWED_REPS)
+    fwd_ms = median_ms(torch, lambda: server.forward(graph), reps=10,
+                       inner=1)
+    say("serving-windowed", f"predict {ms:.2f} ms/scene end to end; by "
+        f"phase, median ms of {WINDOWED_REPS}: {split}; device forward "
+        f"{fwd_ms:.3f} ms; K3b {row['ms']:.4f} ms a forward against K1 on "
+        f"the same inputs {row['k1_ms']:.4f} ms; on {card}")
+    return server, row, launches
+
+
+def _equal_sizes_view(x, graph_id, num_graphs, nv):
+    """The valid rows of a batch of equal-size graphs as [G, C, n], the
+    layout `F.instance_norm` takes (None when the sizes differ)."""
+    import torch
+    sizes = torch.bincount(graph_id[:nv].to(torch.int64),
+                           minlength=num_graphs).tolist()
+    if len(set(sizes)) != 1:
+        return None
+    return x[:nv].view(num_graphs, sizes[0], -1).permute(0, 2, 1).contiguous()
+
+
+def check_multigraph_k2(torch, calls):
+    """Every recorded multi-graph K2 call on the kernel and on the plain
+    version (K2_RTOL/K2_ATOL), timed with its bound and beside
+    `F.instance_norm` on the [B, C, V/B] view of the valid rows."""
+    import torch.nn.functional as F
+    from stinet_tpu_torch.ops import norms
+    row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               max_abs_err=0.0, kinds=set())
+    for i, (x, gid, ng, nv, eps) in enumerate(calls):
+        v, c = x.shape
+        n = int(nv)
+        got = norms.masked_instance_norm_kernel(x, nv, eps, gid, ng)
+        want = norms.masked_instance_norm_plain(x, gid, ng, nv, eps)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=K2_RTOL, atol=K2_ATOL),
+              f"multi-graph K2 call {i} {tuple(x.shape)} G={ng}: max |diff| "
+              f"{err:.3e} exceeds rtol {K2_RTOL} / atol {K2_ATOL}")
+        check(torch.all(got[n:] == 0).item(), f"multi-graph K2 call {i}: "
+              "pad rows not 0")
+        xv = _equal_sizes_view(x, gid, ng, n)
+        check(xv is not None, f"multi-graph K2 call {i}: graphs of unequal "
+              "sizes, no [B, C, V/B] view")
+        ms = median_ms(torch, lambda: norms.masked_instance_norm_kernel(
+            x, nv, eps, gid, ng))
+        plain_ms = median_ms(torch, lambda: norms.masked_instance_norm_plain(
+            x, gid, ng, nv, eps))
+        lib = median_ms(torch, lambda: F.instance_norm(xv, eps=eps))
+        # the valid rows of x read once, every row of out written once
+        b_ms, b_by = bound(4 * c * (n + v), 7 * n * c)
+        for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                       ("library_ms", lib)):
+            row[k] += val
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["kinds"].add(b_by)
+        say("serving-batched", f"multi-graph K2 call {i:2d} V={v} C={c} "
+            f"G={ng} valid={n}: max |diff| {err:.3e}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, instance_norm {lib:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+    row["bound_by"] = "bytes" if row.pop("kinds") == {"bytes"} else \
+        "operations"
+    return row
+
+
+def serving_batched(torch, card, server, scene, first):
+    """Phase 9: predict_batch at B = BATCH (flagship scenes of seeds 0..B-1,
+    one size, so one stacked layout) on the windowed f32 server, stacked
+    and concatenated, each scene against its own forward; every
+    multi-graph K2 call of the concatenated forward held against its
+    plain version and timed; then predict_stream over STREAM scenes.
+    `first` is seed 0's (host graph, level-0 order), from phase 5's build.
+    Returns (multi-graph K2 row, launches of the concatenated batch)."""
+    import concurrent.futures
+    from stinet_tpu_torch.graph.hierarchy import map_tensors, scene_of
+    from stinet_tpu_torch.ops import norms
+    from stinet_tpu_torch.serving import SceneInpainter, _scene_order
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    scenes = [scene] + [synthetic_scene(**dict(FLAGSHIP_SCENE, seed=s))
+                        for s in range(1, STREAM)]
+    nv = scene.num_vertices[0]
+    # every scene's host graph built once, in the build's vertex order
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+        built = [first] + list(ex.map(server._build_scene, scenes[1:]))
+    build_s = time.perf_counter() - t0
+    hosts = [h for h, _ in built]
+    singles = [_scene_order(server.forward(server.place(h))[:nv].cpu()
+                            .numpy(), order) for h, order in built]
+    batch = scenes[:BATCH]
+
+    def agree(outs, count, label):
+        errs = [float(abs(a - b).max()) for a, b in zip(outs, singles)]
+        check(len(outs) == count and max(errs) <= PATH_TOL,
+              f"{label}: {len(outs)} outputs for {count} scenes, max |diff| "
+              f"against single-scene forwards {errs}")
+        return max(errs)
+
+    counters = _counters()
+    results = {}
+    for layout, stacked in (("stacked", True), ("concatenated", False)):
+        _zero(counters)
+        outs = server.predict_batch(batch, stacked=stacked)
+        launches = _read(counters)
+        err = agree(outs, BATCH, f"{layout} batch")
+        e2e = []
+        for _ in range(BATCH_REPS):
+            t = time.perf_counter()
+            server.predict_batch(batch, stacked=stacked)
+            e2e.append((time.perf_counter() - t) * 1e3)
+        results[layout] = (statistics.median(e2e), launches, err)
+    check(results["stacked"][1]["k2mg"] == 0 and
+          results["stacked"][1]["k2"] > 0,
+          f"the stacked layout runs single-graph norms: "
+          f"{results['stacked'][1]}")
+
+    # device forwards of both layouts, from the host graphs built above
+    st_graph = server.place(server._stack(hosts[:BATCH]))
+    st_fwd = median_ms(torch, lambda: server.forward_stacked(st_graph),
+                       reps=5, inner=1)
+    # one scene three ways: a view of the stack, the same leaves copied to
+    # fresh (aligned) tensors, and the scene placed alone
+    first = scene_of(st_graph, 0)
+    cloned = map_tensors(first, lambda t: t.clone())
+    alone = server.place(hosts[0])
+    one_ms = {k: median_ms(torch, lambda g=g: server.forward(g), reps=5,
+                           inner=1)
+              for k, g in (("stack view", first), ("copied", cloned),
+                           ("placed alone", alone))}
+    say("serving-batched", "device forward of scene 0, ms: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in one_ms.items()))
+    cc_graph = server.place(server._host_graph(batch))
+    cc_fwd = median_ms(torch, lambda: server.forward(cc_graph), reps=5,
+                       inner=1)
+    plain = SceneInpainter(server.model, server.model.state_dict(),
+                           windowed=True, device="cuda", impl="plain")
+    with record_calls({"k2": (norms, "masked_instance_norm_plain")}) as calls:
+        plain.forward(cc_graph)
+    calls = [c for c in calls["k2"] if c[2] > 1]
+    concat_launches = results["concatenated"][1]
+    check(concat_launches["k2mg"] == len(calls) > 0,
+          f"multi-graph K2 launched {concat_launches['k2mg']} times in the "
+          f"concatenated batch, {len(calls)} calls recorded on the plain "
+          "path")
+    row = check_multigraph_k2(torch, calls)
+    for layout, (ms, launches, err) in results.items():
+        fwd = st_fwd if layout == "stacked" else cc_fwd
+        say("serving-batched", f"B={BATCH} {layout}: {ms:.2f} ms a batch = "
+            f"{ms / BATCH:.2f} ms/scene end to end (median of {BATCH_REPS}); "
+            f"device forward {fwd:.3f} ms a batch = {fwd / BATCH:.3f} "
+            f"ms/scene; launches {launches}; max |diff| against single-scene "
+            f"forwards {err:.3e}")
+
+    # predict_stream: in order, each scene against its own forward
+    yields, outs = [], []
+    t0 = time.perf_counter()
+    for out in server.predict_stream(scenes):
+        outs.append(out)
+        yields.append(time.perf_counter())
+    err = agree(outs, STREAM, "predict_stream")
+    whole = (yields[-1] - t0) / len(yields) * 1e3
+    after = (yields[-1] - yields[0]) / (len(yields) - 1) * 1e3
+    say("serving-batched", f"predict_stream over {len(scenes)} scenes: "
+        f"{whole:.2f} ms/scene over the whole stream, {after:.2f} ms/scene "
+        f"after the first result; stream_stats {server.stream_stats()}; "
+        f"max |diff| "
+        f"against single-scene forwards {err:.3e}; host builds of "
+        f"{len(scenes) - 1} scenes on 4 threads {build_s:.2f} s; on {card}")
+    return row, concat_launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -643,6 +986,7 @@ def main():
     card = device_record(torch)
     build_kernels()
 
+    from stinet_tpu_torch.graph.build import windowed_layout
     from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
     from stinet_tpu_torch.ops.ell import ell_edge_conv_sum_kernel
     from stinet_tpu_torch.ops.norms import masked_instance_norm_kernel
@@ -702,40 +1046,11 @@ def main():
         f"plain path "
         f"max |diff| {small_err:.3e}")
 
-    # --- timing: end-to-end predict (host build + copy + forward + copy
-    # back) by the host clock; then the same steps one by one, each run
-    # to its end, so the phases of one request are read in one loop; and
-    # the device forward by CUDA events
-    for _ in range(2):
-        server.predict(scene)
-    e2e = []
-    for _ in range(PREDICT_REPS):
-        t = time.perf_counter()
-        server.predict(scene)
-        e2e.append((time.perf_counter() - t) * 1e3)
-    phases = {"build": [], "place": [], "forward": [], "copy back": []}
-    for _ in range(PREDICT_REPS):
-        t0 = time.perf_counter()
-        host = server.build(scene)
-        t1 = time.perf_counter()
-        placed = server.place(host)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        dev_out = server.forward(placed)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        dev_out[:nv].cpu().numpy()
-        t4 = time.perf_counter()
-        for k, a, b in (("build", t0, t1), ("place", t1, t2),
-                        ("forward", t2, t3), ("copy back", t3, t4)):
-            phases[k].append((b - a) * 1e3)
+    ms, split = time_predict(torch, server, scene, PREDICT_REPS)
     fwd_ms = median_ms(torch, lambda: server.forward(graph), reps=20,
                        inner=1)
     plain_fwd_ms = median_ms(torch, lambda: plain_server.forward(graph),
                              reps=20, inner=1)
-    ms = statistics.median(e2e)
-    split = ", ".join(f"{k} {statistics.median(v):.2f}"
-                      for k, v in phases.items())
     say("slice", f"predict {ms:.2f} ms/scene = "
         f"{nv / ms * 1e3:.0f} vertices/s end to end; by phase, median ms "
         f"of {PREDICT_REPS}: {split}; device forward {fwd_ms:.3f} ms "
@@ -746,7 +1061,7 @@ def main():
     del server, plain_server, graph
     train_model = define_G(**cfg["archs"]["SurfaceTextureInpaintingNet"][
         "args"], generator=torch.Generator().manual_seed(0)).cuda()
-    wgraph = windowed_build(torch, scene, train_model)
+    whost, wgraph = windowed_build(torch, scene, train_model)
     captured = capture_train_calls(torch, train_model, wgraph, cfg)
     say("train-kernels", "calls recorded in one plain-path step: "
         + ", ".join(f"{k} {len(v)}" for k, v in captured.items()))
@@ -759,6 +1074,14 @@ def main():
                if key in ("k3a", "k3c") else ""))
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
+
+    # --- windowed f32 and batched serving
+    del train_model, wgraph, captured
+    wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,
+                                                weights, out)
+    k2mg, b_launches = serving_batched(
+        torch, card, wserver, scene,
+        (wserver._normalize_widths(whost), windowed_layout(scene)[1]))
 
     cu = "stinet_tpu_torch/ops/cuda/"
     kernels = [
@@ -787,6 +1110,15 @@ def main():
         kernels.append(dict(name=name, route="cuda", source=cu + src,
                             replaces=replaces,
                             launches=train_launches[key], **train_rows[key]))
+    kernels += [
+        dict(name="windowed_edge_conv_sum_f32", route="cuda",
+             source=cu + "windowed_edge_conv.cu",
+             replaces="stinet_tpu/ops/pallas/onehot_gather.py:291",
+             launches=w_launches["k3b"], **k3b),
+        dict(name="masked_instance_norm_multigraph", route="cuda",
+             source=cu + "instance_norm.cu",
+             replaces="stinet_tpu/ops/pallas/instance_norm.py:77",
+             launches=b_launches["k2mg"], **k2mg)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys}

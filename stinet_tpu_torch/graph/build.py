@@ -9,13 +9,16 @@ The result holds CPU tensors that share memory with the numpy arrays;
 `HierarchicalGraph.to(device)` moves them.
 """
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from stinet_tpu_torch.graph.hierarchy import (
-    EdgeSet, GraphLevel, HierarchicalGraph)
+    EdgeSet, GraphLevel, HierarchicalGraph, map_tensors, tensor_leaves,
+    tree_structure)
 
 
 def bucket_size(n: int, multiple: int = 128, geometric: bool = False,
@@ -232,6 +235,11 @@ def reorder_bandwidth(sample: RawHierarchy) -> RawHierarchy:
     become banded (|src - dst| small), which the windowed kernels need.
     The graph, features, traces and dilated edge sets are only relabelled;
     `_auto_halo` reads the band from whatever ordering was achieved."""
+    return _reorder_bandwidth(sample)[0]
+
+
+def _reorder_bandwidth(sample: RawHierarchy):
+    """(`reorder_bandwidth(sample)`, its level-0 order: order[new] = old)."""
     perms, newids = [], []   # perms[l][new] = old; newids[l][old] = new
     for l, nv in enumerate(sample.num_vertices):
         order, inv = rcm_perm(sample.level_edges[l], nv)
@@ -251,7 +259,17 @@ def reorder_bandwidth(sample: RawHierarchy) -> RawHierarchy:
         labels=sample.labels[p0] if sample.labels is not None else None,
         level_edges=[remap_edges(e, l)
                      for l, e in enumerate(sample.level_edges)],
-        traces=new_traces, dilated=new_dilated)
+        traces=new_traces, dilated=new_dilated), p0
+
+
+def windowed_layout(sample: RawHierarchy, quantile: float = 0.999):
+    """(sample, order): `sample` in the vertex order a windowed build gives
+    it, marked `banded` so a build keeps that order, and its level-0 order
+    (order[new_id] = old_id), None where the ids are kept (`_is_banded`)."""
+    if sample.banded or _is_banded(sample, quantile):
+        return dataclasses.replace(sample, banded=True), None
+    out, order = _reorder_bandwidth(sample)
+    return dataclasses.replace(out, banded=True), order
 
 
 # a scene whose every level already ladders to a halo at or below this (the
@@ -325,14 +343,13 @@ def build_hierarchical_graph(
     one trash row, rounded up to `pad_multiple` (geometrically with
     `geometric`).
 
-    With `windowed`, samples are RCM-reordered (`reorder_bandwidth`) unless
+    With `windowed`, samples are RCM-reordered (`windowed_layout`) unless
     their ids are already banded (`_is_banded`), and each edge set's ELL
     tables are banded to a halo read from the band's `window_quantile`
     (out-of-band edges spill to COO), which the windowed kernels need.
     """
     if windowed:
-        samples = [s if (s.banded or _is_banded(s, window_quantile))
-                   else reorder_bandwidth(s) for s in samples]
+        samples = [windowed_layout(s, window_quantile)[0] for s in samples]
     num_levels = len(samples[0].num_vertices)
     num_graphs = len(samples)
 
@@ -412,3 +429,201 @@ def build_hierarchical_graph(
         traces=tuple(traces), num_graphs=num_graphs, labels=_t(labels),
         children=tuple(_t(c[0]) for c in children),
         child_counts=tuple(_t(c[1]) for c in children))
+
+
+# ---------------------------------------------------------------------------
+# Stacked batching: each scene as its own single-scene padded graph, every
+# tensor stacked to [B, ...], so a forward runs scene by scene over tables
+# that never mix scenes. The vertex and edge buckets are forced to common
+# values; the data-dependent table dims (ELL slot width, reverse width,
+# spill length, children width, windowed halos) are padded up to explicit
+# `widths` so every scene of a batch has one layout. Padding is trash-filled
+# and masked everywhere, so it changes no valid row.
+# ---------------------------------------------------------------------------
+
+def table_widths(graph: HierarchicalGraph) -> Dict[tuple, int]:
+    """Data-dependent table dims of a built graph, keyed by
+    (level, dist, field) with dist None for the base edge set; windowed
+    halos ride along as (level, dist, "halo"). Merge dicts across graphs
+    with `merge_widths` and apply them with `pad_tables_to_widths`."""
+    out = {}
+
+    def es_widths(es, li, dk):
+        out[(li, dk, "edges")] = int(es.src.shape[0])
+        if es.nbr is not None:
+            out[(li, dk, "nbr")] = int(es.nbr.shape[1])
+            out[(li, dk, "rev_dst")] = int(es.rev_dst.shape[1])
+            out[(li, dk, "spill")] = (0 if es.spill_src is None
+                                      else int(es.spill_src.shape[0]))
+            if es.halo is not None:
+                out[(li, dk, "halo")] = int(es.halo)
+
+    for li, lev in enumerate(graph.levels):
+        es_widths(lev.edges, li, None)
+        for d, es in lev.dilated.items():
+            es_widths(es, li, int(d))
+    for l, ch in enumerate(graph.children):
+        if ch is not None:
+            out[(l, None, "children")] = int(ch.shape[1])
+    return out
+
+
+def merge_widths(dicts) -> Dict[tuple, int]:
+    """Key-union maximum. A graph missing a key another has (an ELL table
+    that fell back to COO, a missing dilation distance) still cannot share
+    a stacked layout: `stack_graphs` raises on it."""
+    merged = {}
+    for d in dicts:
+        for k, v in d.items():
+            merged[k] = max(merged.get(k, 0), int(v))
+    return merged
+
+
+def _pad_cols(a: torch.Tensor, width: int, fill: int) -> torch.Tensor:
+    """a ([N] or [N, K]) padded with `fill` to `width` along its last axis."""
+    shape = a.shape[:-1] + (width - a.shape[-1],)
+    return torch.cat([a, torch.full(shape, fill, dtype=a.dtype)], dim=-1)
+
+
+def pad_tables_to_widths(graph: HierarchicalGraph,
+                         widths: Dict[tuple, int]) -> HierarchicalGraph:
+    """Pad every data-dependent table dim up to `widths` with trash entries.
+    Widths below the built dims are ignored (padding only grows)."""
+    def pad_es(es, li, dk, trash):
+        upd = {}
+        w = widths.get((li, dk, "edges"), 0)
+        if w > es.src.shape[0]:
+            # trash self-edges at the tail keep the list sorted by dst
+            # (trash is the largest vertex id)
+            upd["src"] = _pad_cols(es.src, w, trash)
+            upd["dst"] = _pad_cols(es.dst, w, trash)
+        if es.nbr is not None:
+            for f in ("nbr", "rev_dst"):
+                w = widths.get((li, dk, f), 0)
+                if w > getattr(es, f).shape[1]:
+                    upd[f] = _pad_cols(getattr(es, f), w, trash)
+            cur = 0 if es.spill_src is None else int(es.spill_src.shape[0])
+            w = widths.get((li, dk, "spill"), 0)
+            if w > cur:
+                for f in ("spill_src", "spill_dst"):
+                    base = getattr(es, f)
+                    if base is None:
+                        base = torch.zeros(0, dtype=torch.int32)
+                    upd[f] = _pad_cols(base, w, trash)
+            h = widths.get((li, dk, "halo"))
+            if h is not None and es.halo is not None and h > es.halo:
+                # a larger halo is still a bound of the band
+                upd["halo"] = h
+        return dataclasses.replace(es, **upd) if upd else es
+
+    levels = []
+    for li, lev in enumerate(graph.levels):
+        trash = lev.num_padded_vertices - 1
+        levels.append(dataclasses.replace(
+            lev, edges=pad_es(lev.edges, li, None, trash),
+            dilated={d: pad_es(es, li, int(d), trash)
+                     for d, es in lev.dilated.items()}))
+    children = []
+    for l, ch in enumerate(graph.children):
+        w = widths.get((l, None, "children"), 0)
+        if ch is not None and w > ch.shape[1]:
+            ch = _pad_cols(ch, w, graph.levels[l].num_padded_vertices - 1)
+        children.append(ch)
+    return dataclasses.replace(graph, levels=tuple(levels),
+                               children=tuple(children))
+
+
+def stack_graphs(graphs: Sequence[HierarchicalGraph]) -> HierarchicalGraph:
+    """Stack single-scene graphs of one layout to [B, ...] tensors. Raises
+    ValueError when their structures (`tree_structure`: halos, ELL or COO,
+    dilation sets) or any tensor's shape differ; pad them with
+    `pad_tables_to_widths` at merged widths first."""
+    ref = tree_structure(graphs[0])
+    for g in graphs[1:]:
+        if tree_structure(g) != ref:
+            raise ValueError(
+                "scenes produce different graph structures (static halo or "
+                "ELL/COO layout mismatch); cannot stack")
+    columns = list(zip(*(tensor_leaves(g) for g in graphs)))
+    for col in columns:
+        if len({tuple(t.shape) for t in col}) > 1:
+            raise ValueError(
+                f"scenes land on different table shapes "
+                f"({[tuple(t.shape) for t in col]}); force common v_buckets "
+                "and pad_tables_to_widths first")
+    stacked = iter([torch.stack(col) for col in columns])
+    return map_tensors(graphs[0], lambda _: next(stacked))
+
+
+def build_stacked_graph(samples: Sequence[RawHierarchy],
+                        v_buckets: Optional[Sequence[int]] = None,
+                        widths: Optional[Dict[tuple, int]] = None,
+                        geometric: bool = False,
+                        windowed: bool = False):
+    """Build each sample as a single-scene graph at common vertex buckets,
+    pad the data-dependent table dims to one layout and stack. Returns
+    (stacked graph, widths used). Pass `widths` to pin the layout (a
+    scene that needs more raises ValueError); otherwise the batch maxima
+    are used. Builds run on a thread pool (numpy's sorts release the
+    GIL)."""
+    num_levels = len(samples[0].num_vertices)
+    if v_buckets is None:
+        v_buckets = [
+            max(bucket_size(int(s.num_vertices[l]) + 1, geometric=geometric)
+                for s in samples)
+            for l in range(num_levels)]
+
+    # the union of dilation distances per level: a sample whose dilated set
+    # for some distance is empty must still build that (empty) edge set, or
+    # the scenes' structures differ
+    union_dists = {l: {int(d) for s in samples for d in s.dilated.get(l, {})}
+                   for l in range(num_levels)}
+    if widths is not None:
+        for (li, dk, _f) in widths:
+            if dk is not None:
+                union_dists.setdefault(li, set()).add(int(dk))
+    if any(union_dists.values()):
+        fixed = []
+        for s in samples:
+            dil = {l: dict(s.dilated.get(l, {})) for l in s.dilated}
+            changed = False
+            for l, dists in union_dists.items():
+                for d in dists:
+                    if d not in dil.setdefault(l, {}):
+                        dil[l][d] = np.zeros((2, 0), np.int64)
+                        changed = True
+            fixed.append(dataclasses.replace(s, dilated=dil)
+                         if changed else s)
+        samples = fixed
+
+    def one(s):
+        return build_hierarchical_graph([s], v_buckets=v_buckets,
+                                        geometric=geometric,
+                                        windowed=windowed)
+
+    workers = min(len(samples), os.cpu_count() or 4)
+    if workers <= 1:
+        graphs = [one(s) for s in samples]
+    else:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            graphs = list(pool.map(one, samples))
+    return pad_and_stack(graphs, widths)
+
+
+def pad_and_stack(graphs: Sequence[HierarchicalGraph],
+                  widths: Optional[Dict[tuple, int]] = None):
+    """Pad built single-scene graphs to one layout and stack them: every
+    table width to the batch maximum (`merge_widths`, windowed halos
+    included), or to `widths`, which pins the layout (a graph that needs
+    more raises ValueError). Returns (stacked graph, widths used)."""
+    batch_w = merge_widths([table_widths(g) for g in graphs])
+    if widths is not None:
+        over = {k: (batch_w[k], widths.get(k, 0)) for k in batch_w
+                if batch_w[k] > widths.get(k, 0)}
+        if over:
+            raise ValueError(
+                f"scene exceeds the pinned stacked layout "
+                f"{{key: (built, pinned)}} = {over}; pin wider widths")
+        batch_w = dict(widths)
+    graphs = [pad_tables_to_widths(g, batch_w) for g in graphs]
+    return stack_graphs(graphs), batch_w

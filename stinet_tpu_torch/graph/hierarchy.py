@@ -15,6 +15,11 @@ same static-shape, padded one:
 Every array is a torch tensor. `num_vertices` and `num_edges` are 0-d int32
 tensors, so a forward reads them on the device without a host round trip;
 `halo` and `num_graphs` are Python ints.
+
+A stacked batch (graph/build.py `stack_graphs`) is one graph whose every
+tensor carries a leading scene axis [B, ...]; `scene_of` takes scene i out
+of it, and `tree_structure` stands in for JAX's treedef when graphs are
+checked for a shared layout.
 """
 import dataclasses
 from typing import Dict, Optional, Tuple
@@ -43,6 +48,35 @@ def tensor_leaves(obj):
     out = []
     map_tensors(obj, lambda t: out.append(t) or t)
     return out
+
+
+TENSOR = "<tensor>"   # a tensor leaf in `tree_structure`
+
+
+def tree_structure(obj):
+    """A hashable description of `obj` with every tensor leaf replaced by
+    TENSOR: dataclass types and fields, tuple lengths, dict keys, where the
+    None leaves are, and the static ints (`halo`, `num_graphs`). Two graphs
+    with equal structures hold their tensors at the same places, as two
+    pytrees with one JAX treedef do; their shapes may still differ."""
+    if isinstance(obj, torch.Tensor):
+        return TENSOR
+    if dataclasses.is_dataclass(obj):
+        return (type(obj).__name__,
+                tuple((f.name, tree_structure(getattr(obj, f.name)))
+                      for f in dataclasses.fields(obj)))
+    if isinstance(obj, tuple):
+        return tuple(tree_structure(o) for o in obj)
+    if isinstance(obj, dict):
+        return ("dict", tuple(sorted((k, tree_structure(v))
+                                     for k, v in obj.items())))
+    return obj
+
+
+def scene_of(stacked, i: int):
+    """Scene i of a stacked graph: every tensor indexed at i of its leading
+    scene axis (views, no copy)."""
+    return map_tensors(stacked, lambda t: t[i])
 
 
 @dataclasses.dataclass

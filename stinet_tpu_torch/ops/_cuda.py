@@ -112,6 +112,9 @@ _SIGNATURES = {
         # p, q, nbr, deg, out, V, H, D, tile, halo, W, mode, device, stream
         "windowed_edge_conv_sum_bf16":
             [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+        # p, q, nbr, deg, out, V, H, D, tile, halo, W, device, stream
+        "windowed_edge_conv_sum_f32":
+            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
         # q, g, p, rev, deg_out, out, V, H, D, tile, halo, W, device, stream
         "windowed_dq_bf16":
             [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
@@ -120,6 +123,9 @@ _SIGNATURES = {
         # x, num_valid, out, scratch, V, C, eps, device, stream
         "masked_instance_norm_f32":
             [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP],
+        # x, num_valid, graph_id, out, scratch, V, C, G, eps, device, stream
+        "masked_instance_norm_multigraph_f32":
+            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _F, _I, _VP],
     },
 }
 
@@ -135,7 +141,7 @@ def library(name: str) -> ctypes.CDLL:
     lib.stinet_cuda_error_string.argtypes = [ctypes.c_int]
     lib.stinet_cuda_error_string.restype = ctypes.c_char_p
     if name == "instance_norm":
-        lib.masked_instance_norm_f32_scratch_floats.argtypes = [_I, _I]
+        lib.masked_instance_norm_f32_scratch_floats.argtypes = [_I, _I, _I]
         lib.masked_instance_norm_f32_scratch_floats.restype = ctypes.c_int64
     return lib
 

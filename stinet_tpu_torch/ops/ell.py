@@ -52,21 +52,31 @@ class _EllEdgeConvSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        p, q, nbr, deg, rev_dst, out_degree = ctx.saved_tensors
-        g = g.contiguous()
-        dp = dq = None
-        if ctx.needs_input_grad[0]:
-            dp = (ell_edge_conv_dp_kernel(p, q, nbr, deg, g)
-                  if _cuda.use_kernel(p, ctx.impl)
-                  else ell_edge_conv_dp_plain(p, q, nbr, deg, g))
-        if ctx.needs_input_grad[1]:
-            if rev_dst is None or out_degree is None:
-                raise ValueError("the gradient in q needs the edge set's "
-                                 "rev_dst and out_degree tables")
-            dq = (ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree)
-                  if _cuda.use_kernel(q, ctx.impl)
-                  else ell_edge_conv_dq_plain(q, g, p, rev_dst, out_degree))
+        dp, dq = ell_edge_conv_grads(*ctx.saved_tensors, g, ctx.impl,
+                                     ctx.needs_input_grad[:2])
         return dp, dq, None, None, None, None, None
+
+
+def ell_edge_conv_grads(p, q, nbr, deg, rev_dst, out_degree, g, impl=None,
+                        needs=(True, True)):
+    """(dp, dq) of the relu slot sum for the cotangent g, each a kernel on
+    a CUDA tensor (None where `needs` says the gradient is not wanted).
+    The backward of ell_edge_conv_sum and of the f32 windowed sum
+    (ops/windowed.py), as JAX's f32 windowed VJP reuses ops/ell.py's."""
+    g = g.contiguous()
+    dp = dq = None
+    if needs[0]:
+        dp = (ell_edge_conv_dp_kernel(p, q, nbr, deg, g)
+              if _cuda.use_kernel(p, impl)
+              else ell_edge_conv_dp_plain(p, q, nbr, deg, g))
+    if needs[1]:
+        if rev_dst is None or out_degree is None:
+            raise ValueError("the gradient in q needs the edge set's "
+                             "rev_dst and out_degree tables")
+        dq = (ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree)
+              if _cuda.use_kernel(q, impl)
+              else ell_edge_conv_dq_plain(q, g, p, rev_dst, out_degree))
+    return dp, dq
 
 
 def _acc_dtype(t):

@@ -1,7 +1,7 @@
-"""Windowed EdgeConv message sums for bandwidth-ordered graphs (bf16).
+"""Windowed EdgeConv message sums for bandwidth-ordered graphs.
 
-PyTorch counterpart of `stinet_tpu/ops/pallas/onehot_gather.py` (K3a, K3c
-and the custom VJP K3d). On a graph whose ELL tables are banded,
+PyTorch counterpart of `stinet_tpu/ops/pallas/onehot_gather.py` (K3a, K3b,
+K3c and the custom VJPs K3d). On a graph whose ELL tables are banded,
 |nbr[v, d] - v| <= halo on every live slot (graph/build.py with
 windowed=True), the senders of a tile of T receivers all lie in one window
 of rows [w0, w0 + W), W = min(T + 2*halo, V), and the reverse table is
@@ -15,17 +15,19 @@ slice at a time, and gather from there.
   dq:   out[s] = sum_{j < deg_out[s]} g[r] * step(p[r] + q[s]),
         r = rev_dst[s, j]
 
-Inputs are cast to bf16; p + q is a bf16 add, compare and relu run in f32,
-slots accumulate in f32 in slot order, and the output is bf16. The plain
-versions are the slot loops of ops/ell.py in bf16, which is what the one-hot
-gather computes exactly; a CUDA tensor takes the kernel, a CPU tensor (or
-impl="plain") the plain version.
+bf16 (K3a, K3c): inputs are cast to bf16; p + q is a bf16 add, compare and
+relu run in f32, slots accumulate in f32 in slot order, and the output is
+bf16. f32 (K3b, relu only): the same loop on f32 rows, bit for bit the f32
+ELL sum of ops/ell.py; its backward is the ELL backward, as JAX's f32 VJP
+reuses ops/ell.py's. The plain versions are the slot loops of ops/ell.py,
+which is what the one-hot gather computes exactly; a CUDA tensor takes the
+kernel, a CPU tensor (or impl="plain") the plain version.
 """
 import torch
 
 from stinet_tpu_torch.ops import _cuda
 from stinet_tpu_torch.ops.ell import (
-    _check_rows, _check_table, ell_edge_conv_dq_plain,
+    _check_rows, _check_table, ell_edge_conv_dq_plain, ell_edge_conv_grads,
     ell_edge_conv_sum_plain)
 
 _MODES = {"relu": 0, "step": 1}
@@ -84,9 +86,19 @@ def windowed_dq(q, g, p, rev_dst, deg_out, halo, tile, impl=None):
     return ell_edge_conv_dq_plain(q16, g16, p16, rev_dst, deg_out)
 
 
-def _check(names, rows, idx, count, dev):
-    if _check_rows(names, rows, dev) != "bf16":
-        raise TypeError(f"{names[0]}: the windowed kernels take bfloat16, "
+def windowed_edge_conv_sum_f32(p, q, nbr, deg, halo, tile, impl=None):
+    """K3b: the relu slot sum over a banded window on f32 rows, bit for bit
+    the f32 `ell_edge_conv_sum`. p, q: [V, H] f32; nbr: [V, D] int32; deg:
+    [V] f32. Returns [V, H] f32."""
+    if _cuda.use_kernel(p, impl):
+        return windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile)
+    return ell_edge_conv_sum_plain(p, q, nbr, deg)
+
+
+def _check(names, rows, idx, count, dev, dtype="bf16"):
+    got = _check_rows(names, rows, dev)
+    if got != dtype:
+        raise TypeError(f"{names[0]}: this windowed kernel takes {dtype}, "
                         f"got {rows[0].dtype}")
     _check_table(idx, count, rows[0].shape[0], dev)
 
@@ -112,6 +124,29 @@ def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu"):
 
 
 windowed_edge_conv_sum_kernel.launches = 0
+
+
+def windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile):
+    """Launch `windowed_edge_conv_sum_f32` (ops/cuda/windowed_edge_conv.cu)
+    on the current stream; every live slot of `nbr` must lie in its tile's
+    window. Raises on a tensor it does not take or a failed launch; never
+    falls back."""
+    dev = p.device
+    _check(("p", "q"), (p, q), nbr, deg, dev, "f32")
+    v, h = p.shape
+    halo, w = window_geometry(v, tile, halo)
+    out = torch.empty_like(p)
+    lib = _cuda.library("windowed_edge_conv")
+    rc = lib.windowed_edge_conv_sum_f32(
+        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+        out.data_ptr(), v, h, nbr.shape[1], tile, halo, w, dev.index,
+        _cuda.stream_of(dev))
+    _cuda.check_status(lib, "windowed_edge_conv_sum_f32", rc)
+    windowed_edge_conv_sum_f32_kernel.launches += 1
+    return out
+
+
+windowed_edge_conv_sum_f32_kernel.launches = 0
 
 
 def windowed_dq_kernel(q, g, p, rev_dst, deg_out, halo, tile):
@@ -171,4 +206,23 @@ class WindowedEdgeConvSum(torch.autograd.Function):
         dp = (g.to(torch.float32) * step_sum.to(torch.float32)).to(p.dtype)
         dq = windowed_dq(q, g, p, rev_dst, deg_out, ctx.halo, ctx.tile,
                          ctx.impl).to(q.dtype)
+        return dp, dq, None, None, None, None, None, None, None
+
+
+class WindowedEdgeConvSumF32(torch.autograd.Function):
+    """The f32 K3d (onehot_gather.py:352-375): K3b forward, and the ELL
+    backward (dp, and dq through rev_dst), each a kernel on a CUDA
+    tensor."""
+
+    @staticmethod
+    def forward(ctx, p, q, nbr, rev_dst, deg_in, deg_out, halo, tile,
+                impl=None):
+        ctx.impl = impl
+        ctx.save_for_backward(p, q, nbr, deg_in, rev_dst, deg_out)
+        return windowed_edge_conv_sum_f32(p, q, nbr, deg_in, halo, tile, impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        dp, dq = ell_edge_conv_grads(*ctx.saved_tensors, g, ctx.impl,
+                                     ctx.needs_input_grad[:2])
         return dp, dq, None, None, None, None, None, None, None

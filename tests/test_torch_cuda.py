@@ -98,11 +98,67 @@ def test_instance_norm_kernel_matches_plain(dev, v, c, valid):
     assert torch.all(got[valid:] == 0)
 
 
-def test_instance_norm_kernel_refuses_batched_graphs(dev):
-    x = torch.zeros(16, 4, device=dev)
-    with pytest.raises(NotImplementedError):
-        norms.masked_instance_norm(x, torch.zeros(16, dtype=torch.int32,
-                                                  device=dev), 2, 16)
+def _batched_rows(sizes, v):
+    """graph_id for graphs of `sizes` valid rows laid out in order, pad rows
+    = len(sizes), and the valid count."""
+    gid = np.full(v, len(sizes), np.int32)
+    off = 0
+    for g, n in enumerate(sizes):
+        gid[off:off + n] = g
+        off += n
+    return gid, off
+
+
+# 48 ragged graphs, some empty, some of one row
+_MANY = tuple(int(n) for n in np.random.default_rng(48).choice(
+    [0, 1, 7, 255, 256, 257, 1000, 3000], size=48))
+
+
+@pytest.mark.parametrize("sizes,v,c", [
+    ((900,), 1024, 32),
+    ((300, 1), 512, 16),                  # a graph with one valid row
+    ((700, 0, 1200, 50), 2048, 64),       # an empty graph
+    ((4000, 9000, 3, 250, 7000, 1, 600, 5000), 27008, 64),
+    ((65536,) * 4, 262144 + 128, 64),     # four flagship level-0 scenes
+    (_MANY, sum(_MANY) + 300, 48),
+    ((65536,) * 32, 32 * 65536 + 128, 64)])   # 32 flagship scenes
+def test_multigraph_instance_norm_kernel_matches_plain(dev, sizes, v, c):
+    rng = np.random.default_rng(v + c)
+    gid, nv = _batched_rows(sizes, v)
+    x = _cuda_t((rng.normal(size=(v, c)) * 3 + rng.normal(size=(1, c)))
+                .astype(np.float32), dev)
+    gid = _cuda_t(gid, dev)
+    nv = torch.tensor(nv, dtype=torch.int32, device=dev)
+    g = len(sizes)
+    before = norms.masked_instance_norm_kernel.multigraph_launches
+    got = norms.masked_instance_norm_kernel(x, nv, graph_id=gid, num_graphs=g)
+    assert norms.masked_instance_norm_kernel.multigraph_launches == before + 1
+    want = norms.masked_instance_norm(x, gid, g, nv, impl="plain")
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[int(nv):] == 0)
+    again = norms.masked_instance_norm_kernel(x, nv, graph_id=gid,
+                                              num_graphs=g)
+    assert torch.equal(got, again)   # no atomics: a run repeats bit for bit
+    if g > 1:
+        before = norms.masked_instance_norm_kernel.multigraph_launches
+        via_op = norms.masked_instance_norm(x, gid, g, nv)
+        assert norms.masked_instance_norm_kernel.multigraph_launches == (
+            before + 1)
+        assert torch.equal(via_op, got)
+
+
+@pytest.mark.parametrize("v,c,valid", [(1024, 32, 900), (72704, 64, 65536),
+                                       (6144, 256, 5898), (256, 16, 0)])
+def test_multigraph_kernel_at_one_graph_is_the_single_graph_kernel(
+        dev, v, c, valid):
+    rng = np.random.default_rng(v + c)
+    x = _cuda_t((rng.normal(size=(v, c)) * 3 + 2).astype(np.float32), dev)
+    gid = _cuda_t(np.where(np.arange(v) < valid, 0, 1).astype(np.int32), dev)
+    nv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    got = norms.masked_instance_norm_kernel(x, nv, graph_id=gid,
+                                            num_graphs=1)
+    want = norms.masked_instance_norm_kernel(x, nv)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_model_kernel_path_matches_plain_path(dev):
@@ -212,6 +268,43 @@ def test_windowed_kernels_bitwise(dev, v, h, d, halo, tile):
                                                        before[1] + 1)
 
 
+@pytest.mark.parametrize("v,h,d,halo,tile", [
+    (1024, 128, 12, 96, 256),
+    (1024, 256, 12, 200, 256),   # window clamped at both ends of V
+    (23680, 256, 6, 192, 128),   # the flagship's level 1
+    (4096, 512, 6, 96, 256),
+    (512, 512, 8, 512, 128),     # halo past V: the window is all of V
+    (2048, 256, 8, 384, 128),    # W = 896: 64 channels, 224 KiB, the most
+    (4096, 256, 6, 768, 256)])   # W = 1792: the slice halves to 32
+def test_windowed_f32_kernel_bitwise(dev, v, h, d, halo, tile):
+    """K3b against its plain version and against f32 K1 on the same
+    inputs, with deg = 0 rows; then the f32 K3d's forward and backward on
+    the card against the plain path's."""
+    rng = np.random.default_rng(v + h + halo)
+    p, q, g, nbr, deg, rev, deg_out = _table_case(
+        rng, v, h, d, torch.float32, dev, halo=halo)
+    assert windowed.band_violations(nbr, deg, halo, tile) == 0
+    assert int((deg == 0).sum()) > 0
+    before = windowed.windowed_edge_conv_sum_f32_kernel.launches
+    got = windowed.windowed_edge_conv_sum_f32(p, q, nbr, deg, halo, tile)
+    assert windowed.windowed_edge_conv_sum_f32_kernel.launches == before + 1
+    want = windowed.windowed_edge_conv_sum_f32(p, q, nbr, deg, halo, tile,
+                                               impl="plain")
+    k1 = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+    torch.cuda.synchronize()
+    assert _bitwise(got, want) and _bitwise(got, k1)
+
+    grads = []
+    for impl in (None, "plain"):
+        pt, qt = p.clone().requires_grad_(), q.clone().requires_grad_()
+        out = windowed.WindowedEdgeConvSumF32.apply(
+            pt, qt, nbr, rev, deg, deg_out, halo, tile, impl)
+        out.backward(g)
+        grads.append((out.detach(), pt.grad, qt.grad))
+    for a, b in zip(*grads):
+        assert _bitwise(a, b)
+
+
 def test_windowed_kernels_reject_what_they_do_not_take(dev):
     p = torch.zeros(256, 128, dtype=torch.bfloat16, device=dev)
     nbr = torch.zeros(256, 4, dtype=torch.int32, device=dev)
@@ -221,6 +314,8 @@ def test_windowed_kernels_reject_what_they_do_not_take(dev):
                                                deg, 32, 128)
     with pytest.raises(ValueError):
         windowed.windowed_edge_conv_sum_kernel(p, p, nbr, deg, 32, 96)
+    with pytest.raises(TypeError):   # K3b takes f32 rows only
+        windowed.windowed_edge_conv_sum_f32_kernel(p, p, nbr, deg, 32, 128)
     with pytest.raises(RuntimeError):   # a window taller than shared memory
         big = torch.zeros(65536, 8, dtype=torch.bfloat16, device=dev)
         windowed.windowed_dq_kernel(

@@ -33,7 +33,8 @@ from stinet_tpu.ops import norms as jax_norms
 from stinet_tpu.ops import segment as jax_segment
 from stinet_tpu.ops.pallas.onehot_gather import (
     pallas_windowed_dq, pallas_windowed_edge_conv_sum,
-    windowed_ell_edge_conv_sum)
+    pallas_windowed_edge_conv_sum_f32, windowed_ell_edge_conv_sum,
+    windowed_ell_edge_conv_sum_f32)
 from stinet_tpu.utils import synthetic as jax_synthetic
 from stinet_tpu_torch.graph import build as port_build
 from stinet_tpu_torch.ops import ell, norms, segment, windowed
@@ -114,17 +115,19 @@ def test_auto_halo_matches_jax(band, v_pad):
     (1024, 128, "bf16", 256), (1024, 128, "bf16", 512),
     (2048, 256, "bf16", 384), (2048, 512, "bf16", 96),
     (1000, 128, "bf16", 96), (1024, 256, "f32", 256),
-    (1024, 128, "bf16", None)])
+    (1024, 128, "bf16", None)] + [
+    (2048, h, "f32", halo) for h in (128, 256, 512)
+    for halo in (96, 384, 512)])
 def test_dispatch_rule_matches_jax(monkeypatch, v, h, dtype, halo):
     """On the CPU the JAX rule needs STINET_WINDOWED_INTERPRET=1; the port's
-    has no backend test. The exact-f32 windowed kernel is not ported, so an
-    f32 table the JAX rule would send to it takes the port's ELL path."""
+    has no backend test. Both send bf16 tables at H in {128, 256} and f32
+    tables at H = 256 to the windowed kernels, up to a halo of 384."""
     monkeypatch.setenv("STINET_WINDOWED_INTERPRET", "1")
     jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
                 else (jnp.float32, torch.float32))
     want = jax_mp._windowed_kernel_applies(jnp.zeros((v, h), jdt), halo)
     got = windowed_kernel_applies(torch.zeros(v, h, dtype=tdt), halo)
-    assert got == (want and dtype == "bf16")
+    assert got == want
 
 
 # --- windowed sums against the Pallas kernels in interpret mode ----------
@@ -235,6 +238,57 @@ def test_windowed_autograd_matches_jax_grad(h):
     assert_bf16_within_one_ulp(out.detach(), want)
     assert_bf16_nearly_bitwise(pt.grad, dp)
     assert_bf16_nearly_bitwise(qt.grad, dq)
+
+
+F32_CASES = [(v, 256, d, halo, tile) for v, _, d, halo, tile in CASES] + [
+    CASES[0]]   # three at H = 256 (one clamped at both ends), one at 128
+
+
+@pytest.mark.parametrize("v,h,d,halo,tile", F32_CASES)
+def test_windowed_f32_sum_bitwise_equals_pallas_and_ell(v, h, d, halo, tile):
+    """K3b's plain version against the exact-f32 Pallas kernel (bf16x3
+    planes) in interpret mode and the JAX ELL path in f32: bit for bit."""
+    p, q, _, nbr, deg, _, _ = _banded_case(v, h, d, halo, seed=2)
+    q = q * 10.0 ** np.random.default_rng(3).integers(-3, 4, size=(v, 1))
+    q = q.astype(np.float32)
+    args = (jnp.asarray(p), jnp.asarray(q), jnp.asarray(nbr),
+            jnp.asarray(deg))
+    want = pallas_windowed_edge_conv_sum_f32(*args, halo=halo, tile=tile,
+                                             interpret=True)
+    ell_ref = jax_ell._forward(*args)
+    got = windowed.windowed_edge_conv_sum_f32(t(p), t(q), t(nbr), t(deg),
+                                              halo, tile)
+    assert got.dtype == torch.float32
+    assert windowed.band_violations(t(nbr), t(deg), halo, tile) == 0
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(want).view(np.int32))
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  np.asarray(ell_ref).view(np.int32))
+
+
+@pytest.mark.parametrize("h", [128, 256])
+def test_windowed_f32_autograd_bitwise_equals_jax(h):
+    """The f32 K3d: its output and dp, dq (the ELL backward) under the loss
+    sum(out * G), against jax.value_and_grad of
+    windowed_ell_edge_conv_sum_f32 in interpret mode, bit for bit."""
+    v, d, halo, tile = 512, 6, 64, 128
+    p, q, g, nbr, deg, rev, deg_out = _banded_case(v, h, d, halo, seed=4)
+    args = [jnp.asarray(a) for a in (nbr, rev, deg, deg_out)]
+
+    def loss(p, q):
+        out = windowed_ell_edge_conv_sum_f32(halo, tile, True, p, q, *args)
+        return jnp.sum(out * g), out
+
+    (_, want), (dp, dq) = jax.value_and_grad(loss, argnums=(0, 1),
+                                             has_aux=True)(
+        jnp.asarray(p), jnp.asarray(q))
+    pt, qt = t(p).requires_grad_(), t(q).requires_grad_()
+    out = windowed.WindowedEdgeConvSumF32.apply(
+        pt, qt, t(nbr), t(rev), t(deg), t(deg_out), halo, tile)
+    out.backward(t(g))
+    for a, b in ((out.detach(), want), (pt.grad, dp), (qt.grad, dq)):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      np.asarray(b).view(np.int32))
 
 
 # --- ELL backward, bit for bit --------------------------------------------
