@@ -15,7 +15,15 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    (median of REPS CUDA-event timings of INNER back-to-back calls, after
    WARMUP calls), with the least
    time the card could take (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, the larger);
+   67 TFLOP/s, the larger); for K2 also, here and in phases 6 and 9: every
+   call run twice gives the same bits, the device launches of one call
+   counted in a profiler window (K2_DEVICE_LAUNCHES) with each launch's
+   device time there, a distinct shape a call, and a call's time
+   split into host (the wall time of ENQUEUES calls enqueued with no
+   synchronisation, a call), events (the CUDA-event time of the same
+   calls) and device alone (the CUDA-event time of QUEUED calls queued
+   behind a sleeping kernel), each distinct shape timed once, the library
+   call's split beside it, and the host cost of the wrapper's steps;
 4. the serving slice: `SceneInpainter.predict` on the flagship scene
    (V=65536) and model (ngf=64, 9 bottleneck blocks, random weights from
    seed 0) on the kernel path, with the kernels' launch counts read around
@@ -76,6 +84,11 @@ SMALL_VERTICES = 4096      # the scene held against the CPU plain path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 K2_RTOL, K2_ATOL = 1e-5, 1e-5   # reduction order differs from torch's
+K2_DEVICE_LAUNCHES = 2      # statistics, then normalization
+ENQUEUES = 300              # calls of the host/device split of a K2 call
+QUEUED = 200                # calls queued behind a sleeping kernel
+SLEEP_CYCLES = 100_000_000  # that kernel's clock cycles, about 50 ms
+PROFILE_PADS = (0.3, 2.0, 6.0)   # idle seconds each side of a profiler window
 PATH_TOL = 1e-3             # flagship output, kernel path vs plain path
 SMALL_TOL = 1e-4            # small scene, card kernel path vs CPU plain
 WARMUP, REPS, INNER = 5, 25, 10
@@ -127,6 +140,162 @@ def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def device_kernels(torch, fn, expected):
+    """(name, device microseconds) of the kernels one call of fn() runs on
+    the card, in launch order, from a profiler window around the call
+    (copies and memsets left out). The window is padded with idle time on
+    both sides: the profiler drops device events that its clocks place
+    outside the window, and the host's and the card's clocks drift apart
+    over a run. A window that recorded another number of kernels than
+    `expected` (some dropped, or all) is taken again with more padding; the
+    last window's kernels are returned, whatever their number."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for pad in PROFILE_PADS:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        found = [e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and not e.name.lower().startswith(("memcpy", "memset"))]
+        if len(found) == expected:
+            break
+        say("profiler", f"a window padded with {pad} s recorded "
+            f"{len(found)} of {expected} kernels")
+    found.sort(key=lambda e: e.time_range.start)
+    return [(e.name.split("<")[0].split("::")[-1], e.time_range.elapsed_us())
+            for e in found]
+
+
+def host_device_us(torch, fn):
+    """(host, events, device) microseconds a call of fn(). host: the wall
+    time of ENQUEUES calls enqueued with no synchronisation between them;
+    events: the CUDA-event time of the same calls, which is what a caller
+    in a loop gets, the slower of host and device; device: the CUDA-event
+    time of QUEUED calls enqueued while a sleeping kernel holds the stream,
+    so that the card runs them back to back with no wait for the host."""
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(ENQUEUES):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) / ENQUEUES * 1e6
+    end.synchronize()
+    events = start.elapsed_time(end) / ENQUEUES * 1e3
+    gate = torch.cuda.Event()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    gate.record()
+    start.record()
+    for _ in range(QUEUED):
+        fn()
+    end.record()
+    check(not gate.query(), "the sleeping kernel ended before the host had "
+          f"enqueued {QUEUED} calls: no device-only time")
+    end.synchronize()
+    return host, events, start.elapsed_time(end) / QUEUED * 1e3
+
+
+def k2_use_record(torch, phase, use, calls, library):
+    """One use of K2. `calls`: its kernel calls on the path's inputs, as
+    (shape key, function of no argument); `library`: the library call on
+    the same rows, one function a call. Every call twice gives the same
+    bits; a call's device launches, counted in a profiler window over one
+    call of each distinct shape, are K2_DEVICE_LAUNCHES, and each launch's
+    device time there is printed; and a call's time split into host and
+    device (`host_device_us`), summed over the calls, the library's beside
+    it. A call's time follows from its shape, so each distinct shape is
+    timed once and counted as often as it occurs."""
+    for i, (_, fn) in enumerate(calls):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"K2 {use} call {i}: two runs on the same inputs differ")
+    first, count = {}, {}
+    for i, (key, _) in enumerate(calls):
+        first.setdefault(key, i)
+        count[key] = count.get(key, 0) + 1
+    launches = device_kernels(
+        torch, lambda: [calls[i][1]() for i in first.values()],
+        K2_DEVICE_LAUNCHES * len(first))
+    check(len(launches) == K2_DEVICE_LAUNCHES * len(first),
+          f"K2 {use}: {len(launches)} device launches in {len(first)} calls "
+          f"({launches}), expected {K2_DEVICE_LAUNCHES} a call")
+    names = [n for n, _ in launches[:K2_DEVICE_LAUNCHES]]
+    per_shape = {k: launches[j * K2_DEVICE_LAUNCHES:
+                             (j + 1) * K2_DEVICE_LAUNCHES]
+                 for j, k in enumerate(first)}
+    check(all([n for n, _ in ls] == names for ls in per_shape.values()),
+          f"K2 {use}: the calls do not launch the same kernels: {launches}")
+
+    def split_of(fns):
+        split = {k: host_device_us(torch, fns[i]) for k, i in first.items()}
+        return split, ", ".join(
+            f"{name} {sum(split[k][i] * count[k] for k in split):.1f} us"
+            for i, name in enumerate(("host", "events", "device alone")))
+
+    split, text = split_of([fn for _, fn in calls])
+    say(phase, f"K2 {use}: {len(names)} device launches a call "
+        f"({', '.join(names)}); "
+        f"{len(calls)} calls run twice, same bits; summed over the calls "
+        f"({ENQUEUES} enqueues with no synchronisation, then {QUEUED} "
+        f"queued behind a sleeping kernel, once a distinct shape): {text}; "
+        f"the library call on the same rows: {split_of(library)[1]}; by "
+        "shape (V, C, valid, graphs), host / device alone: " + ", ".join(
+            f"{k} x{count[k]} {t[0]:.1f} / {t[2]:.1f} us"
+            for k, t in split.items())
+        + "; each launch of one call in the profiler window, us: "
+        + ", ".join(f"{k} " + " ".join(f"{n} {t:.1f}" for n, t in ls)
+                    for k, ls in per_shape.items()))
+
+
+def k2_wrapper_costs(torch, x, nv):
+    """Host microseconds of one K2 wrapper call on `x` and of its steps,
+    each timed alone over ENQUEUES repeats: the tensor check, the two
+    allocations and the stream lookup; the rest of the call is the ctypes
+    call that launches both kernels."""
+    from stinet_tpu_torch.ops import _cuda, norms
+    dev = x.device
+    size = norms.scratch_floats(x.shape[0], x.shape[1], 1)
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ENQUEUES):
+            fn()
+        t = (time.perf_counter() - t0) / ENQUEUES * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    costs = {
+        "check_tensor": us(lambda: _cuda.check_tensor(
+            "x", x, torch.float32, 2, dev)),
+        "scratch and out (torch.empty)": us(lambda: (
+            torch.empty(size, dtype=torch.float32, device=dev),
+            torch.empty_like(x))),
+        "stream lookup": us(lambda: _cuda.stream_of(dev)),
+        "whole call": us(lambda: norms.masked_instance_norm_kernel(x, nv)),
+    }
+    costs["the rest (the ctypes call with both launches)"] = (
+        2 * costs["whole call"] - sum(costs.values()))
+    costs["a stream lookup through torch.cuda.current_stream, for "
+          "comparison"] = us(
+              lambda: torch.cuda.current_stream(dev).cuda_stream)
+    say("K2", f"host cost of the wrapper's steps on {tuple(x.shape)}, us a "
+        "call: " + ", ".join(f"{k} {v:.2f}" for k, v in costs.items()))
 
 
 def device_record(torch):
@@ -270,6 +439,15 @@ def check_k2(torch, calls):
         say("K2", f"call {i:2d} V={v} C={c} valid={n}: max |diff| {e:.3e}; "
             f"kernel {ms:.4f} ms, plain {plain:.4f} ms, batch_norm "
             f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    k2_use_record(
+        torch, "K2", "single graph, flagship forward",
+        [((*x.shape, int(lv.num_vertices), 1),
+          lambda x=x, lv=lv: masked_instance_norm_kernel(x, lv.num_vertices))
+         for x, lv in calls],
+        [lambda xv=x[:int(lv.num_vertices)]: F.batch_norm(
+            xv, None, None, training=True, eps=1e-5) for x, lv in calls])
+    small = min(calls, key=lambda c: c[0].numel())
+    k2_wrapper_costs(torch, small[0], small[1].num_vertices)
     return dict(tot, max_abs_err=err,
                 bound_by="bytes" if kinds == {"bytes"} else "operations")
 
@@ -567,6 +745,14 @@ def check_train_kernels(torch, calls):
             4 * c * (n + v), 7 * n * c, tol=(K2_RTOL, K2_ATOL),
             lib=lambda: F.batch_norm(x[:n], None, None, training=True,
                                      eps=eps))
+    k2_use_record(
+        torch, "train-kernels", "bf16 train step",
+        [((*x.shape, int(nv), 1),
+          lambda x=x, nv=nv, eps=eps: norms.masked_instance_norm_kernel(
+              x, nv, eps)) for x, _, _, nv, eps in calls["k2"]],
+        [lambda xv=x[:int(nv)], eps=eps: F.batch_norm(
+            xv, None, None, training=True, eps=eps)
+         for x, _, _, nv, eps in calls["k2"]])
     for r in rows.values():
         r["bound_by"] = ("bytes" if r.pop("kinds") == {"bytes"}
                          else "operations")
@@ -865,6 +1051,14 @@ def check_multigraph_k2(torch, calls):
             f"G={ng} valid={n}: max |diff| {err:.3e}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, instance_norm {lib:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
+    k2_use_record(
+        torch, "serving-batched", f"G graphs, B={BATCH} concatenated forward",
+        [((*x.shape, int(nv), ng),
+          lambda x=x, gid=gid, ng=ng, nv=nv, eps=eps:
+          norms.masked_instance_norm_kernel(x, nv, eps, gid, ng))
+         for x, gid, ng, nv, eps in calls],
+        [lambda xv=_equal_sizes_view(x, gid, ng, int(nv)), eps=eps:
+         F.instance_norm(xv, eps=eps) for x, gid, ng, nv, eps in calls])
     row["bound_by"] = "bytes" if row.pop("kinds") == {"bytes"} else \
         "operations"
     return row
@@ -983,6 +1177,7 @@ def main():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = device_record(torch)
     build_kernels()
 
@@ -1119,6 +1314,8 @@ def main():
              source=cu + "instance_norm.cu",
              replaces="stinet_tpu/ops/pallas/instance_norm.py:77",
              launches=b_launches["k2mg"], **k2mg)]
+    say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
+        f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys}

@@ -31,9 +31,8 @@ KINDS = (("ell_fwd", "K1 edge-conv sum"),
          ("windowed_receiver", "K3a windowed sum"),
          ("windowed_sender", "K3c windowed dq"),
          ("multi_tensor", "optimizer"),
-         ("column_partials", "K2 instance norm"),
-         ("finalize", "K2 instance norm"),
-         ("normalize_rows", "K2 instance norm"),
+         ("instance_norm_stats", "K2 instance norm"),
+         ("instance_norm_apply", "K2 instance norm"),
          ("gemm", "matmul"), ("cutlass", "matmul"), ("sm90_", "matmul"),
          ("index", "gather / scatter"), ("scatter", "gather / scatter"),
          ("gather", "gather / scatter"), ("reduce", "reductions"))

@@ -6,6 +6,10 @@ tests/test_torch_ops.py and tests/test_torch_model.py). Run on a card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +22,7 @@ from stinet_tpu_torch.trainers import graph_common as gc
 from stinet_tpu_torch.utils.synthetic import synthetic_scene
 
 pytestmark = pytest.mark.cuda
+ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture
@@ -98,6 +103,148 @@ def test_instance_norm_kernel_matches_plain(dev, v, c, valid):
     assert torch.all(got[valid:] == 0)
 
 
+@pytest.mark.parametrize("v,c,valid", [
+    (1000, 30, 900),        # C not a multiple of 4: the scalar path
+    (40000, 6, 39000),      # the scalar path with 512-row chunks
+    (40000, 64, 40000),     # 16-byte loads with 512-row chunks
+    (6144, 257, 5898),      # a last column tile of one column
+    (128, 4, 0), (129, 5, 129)])
+def test_instance_norm_kernel_paths_and_repeat(dev, v, c, valid):
+    """Both load widths and both chunk sizes against the plain version,
+    and two runs on the same inputs bit for bit (no sum uses an atomic);
+    the ticket counters are left 0."""
+    rng = np.random.default_rng(v + c + valid)
+    x = _cuda_t((rng.normal(size=(v, c)) * 3 + 2).astype(np.float32), dev)
+    nv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    got = norms.masked_instance_norm_kernel(x, nv)
+    want = norms.masked_instance_norm_plain(x, None, 1, nv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[valid:] == 0)
+    again = norms.masked_instance_norm_kernel(x, nv)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    assert all(int(t.abs().sum()) == 0 for t in norms._TICKETS.values())
+
+
+def test_instance_norm_kernel_takes_unaligned_rows(dev):
+    """A view one element into its storage is not 16-byte aligned: the
+    kernel takes its scalar path at C % 4 == 0 and still agrees."""
+    rng = np.random.default_rng(3)
+    v, c, valid = 3000, 64, 2900
+    buf = _cuda_t((rng.normal(size=(v * c + 1)) * 2 - 1).astype(np.float32),
+                  dev)
+    x = buf[1:].view(v, c)
+    nv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    got = norms.masked_instance_norm_kernel(x, nv)
+    want = norms.masked_instance_norm_plain(x, None, 1, nv)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[valid:] == 0)
+
+
+@pytest.mark.parametrize("sizes,v,c", [((65536,), 65536 + 128, 64),
+                                       ((5898,), 6144, 256),
+                                       ((3000, 0, 2000, 898), 6144, 256)])
+def test_instance_norm_kernel_large_mean(dev, sizes, v, c):
+    """Mean 100, spread 0.01: one f32 ulp of the mean is 7.6e-4 of the
+    spread, so the kernel is held within 4e-3 of the plain version run in
+    f64 (as its emulation is on the CPU), which a variance taken as
+    sumsq / n - mean^2 would miss by far."""
+    rng = np.random.default_rng(v + c)
+    gid, valid = _batched_rows(sizes, v)
+    x = _cuda_t((rng.normal(size=(v, c)) * 0.01 + 100).astype(np.float32),
+                dev)
+    gid = _cuda_t(gid, dev)
+    nv = torch.tensor(valid, dtype=torch.int32, device=dev)
+    g = len(sizes)
+    got = norms.masked_instance_norm(x, gid, g, nv)
+    exact = norms.masked_instance_norm_plain(x.double(), gid, g, nv)
+    torch.testing.assert_close(got.double(), exact, rtol=0, atol=4e-3)
+    assert torch.all(got[valid:] == 0)
+
+
+@pytest.mark.parametrize("v,c,g", [(6144, 256, 1), (277632, 64, 4),
+                                   (1000, 30, 7), (40000, 6, 1)])
+def test_instance_norm_scratch_size_is_the_least_the_library_takes(dev, v, c,
+                                                                   g):
+    """The wrapper's `scratch_floats` against the library's own count: the
+    library launches with that many floats and refuses one fewer."""
+    lib = _cuda.library("instance_norm")
+    size = norms.scratch_floats(v, c, g)
+    x = torch.ones(v, c, device=dev)
+    gid = torch.zeros(v, dtype=torch.int32, device=dev)
+    nv = torch.tensor(v, dtype=torch.int32, device=dev)
+    out, scratch = torch.empty_like(x), torch.empty(size, device=dev)
+    tickets = torch.zeros(norms.MAX_COL_TILES, dtype=torch.int32, device=dev)
+
+    def launch(given):
+        return lib.masked_instance_norm_multigraph_f32(
+            x.data_ptr(), nv.data_ptr(), gid.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), given, tickets.data_ptr(), v, c, g, 1e-5,
+            dev.index, _cuda.stream_of(dev))
+
+    assert launch(size) == 0
+    torch.cuda.synchronize()
+    assert launch(size - 1) != 0
+
+
+def test_instance_norm_kernel_on_two_streams(dev):
+    """Calls on two streams at once keep their own ticket counters and
+    scratch, and give the bits of a call alone."""
+    rng = np.random.default_rng(9)
+    xs = [_cuda_t((rng.normal(size=(72704, 64)) + i).astype(np.float32), dev)
+          for i in range(2)]
+    nv = torch.tensor(65536, dtype=torch.int32, device=dev)
+    alone = [norms.masked_instance_norm_kernel(x, nv) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in xs]
+    outs = [[], []]
+    for _ in range(20):
+        for i, (x, st) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(st):
+                outs[i].append(norms.masked_instance_norm_kernel(x, nv))
+    torch.cuda.synchronize()
+    for i, want in enumerate(alone):
+        assert all(torch.equal(o, want) for o in outs[i])
+
+
+def test_stream_lookup_is_the_current_stream(dev):
+    """The kernels launch on torch's current stream, inside a stream
+    context too."""
+    assert _cuda.stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert _cuda.stream_of(dev) == side.cuda_stream
+    assert _cuda.stream_of(dev) == torch.cuda.current_stream(dev).cuda_stream
+
+
+@pytest.mark.parametrize("rows", ["descending", "above-g", "negative"])
+def test_graph_id_out_of_order_is_refused(dev, rows):
+    """The kernel traps on a graph_id that is not non-decreasing within
+    [0, G]. A trap ends the process's CUDA context, so the call runs in a
+    process of its own, which must see the error."""
+    edit = {"descending": "gid[:512] = 1", "above-g": "gid[-1] = 3",
+            "negative": "gid[0] = -1"}[rows]
+    code = f"""
+import os
+import torch
+from stinet_tpu_torch.ops import norms
+x = torch.randn(1024, 32, device="cuda")
+gid = torch.zeros(1024, dtype=torch.int32, device="cuda")
+{edit}
+nv = torch.tensor(1024, dtype=torch.int32, device="cuda")
+try:
+    norms.masked_instance_norm_kernel(x, nv, graph_id=gid, num_graphs=2)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("refused:", type(e).__name__, flush=True)
+    os._exit(0)
+os._exit(1)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "refused" in res.stdout, (
+        res.stdout + res.stderr)
+
+
 def _batched_rows(sizes, v):
     """graph_id for graphs of `sizes` valid rows laid out in order, pad rows
     = len(sizes), and the valid count."""
@@ -116,6 +263,9 @@ _MANY = tuple(int(n) for n in np.random.default_rng(48).choice(
 
 @pytest.mark.parametrize("sizes,v,c", [
     ((900,), 1024, 32),
+    ((0, 0, 0), 512, 32),                 # num_valid = 0
+    ((5, 130, 1, 60), 256, 30),           # steps inside a chunk, scalar path
+    ((50, 0, 700, 3, 129, 256, 1), 2048, 36),   # 7 graphs merged 4 at a time
     ((300, 1), 512, 16),                  # a graph with one valid row
     ((700, 0, 1200, 50), 2048, 64),       # an empty graph
     ((4000, 9000, 3, 250, 7000, 1, 600, 5000), 27008, 64),

@@ -164,6 +164,103 @@ def test_instance_norm_two_graphs_matches_jax():
     assert np.all(got[valid:] == 0.0)
 
 
+def _graph_rows(sizes, v):
+    """graph_id of graphs with `sizes` valid rows laid out in order (pad
+    rows = len(sizes)) and the valid count."""
+    gid = np.full(v, len(sizes), np.int32)
+    off = 0
+    for g, n in enumerate(sizes):
+        gid[off:off + n] = g
+        off += n
+    return gid, off
+
+
+# (sizes of the graphs, V, C, mean, spread, chunk or None for the kernel's)
+_CHUNKED_CASES = {
+    "c3": ((1000,), 1000, 3, 0.5, 2.0, None),
+    "c32-ragged-v": ((900,), 1000, 32, 0.5, 2.0, None),
+    "c64": ((1000,), 1000, 64, 0.5, 2.0, None),
+    "c100": ((777,), 1000, 100, 0.5, 2.0, None),
+    "valid-0": ((0,), 300, 32, 0.5, 2.0, None),
+    "valid-1": ((1,), 300, 32, 0.5, 2.0, None),
+    "chunk-64": ((1000,), 1000, 32, 0.5, 2.0, 64),
+    "one-chunk": ((100,), 128, 64, 0.5, 2.0, None),
+    "large-chunks": ((33001,), 33100, 3, 0.5, 2.0, None),
+    "g4-ragged-one-empty": ((300, 0, 451, 200), 1000, 32, 0.5, 2.0, None),
+    "g4-steps-inside-a-chunk": ((5, 130, 1, 60), 256, 100, 0.5, 2.0, None),
+    "g4-all-empty": ((0, 0, 0, 0), 256, 3, 0.5, 2.0, None),
+    "large-mean": ((1000,), 1000, 64, 100.0, 0.01, None),
+    "large-mean-g4": ((300, 0, 451, 200), 1000, 64, 100.0, 0.01, None),
+}
+
+
+@pytest.mark.parametrize("case", _CHUNKED_CASES)
+def test_chunked_statistics_match_plain_and_jax(case, monkeypatch):
+    """The kernel's arithmetic (chunked (sum, M2) partials merged by Chan's
+    formula, emulated in torch) against the plain version and the JAX
+    function, within 1e-5. With mean 100 and spread 0.01 one f32 ulp of the
+    mean is 7.6e-4 of the spread, and the f32 versions differ from each
+    other by as much as they differ from the truth: there the emulation is
+    held within 4e-3 of the plain version run in f64, and within 1e-2 of
+    the two f32 versions."""
+    sizes, v, c, mean, spread, chunk = _CHUNKED_CASES[case]
+    rng = np.random.default_rng(len(case) + v + c)
+    gid, nv = _graph_rows(sizes, v)
+    g = len(sizes)
+    x = (rng.normal(size=(v, c)) * spread + mean).astype(np.float32)
+    if chunk:
+        monkeypatch.setattr(norms, "CHUNK_ROWS_SMALL", chunk)
+    got = norms.masked_instance_norm_chunked(t(x), t(gid), g, nv).numpy()
+    plain = norms.masked_instance_norm_plain(t(x), t(gid), g, nv).numpy()
+    ref = np.asarray(jax_norms.masked_instance_norm(
+        jnp.asarray(x), jnp.asarray(gid), g, jnp.asarray(_mask(v, nv))))
+    assert got.dtype == np.float32 and np.all(got[nv:] == 0.0)
+    if mean < 10:
+        np.testing.assert_allclose(got, plain, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+        return
+    exact = norms.masked_instance_norm_plain(t(x).double(), t(gid), g,
+                                             nv).numpy()
+    np.testing.assert_allclose(got, exact, rtol=0, atol=4e-3)
+    np.testing.assert_allclose(got, plain, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2)
+    # the spread of the output (1 / sqrt(1 + eps / var)) is right to f32's
+    # resolution there, which sumsq / n - mean^2 would not give
+    np.testing.assert_allclose(got[:nv].std(axis=0), exact[:nv].std(axis=0),
+                               rtol=0, atol=1e-3)
+
+
+def test_chunked_statistics_take_a_tensor_count_and_any_chunk(monkeypatch):
+    """num_valid as the 0-d int32 tensor the graph carries, and the result
+    within 1e-5 whatever the chunk."""
+    rng = np.random.default_rng(5)
+    v, c, nv = 700, 16, 611
+    x = t((rng.normal(size=(v, c)) * 3 - 1).astype(np.float32))
+    want = norms.masked_instance_norm_plain(x, None, 1, nv)
+    for chunk in (1, 7, 128, 4096):
+        monkeypatch.setattr(norms, "CHUNK_ROWS_SMALL", chunk)
+        got = norms.masked_instance_norm_chunked(
+            x, None, 1, torch.tensor(nv, dtype=torch.int32))
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_kernel_layout_numbers():
+    """The layout the wrapper sizes its scratch by: 256-row chunks up to
+    32768 rows, 512 beyond; a slot for every (chunk, graph) pair; and the
+    merge lanes a graph gets."""
+    assert norms._chunk_rows(6144) == norms._chunk_rows(32768) == 256
+    assert norms._chunk_rows(32769) == norms._chunk_rows(277632) == 512
+    # 24 chunks + 1 graph slots of (sum, M2) x 256 columns, mean and
+    # inv_std, 8 column tiles x 2 run starts
+    assert norms.scratch_floats(6144, 256, 1) == (
+        2 * 25 * 256 + 2 * 256 + 8 * 2)
+    assert [norms._merge_lanes(64, g) for g in (1, 2, 3, 4, 7, 8, 48)] == [
+        32, 16, 16, 8, 8, 4, 4]
+    assert [norms._merge_lanes(30, g) for g in (1, 4, 8)] == [8, 2, 1]
+    assert norms.scratch_floats(277632, 64, 4) == (
+        2 * (543 + 4) * 64 + 2 * 4 * 64 + 2 * 5)
+
+
 def _pool_case(rng, fine=500, coarse_valid=120, coarse_pad=128):
     """Integer-valued features (many ties), a trace that leaves some coarse
     rows empty, and the builder's children table."""
