@@ -41,7 +41,13 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    version on them (bit for bit; K2 within K2_RTOL/K2_ATOL) and timed
    beside it and beside its bound, each K3 call also beside K1's kernel on
    the same banded inputs (K3's bound counts each gathered row once, as
-   K1's does; the bytes it stages per tile are printed beside it);
+   K1's does), and both again by the card alone (calls queued behind a
+   sleeping kernel, as for K2: back to back, a call that costs the host
+   more than the card times the host); each K3 line prints the live slots
+   a row and the launch's plan (strips, stage, ring and buffer rows,
+   channel slice, TMA or ordinary loads, checked against what the library
+   launched) with the bytes it copies into shared memory beside a per-tile
+   design's;
 7. the train slice: `make_inpainting_steps` with the bf16 config's model
    (full width and depth), optimizer and loss, STEPS steps on the kernel
    path and STEPS on the plain path from the same weights, on the windowed
@@ -54,8 +60,9 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
 8. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
-   of the three timed, with K3b's bound; the K3b launches of one predict
-   equal to the convs the dispatch sends to it (at least 1); the output
+   of the three timed, with K3b's bound and plan and the device-alone
+   times, as in phase 6; the K3b launches of one predict equal to the
+   convs the dispatch sends to it (at least 1); the output
    (in the scene's vertex order) within PATH_TOL of phase 4's and of the
    windowed plain path; ms/scene split into phases;
 9. serving-batched: `predict_batch` at B = BATCH (flagship scenes of seeds
@@ -68,8 +75,9 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    and each within PATH_TOL of its own forward, with its ms/scene over the
    whole stream and after the first result, and `stream_stats()`.
 
-The last two lines are the kernel record and the result, one JSON object
-each. Without a CUDA card the script exits nonzero and prints no result.
+The last two lines are the kernel record (K3 rows also carry
+`k1_same_inputs_ms`, K1's time on the same inputs) and the result, one JSON
+object each. Without a CUDA card the script exits nonzero and prints no result.
 """
 import contextlib
 import copy
@@ -627,13 +635,27 @@ def _dq_bytes(rev, dout, es, h):
     return nbytes + es * h * receivers, slots
 
 
-def _staged_bytes(v, h, es, halo, tile, windows):
-    """Bytes a windowed kernel stages into shared memory: every tile's
-    window rows, `windows` arrays of them. Printed beside the bound, which
-    counts each gathered row once."""
-    from stinet_tpu_torch.ops.windowed import window_geometry
-    _, w = window_geometry(v, tile, halo)
-    return (v // tile) * w * h * es * windows
+def plan_note(rows, halo, tile, arrays, slots):
+    """The launch plan of a windowed kernel on `rows` (ops/windowed.py:
+    window_plan), checked against what the library launched last, and the
+    bytes it copies into shared memory a call beside what a design that
+    stages every tile's window anew would copy."""
+    from stinet_tpu_torch.ops import windowed
+    plan = windowed.launch_plan(rows, halo, tile, arrays, slots)
+    got = windowed.last_launch()
+    keys = ("strips", "cs", "sub", "ring", "bufs", "buf_rows", "smem")
+    check(all(got[k] == getattr(plan, k) for k in keys),
+          f"the library launched {got}, window_plan gives {plan}")
+    # the main path's rows are contiguous fresh tensors: TMA fills the ring
+    check(got["tma"] == 1, f"a main-path call ({tuple(rows.shape)} rows) "
+          "filled the ring by ordinary loads, not TMA")
+    return (f"plan {plan.strips} strips x {plan.strip_tiles} tiles x "
+            f"{plan.slices} slices of {plan.cs}, stages of {plan.sub} rows, "
+            f"ring {plan.ring} rows, {plan.bufs} buffers of "
+            f"{plan.buf_rows} rows, {plan.smem} B, TMA; rings take in "
+            f"{plan.staged_bytes() / 1e6:.1f} MB a call (per-tile design "
+            f"{plan.per_tile_staged_bytes() / 1e6:.1f} MB), buffers "
+            f"{plan.own_row_bytes() / 1e6:.1f} MB")
 
 
 def check_train_kernels(torch, calls):
@@ -646,8 +668,11 @@ def check_train_kernels(torch, calls):
     rows = {}
 
     def run(key, label, kernel, plain, nbytes, flops, ab=None, tol=None,
-            lib=None):
-        got, want = kernel(), plain()
+            lib=None, note=None):
+        got = kernel()
+        if note is not None:
+            label = f"{label}; {note()}"
+        want = plain()
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"{label}: kernel gives {got.dtype} {tuple(got.shape)}, plain "
@@ -669,7 +694,7 @@ def check_train_kernels(torch, calls):
         r = rows.setdefault(key, dict(
             ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
             library_ms=None if lib is None else 0.0, kinds=set(), calls=0,
-            ab_ms=0.0))
+            ab_ms=0.0, device_ms=0.0, k1_device_ms=0.0))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
@@ -680,7 +705,15 @@ def check_train_kernels(torch, calls):
         if ab is not None:
             ab_ms = median_ms(torch, ab)
             r["ab_ms"] += ab_ms
-            extra = f"; K1 on the same inputs {ab_ms:.4f} ms"
+            # back-to-back calls time the host where a call's host cost is
+            # the larger; queued behind a sleeping kernel, the card alone
+            host, _, dev = host_device_us(torch, kernel)
+            _, _, ab_dev = host_device_us(torch, ab)
+            r["device_ms"] += dev / 1e3
+            r["k1_device_ms"] += ab_dev / 1e3
+            extra = (f"; K1 on the same inputs {ab_ms:.4f} ms; device alone "
+                     f"{dev:.1f} us, K1 {ab_dev:.1f} us; host {host:.1f} us "
+                     "a call")
         if lib is not None:
             lib_ms = median_ms(torch, lib)
             r["library_ms"] += lib_ms
@@ -691,10 +724,10 @@ def check_train_kernels(torch, calls):
     for i, (p, q, nbr, deg, halo, tile, mode, _) in enumerate(calls["k3a"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, 2, h, 1)
-        staged = _staged_bytes(v, h, 2, halo, tile, 1)
         ones = torch.ones_like(p)
         run("k3a", f"K3a {mode} {i:2d} V={v} H={h} D={nbr.shape[1]} "
-            f"halo={halo} tile={tile} staged {staged / 1e6:.1f} MB",
+            f"halo={halo} tile={tile} live slots a row "
+            f"{slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
             lambda: windowed.windowed_edge_conv_sum_kernel(
                 p, q, nbr, deg, halo, tile, mode),
             lambda: windowed.windowed_edge_conv_sum_plain(p, q, nbr, deg,
@@ -702,18 +735,20 @@ def check_train_kernels(torch, calls):
             nbytes, 4 * h * slots,
             ab=(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
             if mode == "relu" else
-            (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, ones)))
+            (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, ones)),
+            note=lambda: plan_note(q, halo, tile, 1, nbr.shape[1]))
     for i, (q, g, p, rev, dout, halo, tile, _) in enumerate(calls["k3c"]):
         v, h = q.shape
         nbytes, slots = _dq_bytes(rev, dout, 2, h)
-        staged = _staged_bytes(v, h, 2, halo, tile, 2)
         run("k3c", f"K3c {i:2d} V={v} H={h} D={rev.shape[1]} halo={halo} "
-            f"tile={tile} staged {staged / 1e6:.1f} MB",
+            f"tile={tile} live slots a row "
+            f"{slots / max(int(torch.count_nonzero(dout)), 1):.2f}",
             lambda: windowed.windowed_dq_kernel(q, g, p, rev, dout, halo,
                                                 tile),
             lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, dout),
             nbytes, 4 * h * slots,
-            ab=lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout))
+            ab=lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout),
+            note=lambda: plan_note(g, halo, tile, 2, rev.shape[1]))
     for i, (p, q, nbr, deg) in enumerate(calls["k1"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 1)
@@ -931,12 +966,14 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
     calls = calls["k3b"]
     check(len(calls) == dispatched >= 1, f"{len(calls)} K3b calls recorded "
           f"in one forward, the dispatch sends {dispatched} convs")
-    row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, k1_ms=0.0,
+    row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, k1_same_inputs_ms=0.0,
+               device_ms=0.0, k1_device_ms=0.0,
                max_abs_err=0.0, library_ms=None, kinds=set())
     for i, (p, q, nbr, deg, halo, tile, _) in enumerate(calls):
         v, h = p.shape
         got = windowed.windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
                                                          halo, tile)
+        note = plan_note(q, halo, tile, 1, nbr.shape[1])
         want = windowed.windowed_edge_conv_sum_f32(p, q, nbr, deg, halo,
                                                    tile, impl="plain")
         k1 = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
@@ -952,17 +989,26 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
                                                         tile, impl="plain"))
         k1_ms = median_ms(torch, lambda: ell.ell_edge_conv_sum_kernel(
             p, q, nbr, deg))
+        host, _, dev = host_device_us(torch, lambda: windowed.
+                                      windowed_edge_conv_sum_f32_kernel(
+                                          p, q, nbr, deg, halo, tile))
+        _, _, k1_dev = host_device_us(
+            torch, lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
         nbytes, slots = _slot_bytes(nbr, deg, 4, h, 1)
         b_ms, b_by = bound(nbytes, 3 * h * slots)
-        staged = _staged_bytes(v, h, 4, halo, tile, 1)
         for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                       ("k1_ms", k1_ms)):
+                       ("k1_same_inputs_ms", k1_ms), ("device_ms", dev / 1e3),
+                       ("k1_device_ms", k1_dev / 1e3)):
             row[k] += val
         row["kinds"].add(b_by)
         say("serving-windowed", f"K3b call {i} V={v} H={h} D={nbr.shape[1]} "
-            f"halo={halo} tile={tile} staged {staged / 1e6:.1f} MB: bitwise "
+            f"halo={halo} tile={tile} live slots a row "
+            f"{slots / max(int(torch.count_nonzero(deg)), 1):.2f}; {note}: "
+            f"bitwise "
             f"equal to its plain version and to f32 K1; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, K1 on the same inputs {k1_ms:.4f} ms, "
+            f"device alone {dev:.1f} us, K1 {k1_dev:.1f} us, host {host:.1f} "
+            f"us a call, "
             f"bound {b_ms:.4f} ms ({b_by})")
     row["bound_by"] = "bytes" if row.pop("kinds") == {"bytes"} else \
         "operations"
@@ -997,7 +1043,9 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
     say("serving-windowed", f"predict {ms:.2f} ms/scene end to end; by "
         f"phase, median ms of {WINDOWED_REPS}: {split}; device forward "
         f"{fwd_ms:.3f} ms; K3b {row['ms']:.4f} ms a forward against K1 on "
-        f"the same inputs {row['k1_ms']:.4f} ms; on {card}")
+        f"the same inputs {row['k1_same_inputs_ms']:.4f} ms (device alone "
+        f"{row['device_ms']:.4f} against {row['k1_device_ms']:.4f}); on "
+        f"{card}")
     return server, row, launches
 
 
@@ -1265,7 +1313,8 @@ def main():
         say("train-kernels", f"{key}: {r['calls']} calls, kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms"
-            + (f", K1 on the same inputs {r['ab_ms']:.4f} ms"
+            + (f", K1 on the same inputs {r['ab_ms']:.4f} ms; device alone "
+               f"{r['device_ms']:.4f} ms against K1's {r['k1_device_ms']:.4f}"
                if key in ("k3a", "k3c") else ""))
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
@@ -1302,9 +1351,14 @@ def main():
              "stinet_tpu/ops/pallas/onehot_gather.py:307"),
             ("k2", "masked_instance_norm_train_step", "instance_norm.cu",
              "stinet_tpu/ops/pallas/instance_norm.py:77")):
+        row = dict(train_rows[key])
+        if key not in ("k3a", "k3c"):
+            del row["device_ms"], row["k1_device_ms"]
+        else:
+            row["k1_same_inputs_ms"] = row["ab_ms"]
         kernels.append(dict(name=name, route="cuda", source=cu + src,
                             replaces=replaces,
-                            launches=train_launches[key], **train_rows[key]))
+                            launches=train_launches[key], **row))
     kernels += [
         dict(name="windowed_edge_conv_sum_f32", route="cuda",
              source=cu + "windowed_edge_conv.cu",
@@ -1317,8 +1371,9 @@ def main():
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "k1_same_inputs_ms", "device_ms", "k1_device_ms")
+    print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

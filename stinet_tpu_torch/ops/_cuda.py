@@ -110,15 +110,17 @@ _SIGNATURES = {
             [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     },
     "windowed_edge_conv": {
-        # p, q, nbr, deg, out, V, H, D, tile, halo, W, mode, device, stream
+        # p, q, nbr, deg, out, V, H, D, then the plan (tile, halo, W, cs,
+        # sub, ring, bufs, buf_rows, strip_tiles, strips, smem), mode,
+        # device, stream
         "windowed_edge_conv_sum_bf16":
-            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-        # p, q, nbr, deg, out, V, H, D, tile, halo, W, device, stream
+            [_VP] * 5 + [_I] * 16 + [_VP],
+        # the same without mode
         "windowed_edge_conv_sum_f32":
-            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
-        # q, g, p, rev, deg_out, out, V, H, D, tile, halo, W, device, stream
+            [_VP] * 5 + [_I] * 15 + [_VP],
+        # q, g, p, rev, deg_out, out, V, H, D, the plan, device, stream
         "windowed_dq_bf16":
-            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+            [_VP] * 6 + [_I] * 15 + [_VP],
     },
     "instance_norm": {
         # x, num_valid, out, scratch, scratch floats, tickets, V, C, eps,

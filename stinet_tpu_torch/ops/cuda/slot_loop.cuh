@@ -1,7 +1,7 @@
 // Slot loops of the EdgeConv message sum and its backward, shared by the
-// ELL kernels (ell_edge_conv.cu: gathered rows read from device memory) and
-// the windowed kernels (windowed_edge_conv.cu: gathered rows read from a
-// window staged in shared memory).
+// ELL kernels (ell_edge_conv.cu: gathered rows read from device memory); the
+// windowed kernels (windowed_edge_conv.cu) share the element arithmetic
+// below (Elem, relu, step) and run it 16 bytes of channels a lane.
 //
 // Receiver side, one output row v, slots d < min(deg[v], D), s = idx[v, d]:
 //   kRelu:     out[v] = sum_d relu(z)        z = T(p[v] + q[s])
@@ -63,10 +63,8 @@ struct Elem<__nv_bfloat16> {
 __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 __device__ __forceinline__ float step(float x) { return x > 0.f ? 1.f : 0.f; }
 
-// Where a block reads its gathered rows. Global: straight from device
-// memory, row stride H. Window: rows [w0, w0 + W) of channels [c0, c0 + cs)
-// staged in shared memory, row stride cs; an index outside the window
-// breaks the band contract of the caller and traps.
+// Where a block reads its gathered rows: straight from device memory, row
+// stride H. local() maps a gathered row to the index get() takes.
 template <typename T>
 struct GlobalRows {
   const T* base;
@@ -76,53 +74,6 @@ struct GlobalRows {
   }
   __device__ __forceinline__ int local(int row) const { return row; }
 };
-
-template <typename T>
-struct WindowRows {
-  const T* win;
-  int w0, W, cs;
-  __device__ __forceinline__ float get(int row, int, int off) const {
-    return Elem<T>::get(win + row * cs + off);
-  }
-  __device__ __forceinline__ int local(int row) const {
-    const int r = row - w0;
-    if (static_cast<unsigned>(r) >= static_cast<unsigned>(W)) __trap();
-    return r;
-  }
-};
-
-// Copy rows [w0, w0 + W) x channels [c0, c0 + cs) of src ([V, H]) into
-// win ([W, cs]), zero past channel H; coalesced along the channels. Rows
-// whose slice is whole 16-byte chunks (H and cs multiples of 16 / sizeof(T),
-// src 16-byte aligned) move as 16-byte loads, four in flight a thread;
-// other shapes element by element.
-template <typename T>
-__device__ void stage_window(T* win, const T* __restrict__ src, int w0,
-                             int W, int H, int c0, int cs) {
-  constexpr int kVec = 16 / sizeof(T);
-  if (H % kVec == 0 && cs % kVec == 0 &&
-      (reinterpret_cast<uintptr_t>(src) & 15u) == 0) {
-    const int chunks = cs / kVec;          // 16-byte chunks of a window row
-    const int present = (H - c0) / kVec;   // of them inside the H channels
-    const int total = W * chunks;
-#pragma unroll 4
-    for (int i = threadIdx.x; i < total; i += blockDim.x) {
-      const int r = i / chunks, k = i - r * chunks;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < present) {
-        v = __ldg(reinterpret_cast<const uint4*>(
-            src + static_cast<int64_t>(w0 + r) * H + c0 + k * kVec));
-      }
-      reinterpret_cast<uint4*>(win)[i] = v;
-    }
-    return;
-  }
-  for (int i = threadIdx.x; i < W * cs; i += blockDim.x) {
-    const int r = i / cs, c = c0 + i % cs;
-    win[i] = c < H ? src[static_cast<int64_t>(w0 + r) * H + c]
-                   : Elem<T>::zero();
-  }
-}
 
 // Slot indices are read kAhead at a time, so their loads (and the gathers
 // that follow) overlap; the sums still run in slot order.

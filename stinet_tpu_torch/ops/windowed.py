@@ -7,8 +7,10 @@ windowed=True), the senders of a tile of T receivers all lie in one window
 of rows [w0, w0 + W), W = min(T + 2*halo, V), and the reverse table is
 banded the same way. The TPU kernels streamed that window into VMEM and
 gathered from it with one-hot MXU matmuls; the CUDA kernels
-(`ops/cuda/windowed_edge_conv.cu`) stage it in shared memory, one channel
-slice at a time, and gather from there.
+(`ops/cuda/windowed_edge_conv.cu`) walk a strip of consecutive tiles per
+block, one channel slice at a time, and keep the window in a ring in shared
+memory that TMA copies fill ahead of the gathers. `window_plan` works out
+that layout, here and nowhere else; the launchers only check it.
 
   relu: out[v] = sum_{d < deg[v]} relu(p[v] + q[nbr[v, d]])   (forward)
   step: out[v] = sum_{d < deg[v]} step(p[v] + q[nbr[v, d]])   (dp factor)
@@ -23,6 +25,11 @@ reuses ops/ell.py's. The plain versions are the slot loops of ops/ell.py,
 which is what the one-hot gather computes exactly; a CUDA tensor takes the
 kernel, a CPU tensor (or impl="plain") the plain version.
 """
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from stinet_tpu_torch.ops import _cuda
@@ -46,6 +53,209 @@ def window_geometry(v: int, tile: int, halo: int):
 def default_tile(v: int) -> int:
     """256 rows when they divide V, else 128 (message_passing.py:141)."""
     return 256 if v % 256 == 0 else 128
+
+
+# H100 limits the plan is sized for: the dynamic shared memory one block may
+# take, the shared memory of an SM and what each resident block reserves of
+# it, and the threads of a block (8 consumer warps and 1 producer warp).
+MAX_BLOCK_SMEM = 232448
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+CONSUMER_THREADS = 256
+BLOCK_THREADS = CONSUMER_THREADS + 32
+SLICES = (64, 32, 16, 8)     # channel slices a plan may take, widest first
+# A slice is narrowed until this many blocks fit an SM: the kernels'
+# __launch_bounds__ (kMinBlocks in windowed_edge_conv.cu) budget registers
+# for as many, and no more are counted on.
+TARGET_BLOCKS_PER_SM = 2
+BARRIER_BYTES = 16           # a ring stage's "full" and "empty" mbarriers
+
+
+class WindowPlan(NamedTuple):
+    """How a windowed kernel walks its rows. A block takes `strip_tiles`
+    consecutive tiles (the last strip fewer) of one channel slice of `cs`
+    channels; the grid is (strips, ceil(H / cs)). The rows of the strip's
+    windows stream through a ring of `ring` rows in stages of `sub` rows
+    (one TMA box each): stage k holds rows [k*sub, (k+1)*sub) in ring slot
+    (k - k_begin) % (ring / sub). While a tile computes, its whole clamped
+    window is resident and the next rows are in flight. The operands of
+    the block's own rows (p, or q for dq, the `slots` index columns and the
+    counts) come in chunks of `buf_rows` rows through `bufs` buffers.
+    `smem` is a block's dynamic shared memory: `arrays` rings, the
+    buffers, the mbarriers."""
+    v: int
+    h: int
+    tile: int
+    halo: int      # rounded up to 32, as window_geometry does
+    w: int         # window rows of a tile
+    arrays: int    # staged arrays: 1 (q) or 2 (g and p)
+    elem_bytes: int
+    slots: int     # index columns D
+    cs: int
+    sub: int
+    ring: int
+    bufs: int
+    buf_rows: int
+    strip_tiles: int
+    strips: int
+    smem: int
+
+    @property
+    def slices(self) -> int:
+        return -(-self.h // self.cs)
+
+    def window_start(self, i: int) -> int:
+        """w0 of tile i: clamp(i*tile - halo, 0, V - W)."""
+        return min(max(i * self.tile - self.halo, 0), self.v - self.w)
+
+    def strip_tiles_of(self, s: int) -> range:
+        n = self.v // self.tile
+        return range(s * self.strip_tiles, min((s + 1) * self.strip_tiles, n))
+
+    def strip_stages(self, s: int) -> range:
+        """The stages strip s loads, in order, each once."""
+        tiles = self.strip_tiles_of(s)
+        return range(self.window_start(tiles[0]) // self.sub,
+                     (self.window_start(tiles[-1]) + self.w) // self.sub)
+
+    def staged_bytes(self) -> int:
+        """Bytes the rings take in by one call: every stage of every strip,
+        channel slice and staged array once."""
+        rows = sum(len(self.strip_stages(s)) for s in range(self.strips))
+        return (rows * self.sub * self.slices * self.cs * self.elem_bytes
+                * self.arrays)
+
+    def own_row_bytes(self) -> int:
+        """Bytes the buffers take in by one call: every row's own slice
+        once, its indices and count once a slice."""
+        return self.v * self.slices * (self.cs * self.elem_bytes
+                                       + 4 * self.slots + 4)
+
+    def per_tile_staged_bytes(self) -> int:
+        """What a design that stages every tile's window anew copies:
+        (V / tile) * W rows of each array."""
+        return (self.v // self.tile) * self.w * self.h * self.elem_bytes \
+            * self.arrays
+
+
+def _round128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def _smem(arrays, ring, cs, es, sub, bufs, buf_rows, slots):
+    buffer = (_round128(buf_rows * cs * es) + _round128(buf_rows * slots * 4)
+              + _round128(buf_rows * 4))
+    return (arrays * ring * cs * es + bufs * buffer
+            + BARRIER_BYTES * (ring // sub + bufs))
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(v: int, h: int, halo: int, tile: int, elem_bytes: int,
+                arrays: int, sms: int, slots: int) -> WindowPlan:
+    """The layout of one windowed launch (see `WindowPlan`); `slots` is the
+    index table's column count D.
+
+    - sub: gcd(tile, halo, 64) rows, so every clamped window starts and
+      ends on a stage (w0 is a multiple of the rounded halo, of the tile or
+      0, and W of both);
+    - ring: the window and one tile of rows in flight, min(W + tile, V)
+      rows, else W (no rows ahead);
+    - buf_rows, bufs: own-row chunks of min(tile, 256) rows or fewer, two
+      tiles of them in flight, fewer buffers, then shorter chunks, while
+      they do not fit (a wide index table);
+    - cs: the widest of SLICES (up to H rounded up to a power of two) at
+      which TARGET_BLOCKS_PER_SM blocks fit an SM with the full ring, a
+      tile of own rows buffered ahead and chunks no shorter than a pass of
+      the consumer threads (16 bytes of channels a thread); else the widest
+      that fits one block, with either ring and any buffering;
+    - strips: as many as fill the card once, (sms * resident blocks) /
+      slices, so a strip walks ceil(tiles / strips) tiles; a block counts
+      as resident up to TARGET_BLOCKS_PER_SM, the registers' budget.
+
+    Raises RuntimeError when no ring fits a block's shared memory even at
+    8 channels; ValueError unless tile divides V."""
+    halo, w = window_geometry(v, tile, halo)
+    sub = math.gcd(math.gcd(tile, halo), 64)
+    cap = max(SLICES[-1], 1 << max(h - 1, 0).bit_length())
+    widths = [c for c in SLICES if c <= cap]
+    rings = list(dict.fromkeys((min(w + tile, v), w)))
+    target = SM_SMEM // TARGET_BLOCKS_PER_SM - BLOCK_RESERVED_SMEM
+
+    def halvings(n, stop):
+        out = []
+        while n > stop and n % 2 == 0:
+            out.append(n)
+            n //= 2
+        return out + [n]
+
+    buffering = [(rows, bufs) for rows in halvings(min(tile, 256), 1)
+                 if tile % rows == 0
+                 for bufs in halvings(2 * (tile // rows), 2)]
+
+    def smem(ring, cs, rows, bufs):
+        return _smem(arrays, ring, cs, elem_bytes, sub, bufs, rows, slots)
+
+    def keeps_busy(cs, rows, bufs):
+        # a tile of own rows buffered ahead, a chunk no shorter than what
+        # the consumer threads take in one pass (16 bytes a lane)
+        per_pass = CONSUMER_THREADS * 16 // (cs * elem_bytes)
+        return rows * bufs >= tile and rows >= min(per_pass, tile)
+
+    # first: the full ring, TARGET_BLOCKS_PER_SM blocks an SM, busy
+    # consumers; then whatever fits one block
+    choice = next(
+        ((ring, cs, rows, bufs) for limit, rs, busy in
+         ((target, rings[:1], True), (MAX_BLOCK_SMEM, rings, False))
+         for ring in rs for cs in widths for rows, bufs in buffering
+         if (not busy or keeps_busy(cs, rows, bufs))
+         and smem(ring, cs, rows, bufs) <= limit), None)
+    if choice is None:
+        raise RuntimeError(
+            f"a window of {w} rows does not fit a block's shared memory "
+            f"even at {SLICES[-1]} channels ({arrays} staged arrays)")
+    ring, cs, buf_rows, bufs = choice
+    nbytes = smem(ring, cs, buf_rows, bufs)
+    resident = min(TARGET_BLOCKS_PER_SM,
+                   SM_SMEM // (nbytes + BLOCK_RESERVED_SMEM))
+    tiles = v // tile
+    strips = min(tiles, max(1, sms * resident // -(-h // cs)))
+    strip_tiles = -(-tiles // strips)
+    return WindowPlan(v, h, tile, halo, w, arrays, elem_bytes, slots, cs,
+                      sub, ring, bufs, buf_rows, strip_tiles,
+                      -(-tiles // strip_tiles), nbytes)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_plan(rows: torch.Tensor, halo: int, tile: int, arrays: int,
+                slots: int) -> WindowPlan:
+    """`window_plan` for [V, H] `rows` on their card."""
+    v, h = rows.shape
+    return window_plan(v, h, halo, tile, rows.element_size(), arrays,
+                       _sm_count(rows.device.index), slots)
+
+
+def _plan_args(plan: WindowPlan):
+    return (plan.tile, plan.halo, plan.w, plan.cs, plan.sub, plan.ring,
+            plan.bufs, plan.buf_rows, plan.strip_tiles, plan.strips,
+            plan.smem)
+
+
+def last_launch() -> dict:
+    """What the library's last windowed launch ran: grid, threads, shared
+    memory, the plan's slice, stage, ring and buffer rows, and whether TMA
+    or ordinary loads filled the ring."""
+    lib = _cuda.library("windowed_edge_conv")
+    lib.windowed_last_launch.argtypes = [ctypes.c_void_p]
+    lib.windowed_last_launch.restype = None
+    keys = ("strips", "slices", "threads", "smem", "cs", "sub", "ring",
+            "bufs", "buf_rows", "strip_tiles", "tma")
+    out = (ctypes.c_int * len(keys))()
+    lib.windowed_last_launch(out)
+    return dict(zip(keys, out))
 
 
 def windowed_edge_conv_sum(p, q, nbr, deg, halo, tile, mode="relu",
@@ -103,22 +313,47 @@ def _check(names, rows, idx, count, dev, dtype="bf16"):
     _check_table(idx, count, rows[0].shape[0], dev)
 
 
-def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu"):
-    """Launch `windowed_edge_conv_sum_bf16`
-    (ops/cuda/windowed_edge_conv.cu) on the current stream; every live
-    slot of `nbr` must lie in its tile's window. Raises on a tensor it does
-    not take or a failed launch; never falls back."""
-    dev = p.device
-    _check(("p", "q"), (p, q), nbr, deg, dev)
-    v, h = p.shape
-    halo, w = window_geometry(v, tile, halo)
+def launch_sum(plan, p, q, nbr, deg, mode="relu"):
+    """Launch the receiver kernel of p's dtype with `plan` on the current
+    stream (checked tensors; `plan` from `window_plan`); returns out.
+    Raises on a failed launch. Counts nothing: the wrappers below do."""
+    f32 = p.dtype == torch.float32
+    name = ("windowed_edge_conv_sum_f32" if f32
+            else "windowed_edge_conv_sum_bf16")
     out = torch.empty_like(p)
     lib = _cuda.library("windowed_edge_conv")
-    rc = lib.windowed_edge_conv_sum_bf16(
-        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-        out.data_ptr(), v, h, nbr.shape[1], tile, halo, w, _MODES[mode],
-        dev.index, _cuda.stream_of(dev))
-    _cuda.check_status(lib, "windowed_edge_conv_sum_bf16", rc)
+    args = [p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            out.data_ptr(), plan.v, plan.h, nbr.shape[1], *_plan_args(plan)]
+    rc = getattr(lib, name)(*args, *([] if f32 else [_MODES[mode]]),
+                            p.device.index, _cuda.stream_of(p.device))
+    _cuda.check_status(lib, name, rc)
+    return out
+
+
+def launch_dq(plan, q, g, p, rev_dst, deg_out):
+    """Launch `windowed_dq_bf16` with `plan`, as `launch_sum`."""
+    out = torch.empty_like(q)
+    lib = _cuda.library("windowed_edge_conv")
+    rc = lib.windowed_dq_bf16(
+        q.data_ptr(), g.data_ptr(), p.data_ptr(), rev_dst.data_ptr(),
+        deg_out.data_ptr(), out.data_ptr(), plan.v, plan.h,
+        rev_dst.shape[1], *_plan_args(plan), q.device.index,
+        _cuda.stream_of(q.device))
+    _cuda.check_status(lib, "windowed_dq_bf16", rc)
+    return out
+
+
+def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu"):
+    """Launch `windowed_edge_conv_sum_bf16`
+    (ops/cuda/windowed_edge_conv.cu) on the current stream with
+    `window_plan`'s layout; every live slot of `nbr` must lie in its tile's
+    window. Raises on a tensor it does not take, a window that fits no
+    block, or a failed launch; never falls back."""
+    _check(("p", "q"), (p, q), nbr, deg, p.device)
+    if mode not in _MODES:
+        raise ValueError(f"mode must be 'relu' or 'step', got {mode!r}")
+    out = launch_sum(launch_plan(q, halo, tile, 1, nbr.shape[1]), p, q, nbr,
+                     deg, mode)
     windowed_edge_conv_sum_kernel.launches += 1
     return out
 
@@ -128,20 +363,10 @@ windowed_edge_conv_sum_kernel.launches = 0
 
 def windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile):
     """Launch `windowed_edge_conv_sum_f32` (ops/cuda/windowed_edge_conv.cu)
-    on the current stream; every live slot of `nbr` must lie in its tile's
-    window. Raises on a tensor it does not take or a failed launch; never
-    falls back."""
-    dev = p.device
-    _check(("p", "q"), (p, q), nbr, deg, dev, "f32")
-    v, h = p.shape
-    halo, w = window_geometry(v, tile, halo)
-    out = torch.empty_like(p)
-    lib = _cuda.library("windowed_edge_conv")
-    rc = lib.windowed_edge_conv_sum_f32(
-        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-        out.data_ptr(), v, h, nbr.shape[1], tile, halo, w, dev.index,
-        _cuda.stream_of(dev))
-    _cuda.check_status(lib, "windowed_edge_conv_sum_f32", rc)
+    as `windowed_edge_conv_sum_kernel` does."""
+    _check(("p", "q"), (p, q), nbr, deg, p.device, "f32")
+    out = launch_sum(launch_plan(q, halo, tile, 1, nbr.shape[1]), p, q, nbr,
+                     deg)
     windowed_edge_conv_sum_f32_kernel.launches += 1
     return out
 
@@ -150,20 +375,12 @@ windowed_edge_conv_sum_f32_kernel.launches = 0
 
 
 def windowed_dq_kernel(q, g, p, rev_dst, deg_out, halo, tile):
-    """Launch `windowed_dq_bf16` (ops/cuda/windowed_edge_conv.cu) on the
-    current stream; every live slot of `rev_dst` must lie in its tile's
-    window."""
-    dev = q.device
-    _check(("q", "g", "p"), (q, g, p), rev_dst, deg_out, dev)
-    v, h = q.shape
-    halo, w = window_geometry(v, tile, halo)
-    out = torch.empty_like(q)
-    lib = _cuda.library("windowed_edge_conv")
-    rc = lib.windowed_dq_bf16(
-        q.data_ptr(), g.data_ptr(), p.data_ptr(), rev_dst.data_ptr(),
-        deg_out.data_ptr(), out.data_ptr(), v, h, rev_dst.shape[1], tile,
-        halo, w, dev.index, _cuda.stream_of(dev))
-    _cuda.check_status(lib, "windowed_dq_bf16", rc)
+    """Launch `windowed_dq_bf16` (ops/cuda/windowed_edge_conv.cu) as
+    `windowed_edge_conv_sum_kernel` does; every live slot of `rev_dst` must
+    lie in its tile's window."""
+    _check(("q", "g", "p"), (q, g, p), rev_dst, deg_out, q.device)
+    out = launch_dq(launch_plan(g, halo, tile, 2, rev_dst.shape[1]), q, g,
+                    p, rev_dst, deg_out)
     windowed_dq_kernel.launches += 1
     return out
 

@@ -455,6 +455,147 @@ def test_windowed_f32_kernel_bitwise(dev, v, h, d, halo, tile):
         assert _bitwise(a, b)
 
 
+def _far_edge_tables(v, d, halo, tile, dev, seed):
+    """Every slot at w0 or w0 + W - 1 of its tile's clamped window (the
+    contract's extremes, wider than graph/build.py's |nbr - v| <= halo band),
+    with deg = 0 rows."""
+    halo, w = windowed.window_geometry(v, tile, halo)
+    rng = np.random.default_rng(seed)
+    w0 = np.clip((np.arange(v) // tile) * tile - halo, 0, v - w)
+    idx = np.where(rng.random((v, d)) < 0.5, w0[:, None],
+                   w0[:, None] + w - 1).astype(np.int32)
+    count = rng.integers(0, d + 1, size=v).astype(np.float32)
+    return _cuda_t(idx, dev), _cuda_t(count, dev)
+
+
+def _windowed_all_bitwise(p, q, g, nbr, deg, rev, deg_out, halo, tile):
+    """Every windowed kernel of the rows' dtype against its plain version;
+    returns last_launch() of each launch."""
+    launched = []
+    if p.dtype == torch.float32:
+        got = windowed.windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
+                                                         halo, tile)
+        launched.append(windowed.last_launch())
+        want = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
+        torch.cuda.synchronize()
+        assert _bitwise(got, want)
+        return launched
+    for mode in ("relu", "step"):
+        got = windowed.windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo,
+                                                     tile, mode)
+        launched.append(windowed.last_launch())
+        want = windowed.windowed_edge_conv_sum_plain(p, q, nbr, deg, mode)
+        torch.cuda.synchronize()
+        assert _bitwise(got, want), mode
+    got = windowed.windowed_dq_kernel(q, g, p, rev, deg_out, halo, tile)
+    launched.append(windowed.last_launch())
+    want = ell.ell_edge_conv_dq_plain(q, g, p, rev, deg_out)
+    torch.cuda.synchronize()
+    assert _bitwise(got, want), "dq"
+    return launched
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("v,h,d,halo,tile", [
+    (1024, 128, 12, 96, 256), (512, 256, 8, 100, 128),
+    (72704, 128, 6, 256, 256), (23680, 256, 6, 192, 128)])
+def test_windowed_kernels_take_far_edge_slots(dev, v, h, d, halo, tile,
+                                              dtype):
+    """Slots at the far edges of the clamped windows of every tile, the
+    first and last included: computed, not trapped."""
+    rng = np.random.default_rng(v + h + 7)
+    p, q, g, _, _, _, _ = _table_case(rng, v, h, 1, dtype, dev)
+    nbr, deg = _far_edge_tables(v, d, halo, tile, dev, seed=v)
+    rev, deg_out = _far_edge_tables(v, d + 2, halo, tile, dev, seed=v + 1)
+    assert windowed.band_violations(nbr, deg, halo, tile) == 0
+    assert windowed.band_violations(rev, deg_out, halo, tile) == 0
+    _windowed_all_bitwise(p, q, g, nbr, deg, rev, deg_out, halo, tile)
+
+
+def test_windowed_launch_is_window_plan_and_strips_end_at_v(dev):
+    """The library launches window_plan's layout (grid, shared memory,
+    slice, stage, ring, strip) with TMA on aligned rows; the flagship's
+    level 0 has a last strip shorter than the others, ending at V; two
+    calls give the same bits."""
+    v, h, d, halo, tile = 72704, 128, 6, 256, 256
+    rng = np.random.default_rng(11)
+    p, q, g, nbr, deg, rev, deg_out = _table_case(
+        rng, v, h, d, torch.bfloat16, dev, halo=halo)
+    launched = _windowed_all_bitwise(p, q, g, nbr, deg, rev, deg_out, halo,
+                                     tile)
+    for got, arrays, table in zip(launched, (1, 1, 2), (nbr, nbr, rev)):
+        plan = windowed.launch_plan(q, halo, tile, arrays, table.shape[1])
+        assert got == dict(strips=plan.strips, slices=plan.slices,
+                           threads=windowed.BLOCK_THREADS, smem=plan.smem,
+                           cs=plan.cs, sub=plan.sub, ring=plan.ring,
+                           bufs=plan.bufs, buf_rows=plan.buf_rows,
+                           strip_tiles=plan.strip_tiles, tma=1)
+        assert (v // tile) % plan.strip_tiles != 0   # a short last strip
+    for call in (
+            lambda: windowed.windowed_edge_conv_sum_kernel(
+                p, q, nbr, deg, halo, tile, "relu"),
+            lambda: windowed.windowed_dq_kernel(q, g, p, rev, deg_out, halo,
+                                                tile)):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert _bitwise(a, b)
+
+
+@pytest.mark.parametrize("case", ["h130", "unaligned"])
+def test_windowed_ring_filled_by_ordinary_loads(dev, case):
+    """Rows a tensor map cannot take (a 260-byte row stride; a base one
+    element past 16-byte alignment) fill the same ring by ordinary loads."""
+    v, d, halo, tile = 1024, 12, 200, 256
+    h = 130 if case == "h130" else 128
+    rng = np.random.default_rng(v + h + 3)
+    for dtype in (torch.bfloat16, torch.float32):
+        p, q, g, nbr, deg, rev, deg_out = _table_case(
+            rng, v, h, d, dtype, dev, halo=halo)
+        if case == "unaligned":
+            buf = torch.empty(v * h + 1, dtype=dtype, device=dev)
+            buf[1:].view(v, h).copy_(q)
+            q = buf[1:].view(v, h)
+            buf2 = torch.empty(v * h + 1, dtype=dtype, device=dev)
+            buf2[1:].view(v, h).copy_(g)
+            g = buf2[1:].view(v, h)
+        launched = _windowed_all_bitwise(p, q, g, nbr, deg, rev, deg_out,
+                                         halo, tile)
+        assert all(x["tma"] == 0 for x in launched), launched
+
+
+def test_windowed_launcher_checks_the_plan(dev):
+    """The C launcher takes the plan as given and refuses one that does not
+    describe the shapes or does not fit a block."""
+    v, h, halo, tile = 1024, 128, 96, 256
+    p = torch.zeros(v, h, dtype=torch.bfloat16, device=dev)
+    nbr = torch.zeros(v, 4, dtype=torch.int32, device=dev)
+    deg = torch.zeros(v, device=dev)
+    plan = windowed.launch_plan(p, halo, tile, 1, 4)
+    lib = _cuda.library("windowed_edge_conv")
+
+    def rc(pl):
+        return lib.windowed_edge_conv_sum_bf16(
+            p.data_ptr(), p.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            p.data_ptr(), v, h, 4, *windowed._plan_args(pl), 0, dev.index,
+            _cuda.stream_of(dev))
+
+    assert rc(plan) == 0
+    torch.cuda.synchronize()
+    bad_value = [plan._replace(ring=plan.w - plan.sub),
+                 plan._replace(sub=plan.sub * 3),
+                 plan._replace(cs=24),
+                 plan._replace(strips=plan.strips + 1),
+                 plan._replace(bufs=0),
+                 plan._replace(buf_rows=3),
+                 plan._replace(smem=plan.smem + 16)]
+    for pl in bad_value:
+        assert rc(pl) == 1, pl   # cudaErrorInvalidValue
+    big = plan._replace(cs=64, ring=2048)
+    big = big._replace(smem=windowed._smem(1, 2048, 64, 2, big.sub,
+                                           big.bufs, big.buf_rows, 4))
+    assert rc(big) == 9   # cudaErrorInvalidConfiguration
+
+
 def test_windowed_kernels_reject_what_they_do_not_take(dev):
     p = torch.zeros(256, 128, dtype=torch.bfloat16, device=dev)
     nbr = torch.zeros(256, 4, dtype=torch.int32, device=dev)

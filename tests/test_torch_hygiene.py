@@ -66,3 +66,30 @@ def test_scene_inpainter_needs_a_card_unless_told_cpu(monkeypatch):
         SceneInpainter(model, model.state_dict(), device="cuda:0")
     assert SceneInpainter(model, model.state_dict(),
                           device="cpu").device.type == "cpu"
+
+
+def _c_param_type(param: str):
+    from stinet_tpu_torch.ops import _cuda
+    if "*" in param or param.startswith("cudaStream_t"):
+        return _cuda._VP
+    kind = param.split()[0]
+    return {"int": _cuda._I, "int64_t": _cuda._I64, "float": _cuda._F}[kind]
+
+
+@pytest.mark.parametrize("source", ["ell_edge_conv", "instance_norm",
+                                    "windowed_edge_conv"])
+def test_ctypes_signatures_match_the_c_launchers(source):
+    """Each launcher's ctypes argtypes (ops/_cuda.py) name its C
+    parameters one for one: a missing int shifts the stream pointer."""
+    import re
+    from stinet_tpu_torch.ops import _cuda
+    text = (PORT / "ops" / "cuda" / f"{source}.cu").read_text()
+    declared = {
+        m.group(1): [_c_param_type(p.strip())
+                     for p in m.group(2).split(",")]
+        for m in re.finditer(r'extern "C" int (\w+)\((.*?)\)\s*\{', text,
+                             re.S)}
+    signatures = _cuda._SIGNATURES[source]
+    assert signatures and set(signatures) <= set(declared)
+    for fn, argtypes in signatures.items():
+        assert argtypes == declared[fn], fn

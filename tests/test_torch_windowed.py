@@ -18,6 +18,7 @@ Tolerances:
 - instance-norm gradient: 1e-5 (sums in another order).
 """
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -390,3 +391,364 @@ def test_instance_norm_gradient_matches_jax(v, c, valid):
     (norms.masked_instance_norm(xt, t(gid), 1, valid) * t(g)).sum().backward()
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+# --- the ring plan of the CUDA kernels, emulated on the CPU -----------------
+#
+# `emulate_ring` runs a `window_plan` the way ops/cuda/windowed_edge_conv.cu
+# does: per strip and channel slice, the producer's loads (a tile's own
+# operands into one of two buffers, then the ring stages of its window, a
+# stage only once the consumers released the slot's previous stage), and
+# each tile's slot loop reading its operands from its buffer and the staged
+# arrays from the ring alone, through the kernel's ring-row map. It raises
+# where a live slot lies outside its tile's window (the kernel traps) or
+# reads a row that is not resident. The result must be bit for bit the
+# plain version's.
+
+FLAGSHIP_PLANS = [
+    # (V, H, halo, tile, elem_bytes, arrays), D = 6, 132 SMs ->
+    # (cs, sub, ring, bufs, buf_rows, strip_tiles, strips, smem)
+    ((72704, 128, 256, 256, 2, 1), (32, 64, 1024, 2, 256, 5, 57, 112928)),
+    ((72704, 128, 256, 256, 2, 2), (16, 64, 1024, 2, 256, 9, 32, 96544)),
+    ((23680, 256, 192, 128, 2, 1), (64, 64, 640, 2, 64, 3, 62, 102080)),
+    ((23680, 256, 192, 128, 2, 2), (32, 64, 640, 2, 128, 6, 31, 105664)),
+    ((23680, 256, 192, 128, 4, 1), (32, 64, 640, 2, 64, 6, 31, 102080)),
+    ((6144, 256, 96, 256, 2, 1), (32, 32, 704, 2, 256, 1, 24, 92544)),
+    ((6144, 256, 96, 256, 2, 2), (32, 32, 704, 2, 128, 1, 24, 114048))]
+
+
+def _plan_invariants(plan):
+    halo, w = windowed.window_geometry(plan.v, plan.tile, plan.halo)
+    assert (plan.halo, plan.w) == (halo, w)
+    assert plan.cs in windowed.SLICES and plan.tile % plan.sub == 0
+    assert plan.w % plan.sub == 0 and plan.ring % plan.sub == 0
+    assert plan.ring >= plan.w and plan.bufs >= 2
+    assert plan.tile % plan.buf_rows == 0
+    assert plan.smem == windowed._smem(plan.arrays, plan.ring, plan.cs,
+                                       plan.elem_bytes, plan.sub, plan.bufs,
+                                       plan.buf_rows, plan.slots)
+    assert plan.smem <= windowed.MAX_BLOCK_SMEM
+    tiles = plan.v // plan.tile
+    assert (plan.strips - 1) * plan.strip_tiles < tiles <= (
+        plan.strips * plan.strip_tiles)
+    for i in range(tiles):   # every window starts and ends on a stage
+        assert plan.window_start(i) % plan.sub == 0
+
+
+@pytest.mark.parametrize("args,want", FLAGSHIP_PLANS)
+def test_window_plan_at_the_flagship_shapes(args, want):
+    plan = windowed.window_plan(*args, 132, 6)
+    _plan_invariants(plan)
+    assert (plan.cs, plan.sub, plan.ring, plan.bufs, plan.buf_rows,
+            plan.strip_tiles, plan.strips, plan.smem) == want
+    # a strip copies its windows' union once: less than a window per tile
+    assert plan.staged_bytes() < plan.per_tile_staged_bytes() or (
+        plan.strip_tiles == 1)
+
+
+@pytest.mark.parametrize("v,h,halo,tile,sms,what", [
+    (4096, 64, 96, 256, 4, "ring smaller than V, long strips"),
+    (512, 64, 512, 128, 132, "window all of V"),
+    (256, 128, 64, 256, 132, "V = tile"),
+    (1024, 72, 96, 128, 132, "H not a multiple of the slice"),
+    (1024, 130, 200, 256, 8, "H = 130, ordinary loads on the card")])
+def test_window_plan_edge_shapes(v, h, halo, tile, sms, what):
+    for arrays in (1, 2):
+        plan = windowed.window_plan(v, h, halo, tile, 2, arrays, sms, 12)
+        _plan_invariants(plan)
+        if what.startswith("ring smaller"):
+            assert plan.ring < v and plan.strip_tiles > 1
+        if what == "window all of V" or what == "V = tile":
+            assert plan.w == v and plan.ring == v
+        if what.startswith("H not"):
+            assert h % plan.cs != 0 and plan.slices * plan.cs > h
+
+
+@pytest.mark.parametrize("c_name,py_name", [
+    ("kMinBlocks", "TARGET_BLOCKS_PER_SM"), ("kMaxSmem", "MAX_BLOCK_SMEM"),
+    ("kBarrierBytes", "BARRIER_BYTES")])
+def test_window_plan_limits_match_the_kernel(c_name, py_name):
+    """The plan is sized for the limits the kernel is compiled with: the
+    blocks an SM its registers are budgeted for, a block's shared memory,
+    a ring stage's barriers."""
+    import re
+    text = (pathlib.Path(windowed.__file__).parent / "cuda"
+            / "windowed_edge_conv.cu").read_text()
+    m = re.search(rf"constexpr int {c_name} = (\d+);", text)
+    assert m and int(m.group(1)) == getattr(windowed, py_name)
+    # and the grid counts no more resident blocks than that
+    for (v, h, halo, tile, es, arrays), _ in FLAGSHIP_PLANS:
+        for sms in (4, 132):
+            plan = windowed.window_plan(v, h, halo, tile, es, arrays, sms, 6)
+            assert plan.strips * plan.slices <= (
+                sms * windowed.TARGET_BLOCKS_PER_SM) or plan.strips == 1
+
+
+def test_window_plan_refuses_a_window_that_fits_no_block():
+    with pytest.raises(RuntimeError):
+        windowed.window_plan(65536, 8, 65536, 256, 2, 2, 132, 2)
+    with pytest.raises(ValueError):
+        windowed.window_plan(1000, 8, 32, 256, 2, 1, 132, 2)
+
+
+def _strip_actions(plan, s):
+    """The producer's and the consumers' steps for strip s, in the kernel's
+    order: ("buffer", n, r0) and ("stage", k) for the producer;
+    ("window", i), ("chunk", i, n, r0) and ("release", i) for the
+    consumers."""
+    tiles, chunks = plan.strip_tiles_of(s), plan.tile // plan.buf_rows
+    rows = plan.buf_rows
+    produce, consume = [], []
+    k = plan.strip_stages(s).start
+    for i in tiles:
+        n0, t0 = (i - tiles.start) * chunks, i * plan.tile
+        k_hi = (plan.window_start(i) + plan.w) // plan.sub
+        produce.append(("buffer", n0, t0))
+        produce += [("stage", kk) for kk in range(k, k_hi)]
+        produce += [("buffer", n0 + j, t0 + j * rows)
+                    for j in range(1, chunks)]
+        k = max(k, k_hi)
+        consume.append(("window", i))
+        consume += [("chunk", i, n0 + j, t0 + j * rows)
+                    for j in range(chunks)]
+        consume.append(("release", i))
+    return produce, consume
+
+
+def emulate_ring(plan, staged, own, idx, count, chunk_sum):
+    """The kernel's schedule on the CPU: per strip and channel slice, the
+    producer's and the consumers' steps, each taken once its barrier would
+    let it through (a buffer or a ring slot once the consumers released its
+    previous use; a sub-tile once its buffer and its tile's window are
+    loaded). staged: the [V, H] arrays the ring holds (q; or g and p); own:
+    the [V, H] array of the block's own rows (p; or q); idx, count: the slot
+    table and its live counts. chunk_sum(rings, own_rows, local_idx,
+    counts) -> a chunk's [buf_rows, cs] output, local_idx the ring rows of
+    its slots (0 on dead slots). Raises on a deadlock, a live slot outside
+    its tile's window, or a slot that reads a row that is not resident."""
+    v, h, cs, sub, rows = plan.v, plan.h, plan.cs, plan.sub, plan.buf_rows
+    stages = plan.ring // sub
+    live = torch.arange(idx.shape[1])[None, :] < count.to(torch.int64)[:, None]
+    width = plan.slices * cs
+    out = torch.zeros(v, width, dtype=own.dtype)
+
+    def pad(a):
+        return torch.nn.functional.pad(a, (0, width - h))
+    padded, own = [pad(a) for a in staged], pad(own)
+    for s in range(plan.strips):
+        produce, consume = _strip_actions(plan, s)
+        k_begin = plan.strip_stages(s).start
+        base = k_begin * sub
+        for c0 in range(0, width, cs):
+            rings = [torch.full((plan.ring, cs), float("nan"),
+                                dtype=a.dtype) for a in staged]
+            held = torch.full((plan.ring,), -1, dtype=torch.int64)
+            buffers = [None] * plan.bufs
+            loaded, freed_bufs = set(), set()
+            freed_below = k_begin   # stages below it are released
+            pi = ci = 0
+            while ci < len(consume):
+                progress = False
+                while pi < len(produce):
+                    step = produce[pi]
+                    if step[0] == "buffer":
+                        _, n, r0 = step
+                        if n >= plan.bufs and n - plan.bufs not in freed_bufs:
+                            break
+                        buffers[n % plan.bufs] = (
+                            n, own[r0:r0 + rows, c0:c0 + cs].clone(),
+                            idx[r0:r0 + rows].clone(),
+                            count[r0:r0 + rows].clone(), live[r0:r0 + rows])
+                    else:
+                        k = step[1]
+                        if k - k_begin >= stages and k - stages >= freed_below:
+                            break
+                        slot = (k - k_begin) % stages
+                        stage = torch.arange(k * sub, (k + 1) * sub)
+                        for ring, src in zip(rings, padded):
+                            ring[slot * sub:(slot + 1) * sub] = \
+                                src[stage, c0:c0 + cs]
+                        held[slot * sub:(slot + 1) * sub] = stage
+                        loaded.add(k)
+                    pi += 1
+                    progress = True
+                step = consume[ci]
+                if step[0] == "window":
+                    w0 = plan.window_start(step[1])
+                    if all(k in loaded for k in
+                           range(w0 // sub, (w0 + plan.w) // sub)):
+                        ci += 1
+                        progress = True
+                elif step[0] == "chunk":
+                    _, i, n, r0 = step
+                    got = buffers[n % plan.bufs]
+                    if got is not None and got[0] == n:
+                        w0 = plan.window_start(i)
+                        _, own_t, tbl, cnt, lv = got
+                        tbl = tbl.to(torch.int64)
+                        r = tbl - w0
+                        if bool((lv & ((r < 0) | (r >= plan.w))).any()):
+                            raise RuntimeError(f"tile {i}: a live slot lies "
+                                               "outside its window")
+                        ring_row = r + (w0 - base) % plan.ring
+                        ring_row = torch.where(ring_row >= plan.ring,
+                                               ring_row - plan.ring, ring_row)
+                        ring_row = torch.where(lv, ring_row, 0)
+                        if bool((held[ring_row][lv] != tbl[lv]).any()):
+                            raise RuntimeError(f"tile {i}: a live slot reads "
+                                               "a row that is not resident")
+                        out[r0:r0 + rows, c0:c0 + cs] = chunk_sum(
+                            rings, own_t, ring_row.to(torch.int32), cnt)
+                        freed_bufs.add(n)
+                        ci += 1
+                        progress = True
+                else:
+                    i = step[1]
+                    if i + 1 < plan.strip_tiles_of(s).stop:
+                        freed_below = plan.window_start(i + 1) // sub
+                    ci += 1
+                    progress = True
+                if not progress:
+                    raise RuntimeError(f"strip {s}: the schedule deadlocks "
+                                       f"at {consume[ci]} / {produce[pi]}")
+    return out[:, :h]
+
+
+def ring_sum(plan, p, q, nbr, deg, mode):
+    """relu or step sum through the ring, on q's rows."""
+    def chunk_sum(rings, p_t, local, cnt):
+        if mode == "relu":
+            return ell.ell_edge_conv_sum_plain(p_t, rings[0], local, cnt)
+        return windowed.windowed_edge_conv_sum_plain(p_t, rings[0], local,
+                                                     cnt, "step")
+    return emulate_ring(plan, [q], p, nbr, deg, chunk_sum)
+
+
+def ring_dq(plan, q, g, p, rev, deg_out):
+    """dq through the rings of g and p."""
+    def chunk_sum(rings, q_t, local, cnt):
+        return ell.ell_edge_conv_dq_plain(q_t, rings[0], rings[1], local,
+                                          cnt)
+    return emulate_ring(plan, [g, p], q, rev, deg_out, chunk_sum)
+
+
+def _far_edge_table(v, d, halo, tile, seed):
+    """Every slot at w0 or w0 + W - 1 of its tile's clamped window, the
+    contract's extremes, and random degrees with deg = 0 rows."""
+    halo, w = windowed.window_geometry(v, tile, halo)
+    rng = np.random.default_rng(seed)
+    w0 = np.clip((np.arange(v) // tile) * tile - halo, 0, v - w)
+    nbr = np.where(rng.random((v, d)) < 0.5, w0[:, None],
+                   w0[:, None] + w - 1).astype(np.int32)
+    deg = rng.integers(0, d + 1, size=v).astype(np.float32)
+    return nbr, deg
+
+
+def _assert_bitwise(got, want):
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.contiguous().view(view), want.view(view))
+
+
+def _check_all_modes(plan16, plan32, plan_dq, p, q, g, nbr, deg, rev, dout):
+    p16, q16, g16 = (x.to(torch.bfloat16) for x in (p, q, g))
+    for mode in ("relu", "step"):
+        _assert_bitwise(ring_sum(plan16, p16, q16, nbr, deg, mode),
+                        windowed.windowed_edge_conv_sum_plain(
+                            p16, q16, nbr, deg, mode))
+    _assert_bitwise(ring_sum(plan32, p, q, nbr, deg, "relu"),
+                    ell.ell_edge_conv_sum_plain(p, q, nbr, deg))
+    _assert_bitwise(ring_dq(plan_dq, q16, g16, p16, rev, dout),
+                    ell.ell_edge_conv_dq_plain(q16, g16, p16, rev, dout))
+
+
+RING_SHAPES = [
+    # v, h, d, halo, tile, sms (the banded tables' reverse tables are wide:
+    # rows clipped to 0 and V - 1 take many slots, so chunks shrink)
+    (1024, 128, 12, 96, 256, 132),
+    (2048, 64, 6, 96, 128, 2),      # long strips, ring smaller than V
+    (512, 256, 8, 100, 128, 132),   # clamped at both ends
+    (512, 72, 5, 512, 128, 132),    # window all of V; H past the slice
+    (256, 40, 6, 64, 256, 132)]     # V = tile
+
+
+def _plans(v, h, halo, tile, sms, d, d_rev):
+    return (windowed.window_plan(v, h, halo, tile, 2, 1, sms, d),
+            windowed.window_plan(v, h, halo, tile, 4, 1, sms, d),
+            windowed.window_plan(v, h, halo, tile, 2, 2, sms, d_rev))
+
+
+@pytest.mark.parametrize("table", ["banded", "far_edge"])
+@pytest.mark.parametrize("v,h,d,halo,tile,sms", RING_SHAPES)
+def test_ring_emulation_bitwise_equals_plain(v, h, d, halo, tile, sms,
+                                             table):
+    p, q, g, nbr, deg, rev, dout = _banded_case(v, h, d, halo, seed=v + h)
+    if table == "far_edge":
+        nbr, deg = _far_edge_table(v, d, halo, tile, seed=v)
+        rev, dout = _far_edge_table(v, d + 2, halo, tile, seed=v + 1)
+    assert windowed.band_violations(t(nbr), t(deg), halo, tile) == 0
+    assert windowed.band_violations(t(rev), t(dout), halo, tile) == 0
+    _check_all_modes(*_plans(v, h, halo, tile, sms, nbr.shape[1],
+                             rev.shape[1]), t(p), t(q), t(g), t(nbr),
+                     t(deg), t(rev), t(dout))
+
+
+def test_ring_emulation_raises_outside_the_window():
+    v, d, halo, tile = 1024, 4, 96, 256
+    p, q, _, nbr, deg, _, _ = _banded_case(v, 64, d, halo)
+    plan = windowed.window_plan(v, 64, halo, tile, 2, 1, 132, d)
+    nbr[300, 0], deg[300] = 300 + 256 + 97, 4   # past tile 1's window
+    with pytest.raises(RuntimeError, match="outside"):
+        ring_sum(plan, t(p, torch.bfloat16), t(q, torch.bfloat16), t(nbr),
+                 t(deg), "relu")
+
+
+def test_ring_emulation_raises_on_a_ring_too_small():
+    v, h, d, halo, tile = 1024, 64, 4, 96, 256
+    p, q, _, nbr, deg, _, _ = _banded_case(v, h, d, halo)
+    plan = windowed.window_plan(v, h, halo, tile, 2, 1, 1, d)._replace(
+        ring=256)
+    with pytest.raises(RuntimeError, match="deadlocks"):
+        ring_sum(plan, t(p, torch.bfloat16), t(q, torch.bfloat16), t(nbr),
+                 t(deg), "relu")
+
+
+def _built_edge_sets(layout):
+    """(nbr, deg, rev, deg_out, halo) of every banded edge set of a small
+    windowed build: one scene, two scenes concatenated into one graph, or
+    each scene of a stacked pair."""
+    scenes = [port_synthetic.synthetic_scene(**dict(SCENE, seed=s))
+              for s in range(2 if layout != "single" else 1)]
+    if layout == "stacked":
+        graph, _ = port_build.build_stacked_graph(scenes, geometric=True,
+                                                  windowed=True)
+    else:
+        graph = port_build.build_hierarchical_graph(scenes, geometric=True,
+                                                    windowed=True)
+    sets = []
+    for lv in graph.levels:
+        for e in (lv.edges, *lv.dilated.values()):
+            if e.halo is None:
+                continue
+            tables = (e.nbr, e.ell_degree, e.rev_dst, e.out_degree)
+            if layout == "stacked":
+                sets += [(*(x[b] for x in tables), int(e.halo))
+                         for b in range(tables[0].shape[0])]
+            else:
+                sets.append((*tables, int(e.halo)))
+    return sets
+
+
+@pytest.mark.parametrize("layout", ["single", "concatenated", "stacked"])
+def test_ring_emulation_on_built_tables(layout):
+    sets = _built_edge_sets(layout)
+    assert sets
+    rng = np.random.default_rng(7)
+    for nbr, deg, rev, dout, halo in sets:
+        v, h = nbr.shape[0], 32
+        tile = windowed.default_tile(v)
+        p, q, g = (t(rng.normal(size=(v, h)).astype(np.float32))
+                   for _ in range(3))
+        _check_all_modes(*_plans(v, h, halo, tile, 16, nbr.shape[1],
+                                 rev.shape[1]), p, q, g, nbr, deg, rev, dout)
+
