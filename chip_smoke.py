@@ -15,7 +15,11 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    (median of REPS CUDA-event timings of INNER back-to-back calls, after
    WARMUP calls), with the least
    time the card could take (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, the larger); for K2 also, here and in phases 6 and 9: every
+   67 TFLOP/s, the larger); for K1 also, here and in phase 6: a call's
+   host and card-alone time (as for K2 below), the launch's plan
+   (ops/ell.py:ell_plan, checked against what the library launched) and
+   the other split of the rows into one or two groups, bitwise and timed
+   beside it; for K2 also, here and in phases 6 and 9: every
    call run twice gives the same bits, the device launches of one call
    counted in a profiler window (K2_DEVICE_LAUNCHES) with each launch's
    device time there, a distinct shape a call, and a call's time
@@ -76,13 +80,23 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    whole stream and after the first result, and `stream_stats()`.
 
 The last two lines are the kernel record (K3 rows also carry
-`k1_same_inputs_ms`, K1's time on the same inputs) and the result, one JSON
-object each. Without a CUDA card the script exits nonzero and prints no result.
+`k1_same_inputs_ms`, K1's time on the same inputs; K1 and K3 rows
+`device_ms`, the card-alone time, and `host_us`, the host's time a call)
+and the result, one JSON object each. Without a CUDA card the script exits
+nonzero and prints no result.
+
+    python3 chip_smoke.py --k1-only [--tree DIR]
+
+builds the kernels and runs only phase 3's and phase 6's K1 forward calls,
+held and timed as above, and prints their sums as one JSON line; with
+--tree, on the stinet_tpu_torch package of the checkout DIR (an A/B of two
+versions of the kernel, each in its own process, by this script's code).
 """
 import contextlib
 import copy
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -341,9 +355,15 @@ def build_kernels():
     say("build", f"{len(logs)} of {len(_cuda.SOURCES)} sources compiled "
         f"in {secs:.2f} s ({', '.join(_cuda.SOURCES)})")
     for name, log in logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say("build", f"{name}: {line.strip()}")
+            # the mangled name after the file's hash, up to the parameters
+            entry = re.search(r"entry function '\w*?_cu_\w{8}\d+(\w+?)"
+                              r"(?:EE?v|E\d)", line)
+            if entry:
+                kernel = entry.group(1)   # e.g. ell_fwd_rowsIfLb1ELi4E
+            elif "registers" in line or "spill" in line:
+                say("build", f"{name}: {kernel}: {line.strip()}")
 
 
 def capture_kernel_inputs(server, graph):
@@ -376,10 +396,105 @@ def capture_kernel_inputs(server, graph):
     return k1, k2
 
 
+def k1_plan_note(torch, p, q, nbr, deg, want):
+    """The plan of K1's last launch (ops/ell.py:ell_plan), checked against
+    what the library launched, and the rows split into half or twice its
+    groups, where the plan allows, held bitwise against `want` and timed,
+    back to back and by the card alone: what ell_plan's choice of groups
+    rests on. A package from before ell_plan (--tree) has no plan to
+    print."""
+    from stinet_tpu_torch.ops import ell
+    if not hasattr(ell, "ell_plan"):
+        return "no ell_plan in this package"
+    v, h = p.shape
+    plan = ell.ell_plan(v, h, p.dtype)
+    got = ell.last_launch()
+    launched = dict(lanes=plan.lanes, chunks=plan.chunks, groups=plan.groups,
+                    blocks=plan.blocks, threads=ell.THREADS,
+                    vector=int(plan.vector))
+    check(got == launched, f"the library launched {got}, ell_plan gives "
+          f"{launched}")
+    text = (f"plan {plan.lanes} lanes x {plan.chunks} chunks, {plan.groups} "
+            f"group(s) a row, {plan.blocks} blocks of "
+            f"{plan.rows_per_block:g} rows, "
+            f"{'16-byte' if plan.vector else 'element'} loads")
+    for groups in (plan.groups // 2, 2 * plan.groups):
+        if groups == 0:
+            continue
+        try:
+            other = ell.ell_plan(v, h, p.dtype, groups=groups)
+        except ValueError:
+            continue
+        out = ell.launch_sum(other, p, q, nbr, deg)
+        torch.cuda.synchronize()
+        view = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+        check(torch.equal(out.view(view), want.view(view)),
+              f"K1 split into {groups} groups and the plain version differ")
+        ms = median_ms(torch, lambda o=other: ell.launch_sum(o, p, q, nbr,
+                                                             deg))
+        _, _, dev = host_device_us(
+            torch, lambda o=other: ell.launch_sum(o, p, q, nbr, deg))
+        text += (f"; {groups} group(s) x {other.chunks} chunks: bitwise, "
+                 f"{ms:.4f} ms, device alone {dev:.1f} us")
+    return text
+
+
+def k1_wrapper_costs(torch, p, q, nbr, deg):
+    """Host microseconds of one K1 wrapper call on these tensors and of its
+    steps, each the median of 5 loops of ENQUEUES repeats: the row and table
+    checks, the allocation, the stream lookup, the plan (`ell_plan`, cached
+    per shape) and the launcher (cached per dtype), beside the per-call
+    lookup the cache replaced (the library, then an f-string getattr); the
+    rest of the call is the ctypes call with the launch. A package from
+    before the caches (--tree) gets the whole call only."""
+    from stinet_tpu_torch.ops import _cuda, ell
+    dev = p.device
+    v, h = p.shape
+
+    def us(fn):
+        fn()
+        torch.cuda.synchronize()
+        loops = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(ENQUEUES):
+                fn()
+            loops.append((time.perf_counter() - t0) / ENQUEUES * 1e6)
+            torch.cuda.synchronize()
+        return statistics.median(loops)
+
+    whole = us(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
+    costs = {}
+    if hasattr(ell, "_fwd_launcher"):
+        costs = {
+            "row checks": us(lambda: (
+                _cuda.check_tensor("p", p, p.dtype, 2, dev),
+                _cuda.check_tensor("q", q, p.dtype, 2, dev))),
+            "table check": us(lambda: ell._check_table(nbr, deg, v, dev)),
+            "out (torch.empty_like)": us(lambda: torch.empty_like(p)),
+            "stream lookup": us(lambda: _cuda.stream_of(dev)),
+            "plan and launcher lookups, cached": us(lambda: (
+                ell.ell_plan(v, h, p.dtype, True),
+                ell._fwd_launcher(p.dtype)))}
+        costs["the rest (pointers, the ctypes call with the launch)"] = (
+            whole - sum(costs.values()))
+        costs["the per-call lookup it replaced"] = us(lambda: getattr(
+            _cuda.library("ell_edge_conv"),
+            f"ell_edge_conv_sum_fwd_{ell._DTYPES[p.dtype]}"))
+    say("K1", f"host cost of a wrapper call on {tuple(p.shape)} "
+        f"{p.dtype}, us: whole call {whole:.2f}" + "".join(
+            f", {k} {val:.2f}" for k, val in costs.items()))
+    return whole
+
+
 def check_k1(torch, calls):
+    """Phase 3's K1 calls: each bitwise its plain version, timed back to
+    back, split into host and card alone (`host_device_us`), with its
+    bound and plan."""
     from stinet_tpu_torch.ops.ell import (
         ell_edge_conv_sum_kernel, ell_edge_conv_sum_plain)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0,
+               host_us=0.0)
     err, kinds = 0.0, set()
     for i, (p, q, nbr, deg) in enumerate(calls):
         check(nbr is not None, f"K1 call {i}: edge set has no ELL table")
@@ -389,10 +504,13 @@ def check_k1(torch, calls):
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         check(same, f"K1 call {i} {tuple(nbr.shape)}x{p.shape[1]}: kernel "
               "and plain version differ")
+        note = k1_plan_note(torch, p, q, nbr, deg, want)
         err = max(err, (got - want).abs().max().item())
         ms = median_ms(torch, lambda: ell_edge_conv_sum_kernel(p, q, nbr, deg))
         plain = median_ms(torch,
                           lambda: ell_edge_conv_sum_plain(p, q, nbr, deg))
+        host, _, dev = host_device_us(
+            torch, lambda: ell_edge_conv_sum_kernel(p, q, nbr, deg))
         v, h = p.shape
         # what this call's data needs: deg and out for every row, the live
         # slots of nbr, p of each row with an edge, q of each sender once
@@ -403,12 +521,17 @@ def check_k1(torch, calls):
         nbytes = 4 * (v + v * h + slots + h * (receivers + senders))
         b_ms, b_by = bound(nbytes, 3 * h * slots)
         kinds.add(b_by)
-        tot["ms"] += ms
-        tot["plain_ms"] += plain
-        tot["bound_ms"] += b_ms
-        say("K1", f"call {i:2d} V={v} H={h} D={nbr.shape[1]}: bitwise equal; "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {nbytes / ms / 1e6:.0f} GB/s")
+        for k, val in (("ms", ms), ("plain_ms", plain), ("bound_ms", b_ms),
+                       ("device_ms", dev / 1e3), ("host_us", host)):
+            tot[k] += val
+        say("K1", f"call {i:2d} V={v} H={h} D={nbr.shape[1]} live slots a "
+            f"row {slots / max(receivers, 1):.2f}: bitwise equal; kernel "
+            f"{ms:.4f} ms, device alone {dev:.1f} us, host {host:.1f} us a "
+            f"call, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{nbytes / ms / 1e6:.0f} GB/s; {note}")
+    tot["host_us"] /= max(len(calls), 1)
+    small = min(calls, key=lambda c: c[0].numel())
+    k1_wrapper_costs(torch, *small)
     return dict(tot, max_abs_err=err, library_ms=None,
                 bound_by="bytes" if kinds == {"bytes"} else "operations")
 
@@ -668,11 +791,11 @@ def check_train_kernels(torch, calls):
     rows = {}
 
     def run(key, label, kernel, plain, nbytes, flops, ab=None, tol=None,
-            lib=None, note=None):
+            lib=None, note=None, alone=False):
         got = kernel()
-        if note is not None:
-            label = f"{label}; {note()}"
         want = plain()
+        if note is not None:
+            label = f"{label}; {note(want)}"
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"{label}: kernel gives {got.dtype} {tuple(got.shape)}, plain "
@@ -694,7 +817,7 @@ def check_train_kernels(torch, calls):
         r = rows.setdefault(key, dict(
             ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
             library_ms=None if lib is None else 0.0, kinds=set(), calls=0,
-            ab_ms=0.0, device_ms=0.0, k1_device_ms=0.0))
+            ab_ms=0.0, device_ms=0.0, k1_device_ms=0.0, host_us=0.0))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["bound_ms"] += b_ms
@@ -702,18 +825,20 @@ def check_train_kernels(torch, calls):
         r["kinds"].add(b_by)
         r["calls"] += 1
         extra = ""
-        if ab is not None:
-            ab_ms = median_ms(torch, ab)
-            r["ab_ms"] += ab_ms
+        if ab is not None or alone:
             # back-to-back calls time the host where a call's host cost is
             # the larger; queued behind a sleeping kernel, the card alone
             host, _, dev = host_device_us(torch, kernel)
-            _, _, ab_dev = host_device_us(torch, ab)
             r["device_ms"] += dev / 1e3
+            r["host_us"] += host
+            extra = f"; device alone {dev:.1f} us; host {host:.1f} us a call"
+        if ab is not None:
+            ab_ms = median_ms(torch, ab)
+            r["ab_ms"] += ab_ms
+            _, _, ab_dev = host_device_us(torch, ab)
             r["k1_device_ms"] += ab_dev / 1e3
-            extra = (f"; K1 on the same inputs {ab_ms:.4f} ms; device alone "
-                     f"{dev:.1f} us, K1 {ab_dev:.1f} us; host {host:.1f} us "
-                     "a call")
+            extra += (f"; K1 on the same inputs {ab_ms:.4f} ms, device alone "
+                      f"{ab_dev:.1f} us")
         if lib is not None:
             lib_ms = median_ms(torch, lib)
             r["library_ms"] += lib_ms
@@ -736,7 +861,7 @@ def check_train_kernels(torch, calls):
             ab=(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
             if mode == "relu" else
             (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, ones)),
-            note=lambda: plan_note(q, halo, tile, 1, nbr.shape[1]))
+            note=lambda _: plan_note(q, halo, tile, 1, nbr.shape[1]))
     for i, (q, g, p, rev, dout, halo, tile, _) in enumerate(calls["k3c"]):
         v, h = q.shape
         nbytes, slots = _dq_bytes(rev, dout, 2, h)
@@ -748,14 +873,16 @@ def check_train_kernels(torch, calls):
             lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, dout),
             nbytes, 4 * h * slots,
             ab=lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout),
-            note=lambda: plan_note(g, halo, tile, 2, rev.shape[1]))
+            note=lambda _: plan_note(g, halo, tile, 2, rev.shape[1]))
     for i, (p, q, nbr, deg) in enumerate(calls["k1"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 1)
-        run("k1", f"K1 {p.dtype} {i:2d} V={v} H={h} D={nbr.shape[1]}",
+        run("k1", f"K1 {p.dtype} {i:2d} V={v} H={h} D={nbr.shape[1]} live "
+            f"slots a row {slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
             lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg),
             lambda: ell.ell_edge_conv_sum_plain(p, q, nbr, deg),
-            nbytes, 4 * h * slots)
+            nbytes, 4 * h * slots, alone=True,
+            note=lambda want: k1_plan_note(torch, p, q, nbr, deg, want))
     for i, (p, q, nbr, deg, g) in enumerate(calls["k1dp"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 2)
@@ -780,17 +907,19 @@ def check_train_kernels(torch, calls):
             4 * c * (n + v), 7 * n * c, tol=(K2_RTOL, K2_ATOL),
             lib=lambda: F.batch_norm(x[:n], None, None, training=True,
                                      eps=eps))
-    k2_use_record(
-        torch, "train-kernels", "bf16 train step",
-        [((*x.shape, int(nv), 1),
-          lambda x=x, nv=nv, eps=eps: norms.masked_instance_norm_kernel(
-              x, nv, eps)) for x, _, _, nv, eps in calls["k2"]],
-        [lambda xv=x[:int(nv)], eps=eps: F.batch_norm(
-            xv, None, None, training=True, eps=eps)
-         for x, _, _, nv, eps in calls["k2"]])
+    if calls["k2"]:
+        k2_use_record(
+            torch, "train-kernels", "bf16 train step",
+            [((*x.shape, int(nv), 1),
+              lambda x=x, nv=nv, eps=eps: norms.masked_instance_norm_kernel(
+                  x, nv, eps)) for x, _, _, nv, eps in calls["k2"]],
+            [lambda xv=x[:int(nv)], eps=eps: F.batch_norm(
+                xv, None, None, training=True, eps=eps)
+             for x, _, _, nv, eps in calls["k2"]])
     for r in rows.values():
         r["bound_by"] = ("bytes" if r.pop("kinds") == {"bytes"}
                          else "operations")
+        r["host_us"] /= r["calls"]
     return rows
 
 
@@ -1219,15 +1348,70 @@ def serving_batched(torch, card, server, scene, first):
     return row, concat_launches
 
 
-def main():
+def capture_k1_calls(torch):
+    """The K1 forward calls of one flagship f32 forward (phase 3's) and of
+    one bf16 train step (phase 6's), recorded on the plain path: (f32
+    calls, bf16 calls), each a list of (p, q, nbr, deg)."""
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    scene = synthetic_scene(**FLAGSHIP_SCENE)
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    plain = SceneInpainter(model, model.state_dict(), device="cuda",
+                           impl="plain")
+    f32, _ = capture_kernel_inputs(plain, plain.place(plain.build(scene)))
+    cfg = json.loads(pathlib.Path(BF16_CONFIG).read_text())
+    train_model = define_G(**cfg["archs"]["SurfaceTextureInpaintingNet"][
+        "args"], generator=torch.Generator().manual_seed(0)).cuda()
+    _, wgraph = windowed_build(torch, scene, train_model)
+    return f32, capture_train_calls(torch, train_model, wgraph, cfg)["k1"]
+
+
+def k1_only(torch, card):
+    """--k1-only: phase 3's f32 and phase 6's bf16 K1 forward calls alone,
+    each held bitwise against its plain version and timed as in the full
+    run (back to back, host, card alone, bound, plan); one JSON line of the
+    sums. With --tree, on another checkout's package, so that two versions
+    of the kernel are timed by the same code in one process each."""
+    import stinet_tpu_torch
+    say("k1-only", "package "
+        f"{pathlib.Path(stinet_tpu_torch.__file__).resolve().parent}")
+    f32_calls, bf16_calls = capture_k1_calls(torch)
+    f32 = check_k1(torch, f32_calls)
+    bf16 = check_train_kernels(torch, {
+        "k3a": [], "k3c": [], "k1": bf16_calls, "k1dp": [], "k1dq": [],
+        "k2": []})["k1"]
+    for name, row in (("f32 forward", f32), ("bf16 train step", bf16)):
+        say("k1-only", f"K1 {name}: kernel {row['ms']:.4f} ms, device alone "
+            f"{row['device_ms']:.4f} ms, host {row['host_us']:.1f} us a "
+            f"call, bound {row['bound_ms']:.4f} ms; on {card}")
+    print(json.dumps({"k1": {"f32": f32, "bf16": bf16}}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--k1-only", action="store_true",
+                    help="time the K1 forward calls of phases 3 and 6 only")
+    ap.add_argument("--tree", help="with --k1-only: the checkout whose "
+                    "stinet_tpu_torch package to time (default: this one)")
+    args = ap.parse_args(argv)
+    if args.tree and not args.k1_only:
+        ap.error("--tree goes with --k1-only")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA card", file=sys.stderr)
         return 1
+    if args.tree:
+        sys.path.insert(0, str(pathlib.Path(args.tree).resolve()))
     t_start = time.perf_counter()
     card = device_record(torch)
     build_kernels()
+    if args.k1_only:
+        return k1_only(torch, card)
 
     from stinet_tpu_torch.graph.build import windowed_layout
     from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
@@ -1315,7 +1499,9 @@ def main():
             f"{r['bound_ms']:.4f} ms"
             + (f", K1 on the same inputs {r['ab_ms']:.4f} ms; device alone "
                f"{r['device_ms']:.4f} ms against K1's {r['k1_device_ms']:.4f}"
-               if key in ("k3a", "k3c") else ""))
+               if key in ("k3a", "k3c") else "")
+            + (f"; device alone {r['device_ms']:.4f} ms, host "
+               f"{r['host_us']:.1f} us a call" if key == "k1" else ""))
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
 
@@ -1352,10 +1538,12 @@ def main():
             ("k2", "masked_instance_norm_train_step", "instance_norm.cu",
              "stinet_tpu/ops/pallas/instance_norm.py:77")):
         row = dict(train_rows[key])
-        if key not in ("k3a", "k3c"):
-            del row["device_ms"], row["k1_device_ms"]
-        else:
+        if key in ("k3a", "k3c"):
             row["k1_same_inputs_ms"] = row["ab_ms"]
+        elif key == "k1":
+            del row["k1_device_ms"]
+        else:
+            del row["device_ms"], row["k1_device_ms"], row["host_us"]
         kernels.append(dict(name=name, route="cuda", source=cu + src,
                             replaces=replaces,
                             launches=train_launches[key], **row))
@@ -1372,7 +1560,7 @@ def main():
         f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "k1_same_inputs_ms", "device_ms", "k1_device_ms")
+            "k1_same_inputs_ms", "device_ms", "k1_device_ms", "host_us")
     print(json.dumps({"kernels": [{k: kd[k] for k in keys if k in kd}
                                   for kd in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {

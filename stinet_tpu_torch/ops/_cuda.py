@@ -93,11 +93,10 @@ _I64 = ctypes.c_int64
 # C signatures of the launchers: every launcher returns a cudaError_t
 _SIGNATURES = {
     "ell_edge_conv": {
-        # p, q, nbr, deg, out, V, H, D, device, stream
-        "ell_edge_conv_sum_fwd_f32":
-            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-        "ell_edge_conv_sum_fwd_bf16":
-            [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # p, q, nbr, deg, out, V, H, D, then the plan (lanes, chunks,
+        # groups, blocks, vector), device, stream
+        "ell_edge_conv_sum_fwd_f32": [_VP] * 5 + [_I] * 9 + [_VP],
+        "ell_edge_conv_sum_fwd_bf16": [_VP] * 5 + [_I] * 9 + [_VP],
         # p, q, nbr, deg, g, out, V, H, D, device, stream
         "ell_edge_conv_dp_f32":
             [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],

@@ -1,15 +1,17 @@
-// Slot loops of the EdgeConv message sum and its backward, shared by the
-// ELL kernels (ell_edge_conv.cu: gathered rows read from device memory); the
+// Slot loops of the EdgeConv backward, shared arithmetic of every
+// EdgeConv kernel. The ELL dp and dq kernels (ell_edge_conv.cu) run the
+// loops below on rows read from device memory; the K1 forward there and the
 // windowed kernels (windowed_edge_conv.cu) share the element arithmetic
-// below (Elem, relu, step) and run it 16 bytes of channels a lane.
+// (Elem, relu, step) and the 16-byte lane helpers (Vec16, store16).
 //
-// Receiver side, one output row v, slots d < min(deg[v], D), s = idx[v, d]:
-//   kRelu:     out[v] = sum_d relu(z)        z = T(p[v] + q[s])
-//   kStep:     out[v] = sum_d step(z)        (step(z) = z > 0 ? 1 : 0)
-//   kGradStep: out[v] = sum_d g[v] * step(z) (dp of the relu sum)
+// Receiver side (dp), one output row v, slots d < min(deg[v], D),
+// s = idx[v, d]:
+//   out[v] = sum_d g[v] * step(z),  z = T(p[v] + q[s]), step(z) = z > 0
 // Sender side (dq), one output row s, slots j < min(deg_out[s], D),
 // r = rev[s, j]:
 //   out[s] = sum_j g[r] * step(T(p[r] + q[s]))
+// The forward sums (relu(z), and step(z) in the windowed kernels) use the
+// same arithmetic.
 //
 // Bit-identity with the plain torch versions (ops/ell.py, ops/windowed.py):
 // the add p + q rounds to the element type T as torch's add does (f32 add,
@@ -29,7 +31,7 @@ namespace stinet {
 
 constexpr int kThreads = 256;  // threads of every slot-loop block
 
-enum Mode { kRelu = 0, kStep = 1, kGradStep = 2 };
+enum Mode { kRelu = 0, kStep = 1 };  // the forward sums' modes
 
 template <typename T>
 struct Elem;
@@ -63,6 +65,67 @@ struct Elem<__nv_bfloat16> {
 __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 __device__ __forceinline__ float step(float x) { return x > 0.f ? 1.f : 0.f; }
 
+// Sixteen bytes of channels, what a lane loads, computes and stores: 4 f32
+// or 8 bf16, unpacked to f32 exactly and packed with round to nearest even
+// (Elem<T>::put's rounding).
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
+    f[0] = __uint_as_float(u.x);
+    f[1] = __uint_as_float(u.y);
+    f[2] = __uint_as_float(u.z);
+    f[3] = __uint_as_float(u.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i]))) |
+             static_cast<uint32_t>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])))
+                 << 16;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// A lane's channels [c, c + kN) of one output row: one 16-byte store where
+// the row stride allows it (`whole`), else the channels below H one by one.
+template <typename T>
+__device__ __forceinline__ void store16(T* dst, const float* f, int left,
+                                        bool whole) {
+  if (whole) {
+    *reinterpret_cast<uint4*>(dst) = Vec16<T>::pack(f);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::kN; ++i) {
+    if (i < left) dst[i] = Elem<T>::put(f[i]);
+  }
+}
+
 // Where a block reads its gathered rows: straight from device memory, row
 // stride H. local() maps a gathered row to the index get() takes.
 template <typename T>
@@ -79,9 +142,10 @@ struct GlobalRows {
 // that follow) overlap; the sums still run in slot order.
 constexpr int kAhead = 8;
 
-// The receiver-side loop over rows [r_begin, r_end) of one channel slice
-// [c0, c0 + cs): each lane owns two channels of one row, cs / 2 lanes a row.
-template <typename T, int kMode, typename Rows>
+// The receiver-side (dp) loop over rows [r_begin, r_end) of one channel
+// slice [c0, c0 + cs): each lane owns two channels of one row, cs / 2 lanes
+// a row.
+template <typename T, typename Rows>
 __device__ void receiver_rows(const T* __restrict__ p, const T* __restrict__ g,
                               const Rows& q, const int* __restrict__ idx,
                               const float* __restrict__ deg,
@@ -96,11 +160,8 @@ __device__ void receiver_rows(const T* __restrict__ p, const T* __restrict__ g,
     const int64_t row = static_cast<int64_t>(r) * H;
     const float p0 = has0 ? Elem<T>::get(p + row + c) : 0.f;
     const float p1 = has1 ? Elem<T>::get(p + row + c + 1) : 0.f;
-    float g0 = 0.f, g1 = 0.f;
-    if (kMode == kGradStep) {
-      g0 = has0 ? Elem<T>::get(g + row + c) : 0.f;
-      g1 = has1 ? Elem<T>::get(g + row + c + 1) : 0.f;
-    }
+    const float g0 = has0 ? Elem<T>::get(g + row + c) : 0.f;
+    const float g1 = has1 ? Elem<T>::get(g + row + c + 1) : 0.f;
     const int dv = min(static_cast<int>(deg[r]), D);
     const int* irow = idx + static_cast<int64_t>(r) * D;
     float a0 = 0.f, a1 = 0.f;
@@ -117,13 +178,11 @@ __device__ void receiver_rows(const T* __restrict__ p, const T* __restrict__ g,
         const int s = q.local(slot[k]);
         if (has0) {
           const float z = Elem<T>::add(p0, q.get(s, c, off));
-          a0 = a0 + (kMode == kRelu ? relu(z)
-                     : kMode == kStep ? step(z) : g0 * step(z));
+          a0 = a0 + g0 * step(z);
         }
         if (has1) {
           const float z = Elem<T>::add(p1, q.get(s, c + 1, off + 1));
-          a1 = a1 + (kMode == kRelu ? relu(z)
-                     : kMode == kStep ? step(z) : g1 * step(z));
+          a1 = a1 + g1 * step(z);
         }
       }
     }

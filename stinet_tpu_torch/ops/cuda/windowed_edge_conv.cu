@@ -152,71 +152,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Sixteen bytes of channels, what a lane loads, computes and stores: 4 f32
-// or 8 bf16, unpacked to f32 exactly and packed with round to nearest even
-// (Elem<T>::put's rounding).
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
-    f[0] = __uint_as_float(u.x);
-    f[1] = __uint_as_float(u.y);
-    f[2] = __uint_as_float(u.z);
-    f[3] = __uint_as_float(u.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct Vec16<bf16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void unpack(uint4 u, float* f) {
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float* f) {
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      w[i] = static_cast<uint32_t>(
-                 __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i]))) |
-             static_cast<uint32_t>(
-                 __bfloat16_as_ushort(__float2bfloat16_rn(f[2 * i + 1])))
-                 << 16;
-    }
-    return make_uint4(w[0], w[1], w[2], w[3]);
-  }
-};
-
 template <typename T>
 __device__ __forceinline__ uint4 load16(const T* ptr) {
   return *reinterpret_cast<const uint4*>(ptr);
 }
 
-// A lane's channels [c, c + kN) of one output row: one 16-byte store where
-// the row stride allows it (`whole`), else the channels below H one by one.
-template <typename T>
-__device__ __forceinline__ void store16(T* dst, const float* f, int left,
-                                        bool whole) {
-  if (whole) {
-    *reinterpret_cast<uint4*>(dst) = Vec16<T>::pack(f);
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < Vec16<T>::kN; ++i) {
-    if (i < left) dst[i] = stinet::Elem<T>::put(f[i]);
-  }
-}
+// Sixteen bytes of channels a lane (slot_loop.cuh)
+using stinet::store16;
+using stinet::Vec16;
 
 // The gathered rows of one tile, read from the ring: row x of the strip
 // lives in ring row (x - base) mod R. local() traps on a row outside the

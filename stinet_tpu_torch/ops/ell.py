@@ -24,6 +24,10 @@ slots, unpooling a trace gather, and their gradients are gathers as well
 (max routes to the lowest achieving child slot, as torch_scatter's
 scatter_max routes to one argmax).
 """
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from stinet_tpu_torch.ops import _cuda
@@ -153,10 +157,107 @@ def _check_table(idx, count, v, dev):
                          f"for {v} rows of features")
 
 
+# The forward kernel's layout (ops/cuda/ell_edge_conv.cu: ell_fwd_rows):
+# threads of a block (stinet::kThreads) and 16-byte chunks a lane holds at
+# most (kMaxChunks: on the flagship's tables 4 chunks a lane ran slower
+# than 2 chunks in each of two groups a row, sweep_k1.py).
+THREADS = 256
+MAX_CHUNKS = 2
+
+
+class EllPlan(NamedTuple):
+    """How `ell_fwd_rows` covers [V, H] rows. A row's channels are cut into
+    16-byte chunks of 16 / elem_bytes channels (`row_chunks` of them; the
+    last one stops at H). A group of `lanes` lanes owns a row, or one of
+    `groups` parts of it, and each lane `chunks` chunks, which it keeps in
+    registers through the whole slot loop; a warp holds 32 / lanes groups,
+    a block of THREADS threads `groups_per_block`. `vector`: 16-byte loads
+    and stores (H * elem_bytes a multiple of 16, aligned rows), else the
+    same layout with element loads and stores."""
+    v: int
+    h: int
+    elem_bytes: int
+    vector: bool
+    lanes: int
+    chunks: int
+    groups: int
+    blocks: int
+
+    @property
+    def row_chunks(self) -> int:
+        return -(-self.h * self.elem_bytes // 16)
+
+    @property
+    def chunk_channels(self) -> int:
+        return 16 // self.elem_bytes
+
+    @property
+    def groups_per_block(self) -> int:
+        return THREADS // self.lanes
+
+    @property
+    def rows_per_block(self) -> float:
+        return self.groups_per_block / self.groups
+
+    def chunk_of(self, block, thread, chunk):
+        """(row, chunk of the row) that `thread` of `block` computes as its
+        chunk number `chunk`: the kernel's arithmetic, on ints or integer
+        arrays alike. A row >= v or a chunk >= row_chunks is computed by
+        no one (the lane idles)."""
+        group = block * self.groups_per_block + thread // self.lanes
+        row, part = group // self.groups, group % self.groups
+        return row, (part * self.chunks + chunk) * self.lanes \
+            + thread % self.lanes
+
+
+@functools.lru_cache(maxsize=256)
+def ell_plan(v: int, h: int, dtype: torch.dtype, aligned: bool = True,
+             groups: int = 0) -> EllPlan:
+    """The layout of one forward launch on [v, h] rows of `dtype`:
+
+    - lanes: min(32, ceil(h * elem_bytes / 16)) rounded up to a power of
+      two, so that a warp holds whole groups;
+    - groups: as few parts a row as keep every lane at MAX_CHUNKS chunks or
+      fewer (1 up to 32 * 2 * 16 bytes of row: H = 256 f32, 512 bf16), or
+      `groups` when given (a split of the row's chunks across more groups,
+      more warps in flight);
+    - chunks: ceil(ceil(row_chunks / lanes) / groups);
+    - blocks: ceil(v * groups / groups_per_block);
+    - vector: h * elem_bytes a multiple of 16 and `aligned` rows.
+
+    Raises ValueError for a `groups` that leaves a group without a chunk
+    or a lane with more than MAX_CHUNKS."""
+    es = dtype.itemsize
+    row_chunks = max(1, -(-h * es // 16))
+    lanes = 1 << (min(32, row_chunks) - 1).bit_length()
+    per_lane = -(-row_chunks // lanes)
+    groups = groups or -(-per_lane // MAX_CHUNKS)
+    chunks = -(-per_lane // groups)
+    if chunks > MAX_CHUNKS or (groups - 1) * chunks >= per_lane:
+        raise ValueError(f"{groups} groups for rows of {per_lane} chunks a "
+                         "lane leave a group empty or a lane too many")
+    return EllPlan(v, h, es, aligned and (h * es) % 16 == 0, lanes, chunks,
+                   groups, -(-v * groups // (THREADS // lanes)))
+
+
+def _plan_args(plan: EllPlan):
+    return (plan.lanes, plan.chunks, plan.groups, plan.blocks,
+            int(plan.vector))
+
+
+@functools.cache
+def _fwd_launcher(dtype):
+    """(C launcher, its name) of the forward on rows of `dtype`, looked up
+    once."""
+    name = f"ell_edge_conv_sum_fwd_{_DTYPES[dtype]}"
+    return getattr(_cuda.library("ell_edge_conv"), name), name
+
+
 def ell_edge_conv_sum_kernel(p, q, nbr, deg):
     """Launch `ell_edge_conv_sum_fwd_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
-    on the current stream. Raises on a tensor it does not take or a failed
-    launch; it never falls back to the plain version."""
+    on the current stream with `ell_plan`'s layout. Raises on a tensor it
+    does not take or a failed launch; it never falls back to the plain
+    version."""
     dev = p.device
     _cuda.check_tensor("p", p, p.dtype, 2, dev)
     _cuda.check_tensor("q", q, p.dtype, 2, dev)
@@ -168,18 +269,41 @@ def ell_edge_conv_sum_kernel(p, q, nbr, deg):
                          f"{tuple(q.shape)}")
     _check_table(nbr, deg, p.shape[0], dev)
     v, h = p.shape
-    out = torch.empty_like(p)
-    lib = _cuda.library("ell_edge_conv")
-    fn = f"ell_edge_conv_sum_fwd_{_DTYPES[p.dtype]}"
-    rc = getattr(lib, fn)(
-        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-        out.data_ptr(), v, h, nbr.shape[1], dev.index, _cuda.stream_of(dev))
-    _cuda.check_status(lib, fn, rc)
+    # out is a fresh allocation, so 16-byte aligned like every block the
+    # caching allocator hands out; the launcher checks all three anyway
+    aligned = not (p.data_ptr() | q.data_ptr()) & 15
+    out = launch_sum(ell_plan(v, h, p.dtype, aligned), p, q, nbr, deg)
     ell_edge_conv_sum_kernel.launches += 1
     return out
 
 
 ell_edge_conv_sum_kernel.launches = 0
+
+
+def launch_sum(plan, p, q, nbr, deg):
+    """Launch the forward of p's dtype with `plan` (from `ell_plan`) on the
+    current stream, on checked tensors; returns out. Raises on a failed
+    launch. Counts nothing: `ell_edge_conv_sum_kernel` does."""
+    fn, name = _fwd_launcher(p.dtype)
+    out = torch.empty_like(p)
+    rc = fn(p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            out.data_ptr(), plan.v, plan.h, nbr.shape[1], *_plan_args(plan),
+            p.device.index, _cuda.stream_of(p.device))
+    if rc:
+        _cuda.check_status(_cuda.library("ell_edge_conv"), name, rc)
+    return out
+
+
+def last_launch() -> dict:
+    """What the library's last forward launch ran: lanes a group, chunks a
+    lane, groups a row, blocks, threads a block, 16-byte loads or not."""
+    lib = _cuda.library("ell_edge_conv")
+    lib.ell_last_launch.argtypes = [ctypes.c_void_p]
+    lib.ell_last_launch.restype = None
+    keys = ("lanes", "chunks", "groups", "blocks", "threads", "vector")
+    out = (ctypes.c_int * len(keys))()
+    lib.ell_last_launch(out)
+    return dict(zip(keys, out))
 
 
 def ell_edge_conv_dp_kernel(p, q, nbr, deg, g):

@@ -388,6 +388,137 @@ def test_ell_forward_and_backward_kernels_bitwise(dev, v, h, d, dtype):
                 c + 1 for c in counts)
 
 
+def _forward_case(rng, v, h, d, dtype, dev):
+    """p, q, nbr, deg for the K1 forward: degrees past D (clamped) and 0
+    among the rows, NaN, +inf and -inf among q's elements."""
+    p = rng.normal(size=(v, h)) * 10.0 ** rng.integers(-2, 3, size=(v, 1))
+    q = rng.normal(size=(v, h)) * 10.0 ** rng.integers(-2, 3, size=(v, 1))
+    for value in (np.nan, np.inf, -np.inf):
+        q[rng.integers(0, v, 5), rng.integers(0, h, 5)] = value
+    nbr = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    deg = rng.integers(0, d + 4, size=v).astype(np.float32)
+    deg[rng.integers(0, v, 8)] = 0
+    deg[rng.integers(0, v, 8)] = d + 7
+    return (_cuda_t(p.astype(np.float32), dev).to(dtype),
+            _cuda_t(q.astype(np.float32), dev).to(dtype),
+            _cuda_t(nbr, dev), _cuda_t(deg, dev))
+
+
+def _launched(plan):
+    return dict(lanes=plan.lanes, chunks=plan.chunks, groups=plan.groups,
+                blocks=plan.blocks, threads=ell.THREADS,
+                vector=int(plan.vector))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [4, 8, 20, 128, 130, 256, 512, 520])
+@pytest.mark.parametrize("d", [0, 6, 16, 33, 148])
+def test_ell_forward_rows_bitwise(dev, d, h, dtype):
+    """ell_fwd_rows against the plain version, bit for bit, at widths of
+    every layout class (one lane to 32 lanes a row, 1 or 2 chunks a lane,
+    2 or 3 groups a row at f32 H=512 and 520 and bf16 H=520, element loads
+    at H*es % 16 != 0), on
+    V = 1001 rows (no multiple of the rows a block); the launch is
+    `ell_plan`'s; twice the same bits; every split of the rows that the
+    plan allows gives the same bits too."""
+    v = 1001
+    rng = np.random.default_rng(h * 1000 + d)
+    p, q, nbr, deg = _forward_case(rng, v, h, d, dtype, dev)
+    before = ell.ell_edge_conv_sum_kernel.launches
+    got = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+    launched = ell.last_launch()
+    want = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
+    again = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+    torch.cuda.synchronize()
+    assert ell.ell_edge_conv_sum_kernel.launches == before + 2
+    plan = ell.ell_plan(v, h, dtype)
+    assert launched == _launched(plan)
+    assert _bitwise(got, want) and _bitwise(again, got)
+    for groups in range(plan.groups + 1, 4 * plan.groups + 1):
+        try:
+            split = ell.ell_plan(v, h, dtype, groups=groups)
+        except ValueError:
+            continue
+        out = ell.launch_sum(split, p, q, nbr, deg)
+        assert ell.last_launch() == _launched(split)
+        torch.cuda.synchronize()
+        assert _bitwise(out, want), split
+
+
+def _fwd_raw(lib_fn, p, q, nbr, deg, out, plan):
+    return lib_fn(p.data_ptr(), q.data_ptr(), nbr.data_ptr(),
+                  deg.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1],
+                  nbr.shape[1], *ell._plan_args(plan), p.device.index,
+                  _cuda.stream_of(p.device))
+
+
+def _offset_view(t, dev):
+    """A copy of t one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [128, 512])
+def test_ell_forward_unaligned_views_take_element_loads(dev, h, dtype):
+    """p, q and out one element past 16-byte alignment: the wrapper picks
+    the element body for p and q, and the launcher takes an unaligned out
+    with it; 16-byte loads on such pointers are refused; the bits are the
+    plain version's."""
+    v, d = 1001, 16
+    rng = np.random.default_rng(h + 7)
+    p, q, nbr, deg = _forward_case(rng, v, h, d, dtype, dev)
+    want = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
+    lib = _cuda.library("ell_edge_conv")
+    fn = getattr(lib, f"ell_edge_conv_sum_fwd_{ell._DTYPES[dtype]}")
+    plan = ell.ell_plan(v, h, dtype, aligned=False)
+    for which in ("p", "q", "out"):
+        args = dict(p=p, q=q)
+        if which != "out":
+            args[which] = _offset_view(args[which], dev)
+            got = ell.ell_edge_conv_sum_kernel(args["p"], args["q"], nbr,
+                                               deg)
+            assert ell.last_launch() == _launched(plan), which
+        else:
+            got = _offset_view(torch.zeros_like(p), dev)
+            assert _fwd_raw(fn, p, q, nbr, deg, got, plan) == 0
+            assert _fwd_raw(fn, p, q, nbr, deg, got,
+                            plan._replace(vector=True)) == 1
+        torch.cuda.synchronize()
+        assert _bitwise(got, want), which
+
+
+def test_ell_forward_launcher_checks_the_plan(dev):
+    """The C launcher launches the plan it is given and refuses one that
+    does not describe the shapes."""
+    v, h, d = 1001, 512, 6
+    p = torch.zeros(v, h, dtype=torch.bfloat16, device=dev)
+    nbr = torch.zeros(v, d, dtype=torch.int32, device=dev)
+    deg = torch.zeros(v, device=dev)
+    out = torch.empty_like(p)
+    fn = _cuda.library("ell_edge_conv").ell_edge_conv_sum_fwd_bf16
+    plan = ell.ell_plan(v, h, torch.bfloat16)
+    assert _fwd_raw(fn, p, p, nbr, deg, out, plan) == 0
+    torch.cuda.synchronize()
+    bad = [plan._replace(lanes=24), plan._replace(lanes=64),
+           plan._replace(chunks=0), plan._replace(chunks=3),
+           plan._replace(chunks=1),                  # a chunk uncovered
+           plan._replace(groups=3),                  # a group left empty
+           plan._replace(blocks=plan.blocks + 1),
+           plan._replace(blocks=plan.blocks - 1)]
+    for pl in bad:
+        assert _fwd_raw(fn, p, p, nbr, deg, out, pl) == 1, pl
+    odd = torch.zeros(v, 130, dtype=torch.bfloat16, device=dev)
+    odd_plan = ell.ell_plan(v, 130, torch.bfloat16)
+    assert not odd_plan.vector
+    assert _fwd_raw(fn, odd, odd, nbr, deg, torch.empty_like(odd),
+                    odd_plan._replace(vector=True)) == 1
+
+
 @pytest.mark.parametrize("v,h,d,halo,tile", [
     (1024, 128, 12, 96, 256), (512, 72, 5, 40, 128),
     (1024, 130, 12, 200, 256),   # window clamped at both ends of V

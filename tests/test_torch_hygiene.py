@@ -22,7 +22,8 @@ def _forbidden(module: str) -> bool:
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "sweep_k1.py"]
 
 
 def test_import_leaves_jax_and_stinet_tpu_unloaded():
