@@ -15,11 +15,12 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    (median of REPS CUDA-event timings of INNER back-to-back calls, after
    WARMUP calls), with the least
    time the card could take (bytes over 3.35 TB/s or f32 operations over
-   67 TFLOP/s, the larger); for K1 also, here and in phase 6: a call's
-   host and card-alone time (as for K2 below), the launch's plan
-   (ops/ell.py:ell_plan, checked against what the library launched) and
-   the other split of the rows into one or two groups, bitwise and timed
-   beside it; for K2 also, here and in phases 6 and 9: every
+   67 TFLOP/s, the larger); for K1 also, here and in phase 6 (there for
+   its forward, dp and dq): a call's host and card-alone time (as for K2
+   below), the launch's plan (ops/ell.py:ell_plan, checked against what
+   the library launched) and the other split of the rows into one or two
+   groups, bitwise and timed beside it; for K2 also, here and in phases 6
+   and 9: every
    call run twice gives the same bits, the device launches of one call
    counted in a profiler window (K2_DEVICE_LAUNCHES) with each launch's
    device time there, a distinct shape a call, and a call's time
@@ -87,10 +88,11 @@ nonzero and prints no result.
 
     python3 chip_smoke.py --k1-only [--tree DIR]
 
-builds the kernels and runs only phase 3's and phase 6's K1 forward calls,
-held and timed as above, and prints their sums as one JSON line; with
---tree, on the stinet_tpu_torch package of the checkout DIR (an A/B of two
-versions of the kernel, each in its own process, by this script's code).
+builds the kernels and runs only phase 3's K1 forward calls and phase 6's
+K1 forward, dp and dq calls, held and timed as above, and prints their sums
+as one JSON line; with --tree, on the stinet_tpu_torch package of the
+checkout DIR (an A/B of two versions of the kernels, each in its own
+process, by this script's code).
 """
 import contextlib
 import copy
@@ -396,24 +398,32 @@ def capture_kernel_inputs(server, graph):
     return k1, k2
 
 
-def k1_plan_note(torch, p, q, nbr, deg, want):
-    """The plan of K1's last launch (ops/ell.py:ell_plan), checked against
-    what the library launched, and the rows split into half or twice its
-    groups, where the plan allows, held bitwise against `want` and timed,
-    back to back and by the card alone: what ell_plan's choice of groups
-    rests on. A package from before ell_plan (--tree) has no plan to
-    print."""
+# K1's launcher of each kind of row sum (ops/ell.py), with a plan
+K1_LAUNCHERS = {"sum": "launch_sum", "dp": "launch_dp", "dq": "launch_dq"}
+
+
+def k1_plan_note(torch, kind, args, want):
+    """The plan of K1's last launch of `kind` ("sum" the forward, "dp",
+    "dq"; ops/ell.py:ell_plan), checked against what the library launched,
+    and the rows split into half or twice its groups, where the plan
+    allows, held bitwise against `want` and timed, back to back and by the
+    card alone: what ell_plan's choice of groups rests on. `args`: the
+    launcher's tensors (the forward's p, q, nbr, deg). A package from
+    before the plans of that kind (--tree) has none to print."""
     from stinet_tpu_torch.ops import ell
-    if not hasattr(ell, "ell_plan"):
-        return "no ell_plan in this package"
-    v, h = p.shape
-    plan = ell.ell_plan(v, h, p.dtype)
-    got = ell.last_launch()
+    launch = getattr(ell, K1_LAUNCHERS[kind], None)
+    if launch is None or (kind != "sum" and not hasattr(ell, "KINDS")):
+        return f"no {kind} plan in this package"
+    kw = {} if kind == "sum" else {"kind": kind}
+    rows = args[0]
+    v, h = rows.shape
+    plan = ell.ell_plan(v, h, rows.dtype, **kw)
+    got = ell.last_launch(**kw)
     launched = dict(lanes=plan.lanes, chunks=plan.chunks, groups=plan.groups,
                     blocks=plan.blocks, threads=ell.THREADS,
                     vector=int(plan.vector))
     check(got == launched, f"the library launched {got}, ell_plan gives "
-          f"{launched}")
+          f"{launched} ({kind})")
     text = (f"plan {plan.lanes} lanes x {plan.chunks} chunks, {plan.groups} "
             f"group(s) a row, {plan.blocks} blocks of "
             f"{plan.rows_per_block:g} rows, "
@@ -422,18 +432,17 @@ def k1_plan_note(torch, p, q, nbr, deg, want):
         if groups == 0:
             continue
         try:
-            other = ell.ell_plan(v, h, p.dtype, groups=groups)
+            other = ell.ell_plan(v, h, rows.dtype, groups=groups, **kw)
         except ValueError:
             continue
-        out = ell.launch_sum(other, p, q, nbr, deg)
+        out = launch(other, *args)
         torch.cuda.synchronize()
         view = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
         check(torch.equal(out.view(view), want.view(view)),
-              f"K1 split into {groups} groups and the plain version differ")
-        ms = median_ms(torch, lambda o=other: ell.launch_sum(o, p, q, nbr,
-                                                             deg))
-        _, _, dev = host_device_us(
-            torch, lambda o=other: ell.launch_sum(o, p, q, nbr, deg))
+              f"K1 {kind} split into {groups} groups and the plain version "
+              "differ")
+        ms = median_ms(torch, lambda o=other: launch(o, *args))
+        _, _, dev = host_device_us(torch, lambda o=other: launch(o, *args))
         text += (f"; {groups} group(s) x {other.chunks} chunks: bitwise, "
                  f"{ms:.4f} ms, device alone {dev:.1f} us")
     return text
@@ -445,8 +454,8 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
     checks, the allocation, the stream lookup, the plan (`ell_plan`, cached
     per shape) and the launcher (cached per dtype), beside the per-call
     lookup the cache replaced (the library, then an f-string getattr); the
-    rest of the call is the ctypes call with the launch. A package from
-    before the caches (--tree) gets the whole call only."""
+    rest of the call is the ctypes call with the launch. A package without
+    this one's cached launcher lookup (--tree) gets the whole call only."""
     from stinet_tpu_torch.ops import _cuda, ell
     dev = p.device
     v, h = p.shape
@@ -465,7 +474,7 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
 
     whole = us(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
     costs = {}
-    if hasattr(ell, "_fwd_launcher"):
+    if hasattr(ell, "_launcher"):
         costs = {
             "row checks": us(lambda: (
                 _cuda.check_tensor("p", p, p.dtype, 2, dev),
@@ -474,8 +483,8 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
             "out (torch.empty_like)": us(lambda: torch.empty_like(p)),
             "stream lookup": us(lambda: _cuda.stream_of(dev)),
             "plan and launcher lookups, cached": us(lambda: (
-                ell.ell_plan(v, h, p.dtype, True),
-                ell._fwd_launcher(p.dtype)))}
+                ell.ell_plan(v, h, p.dtype, True, 0, "sum"),
+                ell._launcher("sum", p.dtype)))}
         costs["the rest (pointers, the ctypes call with the launch)"] = (
             whole - sum(costs.values()))
         costs["the per-call lookup it replaced"] = us(lambda: getattr(
@@ -504,7 +513,7 @@ def check_k1(torch, calls):
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         check(same, f"K1 call {i} {tuple(nbr.shape)}x{p.shape[1]}: kernel "
               "and plain version differ")
-        note = k1_plan_note(torch, p, q, nbr, deg, want)
+        note = k1_plan_note(torch, "sum", (p, q, nbr, deg), want)
         err = max(err, (got - want).abs().max().item())
         ms = median_ms(torch, lambda: ell_edge_conv_sum_kernel(p, q, nbr, deg))
         plain = median_ms(torch,
@@ -882,21 +891,28 @@ def check_train_kernels(torch, calls):
             lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg),
             lambda: ell.ell_edge_conv_sum_plain(p, q, nbr, deg),
             nbytes, 4 * h * slots, alone=True,
-            note=lambda want: k1_plan_note(torch, p, q, nbr, deg, want))
+            note=lambda want: k1_plan_note(torch, "sum", (p, q, nbr, deg),
+                                           want))
     for i, (p, q, nbr, deg, g) in enumerate(calls["k1dp"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 2)
-        run("k1dp", f"K1 dp {i:2d} V={v} H={h} D={nbr.shape[1]}",
+        run("k1dp", f"K1 dp {i:2d} V={v} H={h} D={nbr.shape[1]} live slots "
+            f"a row {slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
             lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, g),
             lambda: ell.ell_edge_conv_dp_plain(p, q, nbr, deg, g),
-            nbytes, 4 * h * slots)
+            nbytes, 4 * h * slots, alone=True,
+            note=lambda want: k1_plan_note(torch, "dp", (p, q, nbr, deg, g),
+                                           want))
     for i, (q, g, p, rev, dout) in enumerate(calls["k1dq"]):
         v, h = q.shape
         nbytes, slots = _dq_bytes(rev, dout, q.element_size(), h)
-        run("k1dq", f"K1 dq {i:2d} V={v} H={h} D={rev.shape[1]}",
+        run("k1dq", f"K1 dq {i:2d} V={v} H={h} D={rev.shape[1]} live slots "
+            f"a row {slots / max(int(torch.count_nonzero(dout)), 1):.2f}",
             lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout),
             lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, dout),
-            nbytes, 4 * h * slots)
+            nbytes, 4 * h * slots, alone=True,
+            note=lambda want: k1_plan_note(torch, "dq", (q, g, p, rev, dout),
+                                           want))
     for i, (x, _, _, nv, eps) in enumerate(calls["k2"]):
         v, c = x.shape
         n = int(nv)
@@ -1349,9 +1365,10 @@ def serving_batched(torch, card, server, scene, first):
 
 
 def capture_k1_calls(torch):
-    """The K1 forward calls of one flagship f32 forward (phase 3's) and of
-    one bf16 train step (phase 6's), recorded on the plain path: (f32
-    calls, bf16 calls), each a list of (p, q, nbr, deg)."""
+    """The K1 calls of one flagship f32 forward (phase 3's) and of one bf16
+    train step (phase 6's), recorded on the plain path: (f32 forward calls,
+    a list of (p, q, nbr, deg); {"k1", "k1dp", "k1dq": the step's forward,
+    dp and dq calls})."""
     from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
     from stinet_tpu_torch.serving import SceneInpainter
     from stinet_tpu_torch.utils.synthetic import (
@@ -1365,28 +1382,32 @@ def capture_k1_calls(torch):
     train_model = define_G(**cfg["archs"]["SurfaceTextureInpaintingNet"][
         "args"], generator=torch.Generator().manual_seed(0)).cuda()
     _, wgraph = windowed_build(torch, scene, train_model)
-    return f32, capture_train_calls(torch, train_model, wgraph, cfg)["k1"]
+    step = capture_train_calls(torch, train_model, wgraph, cfg)
+    return f32, {k: step[k] for k in ("k1", "k1dp", "k1dq")}
 
 
 def k1_only(torch, card):
-    """--k1-only: phase 3's f32 and phase 6's bf16 K1 forward calls alone,
-    each held bitwise against its plain version and timed as in the full
-    run (back to back, host, card alone, bound, plan); one JSON line of the
-    sums. With --tree, on another checkout's package, so that two versions
-    of the kernel are timed by the same code in one process each."""
+    """--k1-only: phase 3's f32 K1 forward calls and phase 6's bf16 K1
+    forward, dp and dq calls alone, each held bitwise against its plain
+    version and timed as in the full run (back to back, host, card alone,
+    bound, plan); one JSON line of the sums. With --tree, on another
+    checkout's package, so that two versions of the kernels are timed by
+    the same code in one process each."""
     import stinet_tpu_torch
     say("k1-only", "package "
         f"{pathlib.Path(stinet_tpu_torch.__file__).resolve().parent}")
-    f32_calls, bf16_calls = capture_k1_calls(torch)
+    f32_calls, step_calls = capture_k1_calls(torch)
     f32 = check_k1(torch, f32_calls)
-    bf16 = check_train_kernels(torch, {
-        "k3a": [], "k3c": [], "k1": bf16_calls, "k1dp": [], "k1dq": [],
-        "k2": []})["k1"]
-    for name, row in (("f32 forward", f32), ("bf16 train step", bf16)):
+    step = check_train_kernels(torch, dict(step_calls, k3a=[], k3c=[], k2=[]))
+    sums = {"f32": f32, "bf16": step["k1"], "dp": step["k1dp"],
+            "dq": step["k1dq"]}
+    for name, row in (("f32 forward", f32), ("bf16 train step", sums["bf16"]),
+                      ("dp of the bf16 train step", sums["dp"]),
+                      ("dq of the bf16 train step", sums["dq"])):
         say("k1-only", f"K1 {name}: kernel {row['ms']:.4f} ms, device alone "
             f"{row['device_ms']:.4f} ms, host {row['host_us']:.1f} us a "
             f"call, bound {row['bound_ms']:.4f} ms; on {card}")
-    print(json.dumps({"k1": {"f32": f32, "bf16": bf16}}), flush=True)
+    print(json.dumps({"k1": sums}), flush=True)
     return 0
 
 
@@ -1394,7 +1415,8 @@ def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1-only", action="store_true",
-                    help="time the K1 forward calls of phases 3 and 6 only")
+                    help="time the K1 forward, dp and dq calls of phases 3 "
+                    "and 6 only")
     ap.add_argument("--tree", help="with --k1-only: the checkout whose "
                     "stinet_tpu_torch package to time (default: this one)")
     args = ap.parse_args(argv)
@@ -1501,7 +1523,8 @@ def main(argv=None):
                f"{r['device_ms']:.4f} ms against K1's {r['k1_device_ms']:.4f}"
                if key in ("k3a", "k3c") else "")
             + (f"; device alone {r['device_ms']:.4f} ms, host "
-               f"{r['host_us']:.1f} us a call" if key == "k1" else ""))
+               f"{r['host_us']:.1f} us a call"
+               if key in ("k1", "k1dp", "k1dq") else ""))
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
 
@@ -1540,7 +1563,7 @@ def main(argv=None):
         row = dict(train_rows[key])
         if key in ("k3a", "k3c"):
             row["k1_same_inputs_ms"] = row["ab_ms"]
-        elif key == "k1":
+        elif key in ("k1", "k1dp", "k1dq"):
             del row["k1_device_ms"]
         else:
             del row["device_ms"], row["k1_device_ms"], row["host_us"]

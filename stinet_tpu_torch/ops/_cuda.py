@@ -97,16 +97,12 @@ _SIGNATURES = {
         # groups, blocks, vector), device, stream
         "ell_edge_conv_sum_fwd_f32": [_VP] * 5 + [_I] * 9 + [_VP],
         "ell_edge_conv_sum_fwd_bf16": [_VP] * 5 + [_I] * 9 + [_VP],
-        # p, q, nbr, deg, g, out, V, H, D, device, stream
-        "ell_edge_conv_dp_f32":
-            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-        "ell_edge_conv_dp_bf16":
-            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-        # q, g, p, rev, deg_out, out, V, H, D, device, stream
-        "ell_edge_conv_dq_f32":
-            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
-        "ell_edge_conv_dq_bf16":
-            [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        # p, q, nbr, deg, g, out, V, H, D, the plan, device, stream
+        "ell_edge_conv_dp_f32": [_VP] * 6 + [_I] * 9 + [_VP],
+        "ell_edge_conv_dp_bf16": [_VP] * 6 + [_I] * 9 + [_VP],
+        # q, g, p, rev, deg_out, out, V, H, D, the plan, device, stream
+        "ell_edge_conv_dq_f32": [_VP] * 6 + [_I] * 9 + [_VP],
+        "ell_edge_conv_dq_bf16": [_VP] * 6 + [_I] * 9 + [_VP],
     },
     "windowed_edge_conv": {
         # p, q, nbr, deg, out, V, H, D, then the plan (tile, halo, W, cs,

@@ -10,38 +10,53 @@
 //   dp[v] = sum_{d < deg[v]} g[v] * step(p[v] + q[nbr[v, d]])
 //   dq[s] = sum_{j < deg_out[s]} g[r] * step(p[r] + q[s]),  r = rev[s, j]
 //
-// The forward, f32 and bf16, is ell_fwd_rows below; dp and dq are the slot
-// loops of slot_loop.cuh with rows read from device memory. The arithmetic
-// is slot_loop.cuh's: p + q rounded to the row type, relu in f32 as
-// x < 0 ? 0 : x, f32 sums in slot order from +0.0, dead slots skipped, one
-// rounding at the end; no multiply, so no FMA contraction. Every result is
-// bit for bit the plain version's (ops/ell.py).
+// All three, f32 and bf16, are one row loop (rows_body below) behind three
+// kernels: ell_fwd_rows (the forward), ell_dp_rows and ell_dq_rows. The
+// arithmetic is slot_loop.cuh's: p + q rounded to the row type, relu and
+// step in f32 (relu as x < 0 ? 0 : x), f32 sums in slot order from +0.0
+// with one acc + g * step(z) a live slot (g is never factored out, so an
+// inf or NaN g gives NaN as the plain version's inf * 0 does), dead slots
+// skipped, one rounding at the end. Every result is bit for bit the plain
+// version's (ops/ell.py).
 //
-// Bound: bytes. Each output element costs 3 flops per live slot (add, max,
-// add) against one gathered element, far below the card's ratio of flops
-// to bytes. The unavoidable traffic is p, q, nbr, deg and out once each;
-// gathered q rows that several receivers share are served from L2.
+// Bound: bytes. Each output element costs 3 flops per live slot (add, max
+// or compare, add) against one or two gathered elements, far below the
+// card's ratio of flops to bytes. The unavoidable traffic is the degree,
+// the live slots of the index table and the output once each, the own
+// rows once (p for the forward; p and g for dp, one row more than the
+// forward; q for dq) and each gathered row once (q for the forward and
+// dp; g and p of each receiver for dq, twice the forward's gathered
+// bytes); gathered rows that several rows share are served from L2.
 //
-// Design of the forward. A row's channels are cut into 16-byte chunks (4
-// f32 or 8 bf16). A group of `lanes` lanes (a power of two up to 32, so a
-// warp holds 32 / lanes groups) owns one row, or one of `groups` parts of a
-// row wider than 32 lanes x kMaxChunks chunks, each lane `chunks` chunks. A
-// lane keeps its p chunks and f32 sums in registers through the whole slot
-// loop: the channels are never looped around it, so each row's slot
-// indices and degree are read once. The group's lanes load the row's
-// indices coalesced, `lanes` slots at a time (the first ones beside the
-// degree and p, so the gathers wait on one load, not two), and broadcast
+// Design. A row's channels are cut into 16-byte chunks (4 f32 or 8 bf16).
+// A group of `lanes` lanes (a power of two up to 32, so a warp holds
+// 32 / lanes groups) owns one row, or one of `groups` parts of a row, each
+// lane `chunks` chunks. A lane keeps its own operands' chunks (and its f32
+// sums) in registers through the whole slot loop: the channels are never
+// looped around it, so each row's slot indices and degree are read once.
+// The group's lanes load the row's indices coalesced, `lanes` slots at a
+// time (the first ones beside the degree and the own rows, so the gathers
+// wait on one load, not two; later ones only where live), and broadcast
 // them in slot order by shuffles; the 16-byte ld.global.nc gathers of
-// kLoadsInFlight / chunks slots (all chunks) are issued before any is
-// summed, and the sums run in slot order. Rows whose bytes are a multiple
-// of 16 on 16-byte-aligned p, q and out take 16-byte loads and stores
-// (kVec); any other shape or view takes the same loop with element loads
-// and stores (the chunks of a row's last 16 bytes stop at H). The layout is
-// worked out in Python (ops/ell.py:ell_plan); the launcher checks it and
-// launches exactly that plan. The gathered rows come from L2 several times
-// over (each sender feeds about 6 receivers), so a call likely approaches
-// the L2's rate rather than device memory's (inferred from where every
-// variant of sweep_k1.py levels off; no hardware counter was read).
+// loads-in-flight / (chunks x gathered rows a slot) slots are issued
+// before any is summed, and the sums run in slot order. The gradients
+// hold a row's operands in 1 chunk a lane, a wide row split into more
+// groups (ops/ell.py:ell_plan): dp holds g beside p, and dq gathers two
+// rows a slot (g and p of the receiver), so the same budget of loads covers
+// half as many slots; more groups keep more warps, and so more gathers, in
+// flight within the registers of 4 blocks an SM. A row's slots are summed
+// in order by one group, so a sender with many receivers (the reverse
+// tables are skewed: 64 slots against about 6 live on most rows) is a
+// chain of dependent gathers that more warps do not shorten.
+// Rows whose bytes are a multiple of 16 on 16-byte-aligned operands take
+// 16-byte loads and stores (kVec); any other shape or view takes the same
+// loop with element loads and stores (the chunks of a row's last 16 bytes
+// stop at H). The layout is worked out in Python (ops/ell.py:ell_plan); the
+// launcher checks it and launches exactly that plan. The gathered rows
+// come from L2 several times over (each sender feeds about 6 receivers), so
+// a call likely approaches the L2's rate rather than device memory's
+// (inferred from where every variant of sweep_k1.py levels off; no
+// hardware counter was read).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -59,9 +74,18 @@ constexpr int kMaxChunks = 2;
 // Gathered chunks a lane issues at once, and resident blocks an SM that
 // registers are budgeted for: the fastest of loads in flight 4, 8, 16 by
 // budgets of none, 3 and 4 blocks on the flagship's own tables
-// (sweep_k1.py).
+// (sweep_k1.py), for the forward and for the gradients (dp and dq, which
+// hold 1 chunk a lane in their plans: at 4 blocks they need no spill).
 constexpr int kLoadsInFlight = 4;
 constexpr int kMinBlocks = 3;
+constexpr int kGradLoadsInFlight = 4;
+constexpr int kGradMinBlocks = 4;
+
+// The three sums of the row loop: the forward and dp on the receiver side
+// (gather q through nbr), dq on the sender side (gather g and p through
+// rev).
+enum Kind { kSum = 0, kDp = 1, kDq = 2 };
+constexpr int kKinds = 3;
 
 // One 16-byte chunk of a row at `ptr`, of which the first `left` elements
 // lie inside the row: one ld.global.nc.v4 (kVec), else element loads with
@@ -88,16 +112,24 @@ __device__ __forceinline__ uint4 load_chunk(const T* ptr, int left) {
   }
 }
 
-template <typename T, bool kVec, int kChunks>
-__global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
-    ell_fwd_rows(const T* __restrict__ p, const T* __restrict__ q,
-                 const int* __restrict__ nbr, const float* __restrict__ deg,
-                 T* __restrict__ out, int V, int H, int D, int lanes,
-                 int groups) {
+// The row loop of one group: its row (or part of one) of the sum of kind
+// kKind. own: the row's own operand (p for the forward and dp, q for dq);
+// own_g: dp's own g (else unused); rows_a, rows_b: the gathered rows (q for
+// the forward and dp; g and p for dq, rows_b unused otherwise); idx, count:
+// nbr and deg, or rev and deg_out.
+template <typename T, int kKind, bool kVec, int kChunks>
+__device__ __forceinline__ void rows_body(
+    const T* __restrict__ own, const T* __restrict__ own_g,
+    const T* __restrict__ rows_a, const T* __restrict__ rows_b,
+    const int* __restrict__ idx, const float* __restrict__ count,
+    T* __restrict__ out, int V, int H, int D, int lanes, int groups) {
   using Vec = stinet::Vec16<T>;
   constexpr int kN = Vec::kN;
-  constexpr int kAhead =
-      kChunks >= kLoadsInFlight ? 1 : kLoadsInFlight / kChunks;
+  constexpr int kLoads = kKind == kSum ? kLoadsInFlight : kGradLoadsInFlight;
+  constexpr int kPerSlot = (kKind == kDq ? 2 : 1) * kChunks;
+  constexpr int kAhead = kPerSlot >= kLoads ? 1 : kLoads / kPerSlot;
+  constexpr int kOwnG = kKind == kDp ? kChunks : 1;   // dp's g chunks
+  constexpr int kRowsB = kKind == kDq ? kChunks : 1;  // dq's gathered p
   const int t = threadIdx.x;
   const int lane = t & (lanes - 1);
   // group -> (row, part): ops/ell.py:EllPlan.chunk_of
@@ -111,46 +143,58 @@ __global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
 
   int col[kChunks];   // first channel of each of this lane's chunks
   bool has[kChunks];
-  float pv[kChunks][kN], acc[kChunks][kN];
+  float xv[kChunks][kN], acc[kChunks][kN];
+  uint4 gown[kOwnG];  // dp: the row's own g, unpacked where it is used
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
     const int j = (part * kChunks + c) * lanes + lane;
     has[c] = live_row && j < row_chunks;
     col[c] = j * kN;
-    const uint4 u = has[c] ? load_chunk<T, kVec>(p + base + col[c],
+    const uint4 u = has[c] ? load_chunk<T, kVec>(own + base + col[c],
                                                  H - col[c])
                            : make_uint4(0u, 0u, 0u, 0u);
-    Vec::unpack(u, pv[c]);
+    Vec::unpack(u, xv[c]);
+    if constexpr (kKind == kDp) {
+      gown[c] = has[c] ? load_chunk<T, kVec>(own_g + base + col[c],
+                                             H - col[c])
+                       : make_uint4(0u, 0u, 0u, 0u);
+    }
 #pragma unroll
     for (int i = 0; i < kN; ++i) acc[c][i] = 0.f;
   }
 
   // The row's first `lanes` slot indices, one a lane, are read beside its
-  // degree and p, not after them (a dead slot's index is read, never
-  // used); later ones only where live. Every lane of the group reads the
-  // same degree (one transaction); the warp loops to its longest row so
-  // that its shuffles stay converged.
-  const int* irow = nbr + r64 * D;
+  // degree and own rows, not after them (a dead slot's index is read,
+  // never used); later ones only where live. Every lane of the group reads
+  // the same degree (one transaction); the warp loops to its longest row
+  // so that its shuffles stay converged.
+  const int* irow = idx + r64 * D;
   int mine = live_row && lane < D ? __ldg(irow + lane) : 0;
-  const int dv = live_row ? min(static_cast<int>(deg[row]), D) : 0;
+  const int dv = live_row ? min(static_cast<int>(count[row]), D) : 0;
   const int dmax = __reduce_max_sync(0xffffffffu, dv);
   for (int d0 = 0; d0 < dmax; d0 += lanes) {
     if (d0 > 0) mine = d0 + lane < dv ? __ldg(irow + d0 + lane) : 0;
     const int span = min(lanes, dmax - d0);
     for (int k0 = 0; k0 < span; k0 += kAhead) {
       bool live[kAhead];
-      uint4 gq[kAhead][kChunks];
+      uint4 ga[kAhead][kChunks], gb[kAhead][kRowsB];
 #pragma unroll
       for (int k = 0; k < kAhead; ++k) {
         const int r = k0 + k;
         const int s = __shfl_sync(0xffffffffu, mine, r, lanes);
         live[k] = r < span && d0 + r < dv;
-        const T* qrow = q + static_cast<int64_t>(s) * H;
+        const int64_t srow = static_cast<int64_t>(s) * H;
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-          gq[k][c] = live[k] && has[c]
-                         ? load_chunk<T, kVec>(qrow + col[c], H - col[c])
-                         : make_uint4(0u, 0u, 0u, 0u);
+          const bool on = live[k] && has[c];
+          ga[k][c] = on ? load_chunk<T, kVec>(rows_a + srow + col[c],
+                                              H - col[c])
+                        : make_uint4(0u, 0u, 0u, 0u);
+          if constexpr (kKind == kDq) {
+            gb[k][c] = on ? load_chunk<T, kVec>(rows_b + srow + col[c],
+                                                H - col[c])
+                          : make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       }
 #pragma unroll
@@ -158,12 +202,30 @@ __global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
         if (!live[k]) break;
 #pragma unroll
         for (int c = 0; c < kChunks; ++c) {
-          float qv[kN];
-          Vec::unpack(gq[k][c], qv);
+          float a[kN];
+          Vec::unpack(ga[k][c], a);
+          if constexpr (kKind == kSum) {
 #pragma unroll
-          for (int i = 0; i < kN; ++i) {
-            const float z = stinet::Elem<T>::add(pv[c][i], qv[i]);
-            acc[c][i] = acc[c][i] + stinet::relu(z);
+            for (int i = 0; i < kN; ++i) {
+              const float z = stinet::Elem<T>::add(xv[c][i], a[i]);
+              acc[c][i] = acc[c][i] + stinet::relu(z);
+            }
+          } else if constexpr (kKind == kDp) {
+            float gv[kN];
+            Vec::unpack(gown[c], gv);
+#pragma unroll
+            for (int i = 0; i < kN; ++i) {
+              const float z = stinet::Elem<T>::add(xv[c][i], a[i]);
+              acc[c][i] = acc[c][i] + gv[i] * stinet::step(z);
+            }
+          } else {
+            float b[kN];  // p of the receiver; a is its g
+            Vec::unpack(gb[k][c], b);
+#pragma unroll
+            for (int i = 0; i < kN; ++i) {
+              const float z = stinet::Elem<T>::add(b[i], xv[c][i]);
+              acc[c][i] = acc[c][i] + a[i] * stinet::step(z);
+            }
           }
         }
       }
@@ -175,35 +237,83 @@ __global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
   }
 }
 
+// The three kernels, one name each (a profiler tells them apart), with one
+// argument list: rows_body's.
+#define STINET_ELL_ROWS_ARGS                                              \
+  const T *__restrict__ own, const T *__restrict__ own_g,                 \
+      const T *__restrict__ rows_a, const T *__restrict__ rows_b,         \
+      const int *__restrict__ idx, const float *__restrict__ count,       \
+      T *__restrict__ out, int V, int H, int D, int lanes, int groups
+#define STINET_ELL_ROWS_CALL \
+  own, own_g, rows_a, rows_b, idx, count, out, V, H, D, lanes, groups
+
+template <typename T, bool kVec, int kChunks>
+__global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
+    ell_fwd_rows(STINET_ELL_ROWS_ARGS) {
+  rows_body<T, kSum, kVec, kChunks>(STINET_ELL_ROWS_CALL);
+}
+
+template <typename T, bool kVec, int kChunks>
+__global__ void __launch_bounds__(stinet::kThreads, kGradMinBlocks)
+    ell_dp_rows(STINET_ELL_ROWS_ARGS) {
+  rows_body<T, kDp, kVec, kChunks>(STINET_ELL_ROWS_CALL);
+}
+
+template <typename T, bool kVec, int kChunks>
+__global__ void __launch_bounds__(stinet::kThreads, kGradMinBlocks)
+    ell_dq_rows(STINET_ELL_ROWS_ARGS) {
+  rows_body<T, kDq, kVec, kChunks>(STINET_ELL_ROWS_CALL);
+}
+
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
 template <typename T>
-using RowsKernel = void (*)(const T*, const T*, const int*, const float*, T*,
-                            int, int, int, int, int);
+using RowsKernel = void (*)(const T*, const T*, const T*, const T*,
+                            const int*, const float*, T*, int, int, int, int,
+                            int);
 
-template <typename T, bool kVec>
-RowsKernel<T> rows_kernel(int chunks) {
-  static_assert(kMaxChunks == 2, "one kernel a chunk count");
-  return chunks == 1 ? ell_fwd_rows<T, kVec, 1> : ell_fwd_rows<T, kVec, 2>;
+template <typename T, int kKind, bool kVec, int kChunks>
+RowsKernel<T> kernel_of() {
+  if constexpr (kKind == kSum) {
+    return ell_fwd_rows<T, kVec, kChunks>;
+  } else if constexpr (kKind == kDp) {
+    return ell_dp_rows<T, kVec, kChunks>;
+  } else {
+    return ell_dq_rows<T, kVec, kChunks>;
+  }
 }
 
-// The last forward launch: lanes, chunks, groups, blocks, threads, vector.
-constexpr int kRecord = 6;
-int g_last_fwd[kRecord];
+template <typename T, int kKind>
+RowsKernel<T> rows_kernel(bool vector, int chunks) {
+  static_assert(kMaxChunks == 2, "one kernel a chunk count");
+  if (vector) {
+    return chunks == 1 ? kernel_of<T, kKind, true, 1>()
+                       : kernel_of<T, kKind, true, 2>();
+  }
+  return chunks == 1 ? kernel_of<T, kKind, false, 1>()
+                     : kernel_of<T, kKind, false, 2>();
+}
 
-// Launch the forward with the plan of ops/ell.py:ell_plan (lanes a group,
-// chunks a lane, groups a row, blocks, 16-byte loads or not). A plan that
-// does not describe the shapes (a lane count that is not a power of two up
-// to 32, chunks outside [1, kMaxChunks], groups that leave a chunk uncovered
-// or one empty, a grid of another size, 16-byte loads on rows or pointers
-// that do not allow them) is refused with cudaErrorInvalidValue.
-template <typename T>
-int launch_fwd(const void* p, const void* q, const int* nbr, const float* deg,
-               void* out, int V, int H, int D, int lanes, int chunks,
-               int groups, int blocks, int vector, int device,
-               cudaStream_t stream) {
+// The last launch of each kind: lanes, chunks, groups, blocks, threads,
+// vector.
+constexpr int kRecord = 6;
+int g_last[kKinds][kRecord];
+
+// Launch the sum of kind kKind with the plan of ops/ell.py:ell_plan (lanes
+// a group, chunks a lane, groups a row, blocks, 16-byte loads or not). A
+// plan that does not describe the shapes (a lane count that is not a power
+// of two up to 32, chunks outside [1, kMaxChunks], groups that leave a
+// chunk uncovered or one empty, a grid of another size, 16-byte loads on
+// rows or pointers that do not allow them) is refused with
+// cudaErrorInvalidValue.
+template <typename T, int kKind>
+int launch_rows(const void* own, const void* own_g, const void* rows_a,
+                const void* rows_b, const int* idx, const float* count,
+                void* out, int V, int H, int D, int lanes, int chunks,
+                int groups, int blocks, int vector, int device,
+                cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (V <= 0 || H <= 0) return cudaSuccess;
@@ -221,82 +331,22 @@ int launch_fwd(const void* p, const void* q, const int* nbr, const float* deg,
   if (blocks != (all_groups + per_block - 1) / per_block) {
     return cudaErrorInvalidValue;
   }
-  if (vector != 0 && (vector != 1 || row_bytes % 16 != 0 || !aligned16(p) ||
-                      !aligned16(q) || !aligned16(out))) {
+  const void* operands[] = {own, own_g, rows_a, rows_b, out};
+  bool all_aligned = true;
+  for (const void* ptr : operands) {
+    all_aligned = all_aligned && (ptr == nullptr || aligned16(ptr));
+  }
+  if (vector != 0 && (vector != 1 || row_bytes % 16 != 0 || !all_aligned)) {
     return cudaErrorInvalidValue;
   }
   const int record[kRecord] = {lanes,  chunks, groups, blocks,
                                stinet::kThreads, vector};
-  for (int i = 0; i < kRecord; ++i) g_last_fwd[i] = record[i];
-  const RowsKernel<T> kernel = vector ? rows_kernel<T, true>(chunks)
-                                      : rows_kernel<T, false>(chunks);
+  for (int i = 0; i < kRecord; ++i) g_last[kKind][i] = record[i];
+  const RowsKernel<T> kernel = rows_kernel<T, kKind>(vector != 0, chunks);
   kernel<<<blocks, stinet::kThreads, 0, stream>>>(
-      static_cast<const T*>(p), static_cast<const T*>(q), nbr, deg,
-      static_cast<T*>(out), V, H, D, lanes, groups);
-  return cudaGetLastError();
-}
-
-// Slot loops of the gradients on rows read from device memory
-// (slot_loop.cuh). One block covers kRows rows of one 64-channel slice: a
-// warp a row, two channels a lane. Bound: bytes, as the forward above; the
-// nbr / rev indices are warp-uniform loads and the gathered rows coalesced
-// 2 * 32-element reads.
-constexpr int kSlice = 64;
-constexpr int kRows = stinet::kThreads / (kSlice / 2);
-
-template <typename T>
-__global__ void __launch_bounds__(stinet::kThreads)
-    ell_receiver(const T* __restrict__ p, const T* __restrict__ g,
-                 const T* __restrict__ q, const int* __restrict__ nbr,
-                 const float* __restrict__ deg, T* __restrict__ out, int V,
-                 int H, int D) {
-  const int r0 = blockIdx.x * kRows;
-  const stinet::GlobalRows<T> rows{q, H};
-  stinet::receiver_rows<T>(p, g, rows, nbr, deg, out, r0,
-                           min(r0 + kRows, V), H, D, blockIdx.y * kSlice,
-                           kSlice);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(stinet::kThreads)
-    ell_sender(const T* __restrict__ q, const T* __restrict__ g,
-               const T* __restrict__ p, const int* __restrict__ rev,
-               const float* __restrict__ deg_out, T* __restrict__ out, int V,
-               int H, int D) {
-  const int s0 = blockIdx.x * kRows;
-  const stinet::GlobalRows<T> g_rows{g, H}, p_rows{p, H};
-  stinet::sender_rows<T>(q, g_rows, p_rows, rev, deg_out, out, s0,
-                         min(s0 + kRows, V), H, D, blockIdx.y * kSlice,
-                         kSlice);
-}
-
-dim3 slice_grid(int V, int H) {
-  return dim3((V + kRows - 1) / kRows, (H + kSlice - 1) / kSlice);
-}
-
-template <typename T>
-int launch_dp(const void* p, const void* g, const void* q, const int* nbr,
-              const float* deg, void* out, int V, int H, int D, int device,
-              cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (V <= 0 || H <= 0) return cudaSuccess;
-  ell_receiver<T><<<slice_grid(V, H), stinet::kThreads, 0, stream>>>(
-      static_cast<const T*>(p), static_cast<const T*>(g),
-      static_cast<const T*>(q), nbr, deg, static_cast<T*>(out), V, H, D);
-  return cudaGetLastError();
-}
-
-template <typename T>
-int launch_sender(const void* q, const void* g, const void* p, const int* rev,
-                  const float* deg_out, void* out, int V, int H, int D,
-                  int device, cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (V <= 0 || H <= 0) return cudaSuccess;
-  ell_sender<T><<<slice_grid(V, H), stinet::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(g),
-      static_cast<const T*>(p), rev, deg_out, static_cast<T*>(out), V, H, D);
+      static_cast<const T*>(own), static_cast<const T*>(own_g),
+      static_cast<const T*>(rows_a), static_cast<const T*>(rows_b), idx,
+      count, static_cast<T*>(out), V, H, D, lanes, groups);
   return cudaGetLastError();
 }
 
@@ -306,24 +356,29 @@ extern "C" const char* stinet_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// out[0..5] = the last forward launch's lanes, chunks, groups, blocks,
-// threads and whether it took 16-byte loads.
-extern "C" void ell_last_launch(int* out) {
-  for (int i = 0; i < kRecord; ++i) out[i] = g_last_fwd[i];
+// out[0..5] = the last launch of `kind` (0 the forward, 1 dp, 2 dq): lanes,
+// chunks, groups, blocks, threads and whether it took 16-byte loads.
+extern "C" void ell_last_launch(int kind, int* out) {
+  for (int i = 0; i < kRecord; ++i) {
+    out[i] = kind >= 0 && kind < kKinds ? g_last[kind][i] : 0;
+  }
 }
 
+// Every launcher below launches on `stream` with the plan of
+// ops/ell.py:ell_plan (lanes, chunks, groups, blocks, vector) and returns
+// the launch error.
+
 // p, q, out: [V, H] f32 (q may have any row count the indices stay inside);
-// nbr: [V, D] int32 with every live slot a valid row of q; deg: [V] f32;
-// lanes, chunks, groups, blocks and vector: ops/ell.py:ell_plan's. Launches
-// on `stream` and returns the launch error.
+// nbr: [V, D] int32 with every live slot a valid row of q; deg: [V] f32.
 extern "C" int ell_edge_conv_sum_fwd_f32(const void* p, const void* q,
                                          const int* nbr, const float* deg,
                                          void* out, int V, int H, int D,
                                          int lanes, int chunks, int groups,
                                          int blocks, int vector, int device,
                                          cudaStream_t stream) {
-  return launch_fwd<float>(p, q, nbr, deg, out, V, H, D, lanes, chunks,
-                           groups, blocks, vector, device, stream);
+  return launch_rows<float, kSum>(p, nullptr, q, nullptr, nbr, deg, out, V,
+                                  H, D, lanes, chunks, groups, blocks, vector,
+                                  device, stream);
 }
 
 // The same sum on bf16 rows: z = bf16(p + q) (round to nearest even),
@@ -334,40 +389,53 @@ extern "C" int ell_edge_conv_sum_fwd_bf16(const void* p, const void* q,
                                           int lanes, int chunks, int groups,
                                           int blocks, int vector, int device,
                                           cudaStream_t stream) {
-  return launch_fwd<bf16>(p, q, nbr, deg, out, V, H, D, lanes, chunks,
-                          groups, blocks, vector, device, stream);
+  return launch_rows<bf16, kSum>(p, nullptr, q, nullptr, nbr, deg, out, V, H,
+                                 D, lanes, chunks, groups, blocks, vector,
+                                 device, stream);
 }
 
 // dp = sum_d g * step(p + q[nbr]); p, q, g, out: [V, H] of one dtype.
 extern "C" int ell_edge_conv_dp_f32(const void* p, const void* q,
                                     const int* nbr, const float* deg,
                                     const void* g, void* out, int V, int H,
-                                    int D, int device, cudaStream_t stream) {
-  return launch_dp<float>(p, g, q, nbr, deg, out, V, H, D, device, stream);
+                                    int D, int lanes, int chunks, int groups,
+                                    int blocks, int vector, int device,
+                                    cudaStream_t stream) {
+  return launch_rows<float, kDp>(p, g, q, nullptr, nbr, deg, out, V, H, D,
+                                 lanes, chunks, groups, blocks, vector, device,
+                                 stream);
 }
 
 extern "C" int ell_edge_conv_dp_bf16(const void* p, const void* q,
                                      const int* nbr, const float* deg,
                                      const void* g, void* out, int V, int H,
-                                     int D, int device, cudaStream_t stream) {
-  return launch_dp<bf16>(p, g, q, nbr, deg, out, V, H, D, device, stream);
+                                     int D, int lanes, int chunks, int groups,
+                                     int blocks, int vector, int device,
+                                     cudaStream_t stream) {
+  return launch_rows<bf16, kDp>(p, g, q, nullptr, nbr, deg, out, V, H, D,
+                                lanes, chunks, groups, blocks, vector, device,
+                                stream);
 }
 
 // dq[s] = sum_j g[rev[s, j]] * step(p[rev[s, j]] + q[s]); rev: [V, D].
 extern "C" int ell_edge_conv_dq_f32(const void* q, const void* g,
                                     const void* p, const int* rev,
                                     const float* deg_out, void* out, int V,
-                                    int H, int D, int device,
-                                    cudaStream_t stream) {
-  return launch_sender<float>(q, g, p, rev, deg_out, out, V, H, D, device,
-                              stream);
+                                    int H, int D, int lanes, int chunks,
+                                    int groups, int blocks, int vector,
+                                    int device, cudaStream_t stream) {
+  return launch_rows<float, kDq>(q, nullptr, g, p, rev, deg_out, out, V, H,
+                                 D, lanes, chunks, groups, blocks, vector,
+                                 device, stream);
 }
 
 extern "C" int ell_edge_conv_dq_bf16(const void* q, const void* g,
                                      const void* p, const int* rev,
                                      const float* deg_out, void* out, int V,
-                                     int H, int D, int device,
-                                     cudaStream_t stream) {
-  return launch_sender<__nv_bfloat16>(q, g, p, rev, deg_out, out, V, H, D,
-                                      device, stream);
+                                     int H, int D, int lanes, int chunks,
+                                     int groups, int blocks, int vector,
+                                     int device, cudaStream_t stream) {
+  return launch_rows<bf16, kDq>(q, nullptr, g, p, rev, deg_out, out, V, H, D,
+                                lanes, chunks, groups, blocks, vector, device,
+                                stream);
 }

@@ -157,23 +157,31 @@ def _check_table(idx, count, v, dev):
                          f"for {v} rows of features")
 
 
-# The forward kernel's layout (ops/cuda/ell_edge_conv.cu: ell_fwd_rows):
-# threads of a block (stinet::kThreads) and 16-byte chunks a lane holds at
-# most (kMaxChunks: on the flagship's tables 4 chunks a lane ran slower
-# than 2 chunks in each of two groups a row, sweep_k1.py).
+# The row kernels' layout (ops/cuda/ell_edge_conv.cu: ell_fwd_rows,
+# ell_dp_rows, ell_dq_rows): threads of a block (stinet::kThreads) and
+# 16-byte chunks a lane holds at most (kMaxChunks).
 THREADS = 256
 MAX_CHUNKS = 2
+# The three sums of the row kernels, in the library's order (its `Kind`),
+# and the chunks a lane holds in each one's default split, the fastest on
+# the flagship's tables (sweep_k1.py): the forward 2 (4 chunks a lane ran
+# slower than 2 chunks in each of two groups a row); dp and dq, which hold
+# or gather one row more, 1 (bf16 H=512 in two groups a row, registers for
+# 4 blocks an SM).
+KINDS = ("sum", "dp", "dq")
+KIND_CHUNKS = {"sum": 2, "dp": 1, "dq": 1}
 
 
 class EllPlan(NamedTuple):
-    """How `ell_fwd_rows` covers [V, H] rows. A row's channels are cut into
-    16-byte chunks of 16 / elem_bytes channels (`row_chunks` of them; the
-    last one stops at H). A group of `lanes` lanes owns a row, or one of
-    `groups` parts of it, and each lane `chunks` chunks, which it keeps in
-    registers through the whole slot loop; a warp holds 32 / lanes groups,
-    a block of THREADS threads `groups_per_block`. `vector`: 16-byte loads
-    and stores (H * elem_bytes a multiple of 16, aligned rows), else the
-    same layout with element loads and stores."""
+    """How a row kernel (the forward, dp or dq) covers [V, H] rows. A
+    row's channels are cut into 16-byte chunks of 16 / elem_bytes channels
+    (`row_chunks` of them; the last one stops at H). A group of `lanes`
+    lanes owns a row, or one of `groups` parts of it, and each lane
+    `chunks` chunks, which it keeps in registers through the whole slot
+    loop; a warp holds 32 / lanes groups, a block of THREADS threads
+    `groups_per_block`. `vector`: 16-byte loads and stores (H * elem_bytes
+    a multiple of 16, aligned rows), else the same layout with element
+    loads and stores."""
     v: int
     h: int
     elem_bytes: int
@@ -212,26 +220,30 @@ class EllPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def ell_plan(v: int, h: int, dtype: torch.dtype, aligned: bool = True,
-             groups: int = 0) -> EllPlan:
-    """The layout of one forward launch on [v, h] rows of `dtype`:
+             groups: int = 0, kind: str = "sum") -> EllPlan:
+    """The layout of one launch of the row kernel of `kind` ("sum" the
+    forward, "dp", "dq") on [v, h] rows of `dtype`:
 
     - lanes: min(32, ceil(h * elem_bytes / 16)) rounded up to a power of
       two, so that a warp holds whole groups;
-    - groups: as few parts a row as keep every lane at MAX_CHUNKS chunks or
-      fewer (1 up to 32 * 2 * 16 bytes of row: H = 256 f32, 512 bf16), or
-      `groups` when given (a split of the row's chunks across more groups,
-      more warps in flight);
+    - groups: as few parts a row as keep every lane at KIND_CHUNKS[kind]
+      chunks or fewer (for the forward 1 up to 32 * 2 * 16 bytes of row: H
+      = 256 f32, 512 bf16; for dp and dq half that), or `groups` when given
+      (a split of the row's chunks across more or fewer groups, at most
+      MAX_CHUNKS chunks a lane);
     - chunks: ceil(ceil(row_chunks / lanes) / groups);
     - blocks: ceil(v * groups / groups_per_block);
     - vector: h * elem_bytes a multiple of 16 and `aligned` rows.
 
     Raises ValueError for a `groups` that leaves a group without a chunk
-    or a lane with more than MAX_CHUNKS."""
+    or a lane with more than MAX_CHUNKS, and for an unknown kind."""
+    if kind not in KIND_CHUNKS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     es = dtype.itemsize
     row_chunks = max(1, -(-h * es // 16))
     lanes = 1 << (min(32, row_chunks) - 1).bit_length()
     per_lane = -(-row_chunks // lanes)
-    groups = groups or -(-per_lane // MAX_CHUNKS)
+    groups = groups or -(-per_lane // KIND_CHUNKS[kind])
     chunks = -(-per_lane // groups)
     if chunks > MAX_CHUNKS or (groups - 1) * chunks >= per_lane:
         raise ValueError(f"{groups} groups for rows of {per_lane} chunks a "
@@ -245,12 +257,63 @@ def _plan_args(plan: EllPlan):
             int(plan.vector))
 
 
+def launcher_name(kind, dtype) -> str:
+    """The C launcher of the row kernel of `kind` on rows of `dtype`."""
+    stem = "sum_fwd" if kind == "sum" else kind
+    return f"ell_edge_conv_{stem}_{_DTYPES[dtype]}"
+
+
 @functools.cache
-def _fwd_launcher(dtype):
-    """(C launcher, its name) of the forward on rows of `dtype`, looked up
-    once."""
-    name = f"ell_edge_conv_sum_fwd_{_DTYPES[dtype]}"
+def _launcher(kind, dtype):
+    """(C launcher, its name) of the row kernel of `kind` on rows of
+    `dtype`, looked up once."""
+    name = launcher_name(kind, dtype)
     return getattr(_cuda.library("ell_edge_conv"), name), name
+
+
+# where each kind's launcher takes its row operands: p, q; p, q, g; q, g, p
+_ROWS = {"sum": (0, 1), "dp": (0, 1, 4), "dq": (0, 1, 2)}
+
+
+def _launch(kind, tensors, d, plan=None):
+    """Launch the row kernel of `kind` on checked tensors, in the C
+    launcher's order, on the current stream, with `plan`, by default
+    `ell_plan`'s for their shape and alignment (out is a fresh allocation,
+    so 16-byte aligned like every block the caching allocator hands out;
+    the launcher checks it anyway); out is shaped as the first tensor.
+    Raises on a failed launch; counts nothing."""
+    first = tensors[0]
+    ptrs = [t.data_ptr() for t in tensors]
+    if plan is None:
+        rows = 0
+        for i in _ROWS[kind]:
+            rows |= ptrs[i]
+        plan = ell_plan(*first.shape, first.dtype, not rows & 15, 0, kind)
+    fn, name = _launcher(kind, first.dtype)
+    out = torch.empty_like(first)
+    rc = fn(*ptrs, out.data_ptr(), plan.v, plan.h, d, *_plan_args(plan),
+            first.device.index, _cuda.stream_of(first.device))
+    if rc:
+        _cuda.check_status(_cuda.library("ell_edge_conv"), name, rc)
+    return out
+
+
+def launch_sum(plan, p, q, nbr, deg):
+    """Launch the forward of p's dtype with `plan` (from `ell_plan`) on the
+    current stream, on checked tensors; returns out. Raises on a failed
+    launch. Counts nothing: `ell_edge_conv_sum_kernel` does."""
+    return _launch("sum", (p, q, nbr, deg), nbr.shape[1], plan)
+
+
+def launch_dp(plan, p, q, nbr, deg, g):
+    """dp with a plan from `ell_plan(..., kind="dp")`, as `launch_sum`."""
+    return _launch("dp", (p, q, nbr, deg, g), nbr.shape[1], plan)
+
+
+def launch_dq(plan, q, g, p, rev_dst, out_degree):
+    """dq with a plan from `ell_plan(..., kind="dq")`, as `launch_sum`."""
+    return _launch("dq", (q, g, p, rev_dst, out_degree), rev_dst.shape[1],
+                   plan)
 
 
 def ell_edge_conv_sum_kernel(p, q, nbr, deg):
@@ -268,11 +331,7 @@ def ell_edge_conv_sum_kernel(p, q, nbr, deg):
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, q "
                          f"{tuple(q.shape)}")
     _check_table(nbr, deg, p.shape[0], dev)
-    v, h = p.shape
-    # out is a fresh allocation, so 16-byte aligned like every block the
-    # caching allocator hands out; the launcher checks all three anyway
-    aligned = not (p.data_ptr() | q.data_ptr()) & 15
-    out = launch_sum(ell_plan(v, h, p.dtype, aligned), p, q, nbr, deg)
+    out = _launch("sum", (p, q, nbr, deg), nbr.shape[1])
     ell_edge_conv_sum_kernel.launches += 1
     return out
 
@@ -280,47 +339,25 @@ def ell_edge_conv_sum_kernel(p, q, nbr, deg):
 ell_edge_conv_sum_kernel.launches = 0
 
 
-def launch_sum(plan, p, q, nbr, deg):
-    """Launch the forward of p's dtype with `plan` (from `ell_plan`) on the
-    current stream, on checked tensors; returns out. Raises on a failed
-    launch. Counts nothing: `ell_edge_conv_sum_kernel` does."""
-    fn, name = _fwd_launcher(p.dtype)
-    out = torch.empty_like(p)
-    rc = fn(p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-            out.data_ptr(), plan.v, plan.h, nbr.shape[1], *_plan_args(plan),
-            p.device.index, _cuda.stream_of(p.device))
-    if rc:
-        _cuda.check_status(_cuda.library("ell_edge_conv"), name, rc)
-    return out
-
-
-def last_launch() -> dict:
-    """What the library's last forward launch ran: lanes a group, chunks a
-    lane, groups a row, blocks, threads a block, 16-byte loads or not."""
+def last_launch(kind: str = "sum") -> dict:
+    """What the library's last launch of `kind` ran: lanes a group, chunks
+    a lane, groups a row, blocks, threads a block, 16-byte loads or not."""
     lib = _cuda.library("ell_edge_conv")
-    lib.ell_last_launch.argtypes = [ctypes.c_void_p]
+    lib.ell_last_launch.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.ell_last_launch.restype = None
     keys = ("lanes", "chunks", "groups", "blocks", "threads", "vector")
     out = (ctypes.c_int * len(keys))()
-    lib.ell_last_launch(out)
+    lib.ell_last_launch(KINDS.index(kind), out)
     return dict(zip(keys, out))
 
 
 def ell_edge_conv_dp_kernel(p, q, nbr, deg, g):
-    """Launch `ell_edge_conv_dp_{f32,bf16}` (ops/cuda/ell_edge_conv.cu):
-    the receiver-side gradient, bit for bit `ell_edge_conv_dp_plain`."""
-    dev = p.device
-    suffix = _check_rows(("p", "q", "g"), (p, q, g), dev)
-    _check_table(nbr, deg, p.shape[0], dev)
-    v, h = p.shape
-    out = torch.empty_like(p)
-    lib = _cuda.library("ell_edge_conv")
-    fn = f"ell_edge_conv_dp_{suffix}"
-    rc = getattr(lib, fn)(
-        p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-        g.data_ptr(), out.data_ptr(), v, h, nbr.shape[1], dev.index,
-        _cuda.stream_of(dev))
-    _cuda.check_status(lib, fn, rc)
+    """Launch `ell_edge_conv_dp_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
+    with `ell_plan`'s "dp" layout: the receiver-side gradient, bit for bit
+    `ell_edge_conv_dp_plain`. Raises as `ell_edge_conv_sum_kernel`."""
+    _check_rows(("p", "q", "g"), (p, q, g), p.device)
+    _check_table(nbr, deg, p.shape[0], p.device)
+    out = _launch("dp", (p, q, nbr, deg, g), nbr.shape[1])
     ell_edge_conv_dp_kernel.launches += 1
     return out
 
@@ -329,21 +366,13 @@ ell_edge_conv_dp_kernel.launches = 0
 
 
 def ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree):
-    """Launch `ell_edge_conv_dq_{f32,bf16}` (ops/cuda/ell_edge_conv.cu):
-    the sender-side gradient through `rev_dst`, bit for bit
-    `ell_edge_conv_dq_plain`."""
-    dev = q.device
-    suffix = _check_rows(("q", "g", "p"), (q, g, p), dev)
-    _check_table(rev_dst, out_degree, q.shape[0], dev)
-    v, h = q.shape
-    out = torch.empty_like(q)
-    lib = _cuda.library("ell_edge_conv")
-    fn = f"ell_edge_conv_dq_{suffix}"
-    rc = getattr(lib, fn)(
-        q.data_ptr(), g.data_ptr(), p.data_ptr(), rev_dst.data_ptr(),
-        out_degree.data_ptr(), out.data_ptr(), v, h, rev_dst.shape[1],
-        dev.index, _cuda.stream_of(dev))
-    _cuda.check_status(lib, fn, rc)
+    """Launch `ell_edge_conv_dq_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
+    with `ell_plan`'s "dq" layout: the sender-side gradient through
+    `rev_dst`, bit for bit `ell_edge_conv_dq_plain`. Raises as
+    `ell_edge_conv_sum_kernel`."""
+    _check_rows(("q", "g", "p"), (q, g, p), q.device)
+    _check_table(rev_dst, out_degree, q.shape[0], q.device)
+    out = _launch("dq", (q, g, p, rev_dst, out_degree), rev_dst.shape[1])
     ell_edge_conv_dq_kernel.launches += 1
     return out
 

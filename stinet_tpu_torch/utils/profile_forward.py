@@ -27,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 # kernel-name fragments -> kind, first match wins
 KINDS = (("ell_fwd", "K1 edge-conv sum"),
-         ("ell_receiver", "K1 dp"), ("ell_sender", "K1 dq"),
+         ("ell_dp", "K1 dp"), ("ell_dq", "K1 dq"),
          ("windowed_receiver", "K3a windowed sum"),
          ("windowed_sender", "K3c windowed dq"),
          ("multi_tensor", "optimizer"),

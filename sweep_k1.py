@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Sweep compile-time variants of the K1 forward kernel on the flagship's
-own tables.
+"""Sweep compile-time variants of the K1 row kernels (the forward, dp and
+dq) on the flagship's own tables.
 
     python3 sweep_k1.py        # from the repository root, one CUDA card
 
 Compiles `stinet_tpu_torch/ops/cuda/ell_edge_conv.cu` once for each pair of
 (gathered chunks a lane issues at once, resident blocks an SM the registers
 are budgeted for) in LOADS x MIN_BLOCKS (0: no budget), by substituting the
-source's own constants, all `nvcc` processes at once, into
-`stinet_tpu_torch/_build/sweep/`, and prints each variant's registers and
-spills. Then it records the K1 forward calls of one flagship f32 forward
-and one bf16 train step (chip_smoke.py's captures), and runs every variant
-under every split of the rows into 1, 2 or 4 groups that `ell_plan` allows,
-on one call of each distinct shape: bitwise against the plain version, and
-timed by the card alone (chip_smoke.host_device_us: calls queued behind a
-sleeping kernel). Prints us a call by shape (dtype, V, H, D) and, per
-variant, the sums over a forward and a step under `ell_plan`'s own split
-and under the fastest split of each shape. Needs a card and nvcc.
+source's own constants (the forward's pair and the gradients' alike), all
+`nvcc` processes at once, into `stinet_tpu_torch/_build/sweep/`, and prints
+each variant's registers and spills by kernel. Then it records the K1
+forward calls of one flagship f32 forward and the K1 forward, dp and dq
+calls of one bf16 train step (chip_smoke.py's captures), and runs every
+variant under every split of the rows into 1, 2 or 4 groups that `ell_plan`
+allows, on one call of each distinct shape: bitwise against the plain
+version, and timed by the card alone (chip_smoke.host_device_us: calls
+queued behind a sleeping kernel). Prints us a call by kind and shape
+(dtype, V, H, D) and, per variant, the sums over a forward and over a step
+of each kind under `ell_plan`'s own split and under the fastest split of
+each shape, and the split that is fastest over the calls of each kind and
+width. Each kind is its own kernel, so the best pair of one kind does not
+depend on the others'. Needs a card and nvcc.
 """
 import collections
 import ctypes
@@ -29,29 +33,35 @@ import chip_smoke as cs
 LOADS = (4, 8, 16)
 MIN_BLOCKS = (0, 3, 4)
 GROUPS = (1, 2, 4)
-LOADS_LINE = "constexpr int kLoadsInFlight = {};"
-BLOCKS_LINE = "constexpr int kMinBlocks = {};"
-BOUNDS = "__launch_bounds__(stinet::kThreads, kMinBlocks)"
+# the source's (loads, blocks) constants: the forward's, the gradients'
+PAIRS = (("kLoadsInFlight", "kMinBlocks"),
+         ("kGradLoadsInFlight", "kGradMinBlocks"))
+LINE = "constexpr int {} = {};"
+BOUNDS = "__launch_bounds__(stinet::kThreads, {})"
 
 
-def committed(src, pattern):
-    """The value the committed source gives the constant of `pattern`."""
-    head, _ = pattern.split("{}")
+def committed(src, name):
+    """The value the committed source gives the constant `name`."""
+    head = LINE.format(name, "")[:-1]
     start = src.index(head) + len(head)
     return int(src[start:src.index(";", start)])
 
 
 def variant_source(src, loads, blocks):
-    out = src.replace(LOADS_LINE.format(committed(src, LOADS_LINE)),
-                      LOADS_LINE.format(loads))
-    if blocks:
-        out = out.replace(BLOCKS_LINE.format(committed(src, BLOCKS_LINE)),
-                          BLOCKS_LINE.format(blocks))
-    else:
-        out = out.replace(BOUNDS, "__launch_bounds__(stinet::kThreads)")
-    cs.check(out.count(LOADS_LINE.format(loads)) == 1
-             and (blocks == 0) == (BOUNDS not in out),
-             "the source no longer has the constants this sweep varies")
+    out = src
+    for loads_name, blocks_name in PAIRS:
+        out = out.replace(LINE.format(loads_name, committed(src, loads_name)),
+                          LINE.format(loads_name, loads))
+        if blocks:
+            out = out.replace(
+                LINE.format(blocks_name, committed(src, blocks_name)),
+                LINE.format(blocks_name, blocks))
+        else:
+            out = out.replace(BOUNDS.format(blocks_name),
+                              "__launch_bounds__(stinet::kThreads)")
+        cs.check(out.count(LINE.format(loads_name, loads)) == 1
+                 and (blocks == 0) == (BOUNDS.format(blocks_name) not in out),
+                 "the source no longer has the constants this sweep varies")
     return out
 
 
@@ -82,29 +92,44 @@ def build_variants():
                               r"(?:EE?v|E\d)", line)
             if entry:
                 kernel = entry.group(1)
-            elif "ell_fwd_rows" in kernel and ("Used" in line
-                                               or "spill" in line):
+            elif "_rows" in kernel and ("Used" in line or "spill" in line):
                 cs.say("sweep", f"loads {key[0]}, blocks {key[1]}: "
                        f"{kernel}: {line.split(':', 1)[-1].strip()}")
         lib = ctypes.CDLL(str(out_dir / f"ell_L{key[0]}_B{key[1]}.so"))
-        for dt in ("f32", "bf16"):
-            fn = getattr(lib, f"ell_edge_conv_sum_fwd_{dt}")
-            fn.argtypes = argtypes[f"ell_edge_conv_sum_fwd_{dt}"]
-            fn.restype = ctypes.c_int
+        for name, types in argtypes.items():
+            getattr(lib, name).argtypes = types
+            getattr(lib, name).restype = ctypes.c_int
         libs[key] = lib
     return libs
 
 
 def captured_calls(torch):
-    """{(dtype, V, H, D): [(p, q, nbr, deg), count]}: one call of each
-    distinct shape among the K1 calls of a flagship f32 forward and a bf16
-    train step, and how often the path makes it."""
-    f32, bf16 = cs.capture_k1_calls(torch)
+    """{(kind, dtype, V, H, D): [tensors, count]}: one call of each distinct
+    shape among the K1 forward calls of a flagship f32 forward and the K1
+    forward, dp and dq calls of a bf16 train step, with its tensors in the
+    C launcher's order, and how often the path makes it."""
+    f32, step = cs.capture_k1_calls(torch)
     shapes = collections.OrderedDict()
-    for p, q, nbr, deg in list(f32) + list(bf16):
-        key = (str(p.dtype).split(".")[-1], *p.shape, nbr.shape[1])
-        shapes.setdefault(key, [(p, q, nbr, deg), 0])[1] += 1
+    for kind, calls in (("sum", list(f32) + list(step["k1"])),
+                        ("dp", step["k1dp"]), ("dq", step["k1dq"])):
+        for args in calls:
+            rows = args[0]
+            key = (kind, str(rows.dtype).split(".")[-1], *rows.shape,
+                   slots_of(kind, args))
+            shapes.setdefault(key, [args, 0])[1] += 1
     return shapes
+
+
+def slots_of(kind, args):
+    """D, the slots a row of the call's index table (nbr, or dq's rev)."""
+    return args[3 if kind == "dq" else 2].shape[1]
+
+
+def plain_of(kind, args):
+    from stinet_tpu_torch.ops import ell
+    return {"sum": ell.ell_edge_conv_sum_plain,
+            "dp": ell.ell_edge_conv_dp_plain,
+            "dq": ell.ell_edge_conv_dq_plain}[kind](*args)
 
 
 def main():
@@ -119,25 +144,27 @@ def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     # times[(loads, blocks)][shape] = {groups: us a call}
     times = collections.defaultdict(dict)
-    for shape, ((p, q, nbr, deg), _) in shapes.items():
-        want = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
-        view = torch.int16 if p.dtype == torch.bfloat16 else torch.int32
-        v, h = p.shape
-        aligned = all(t.data_ptr() % 16 == 0 for t in (p, q))
+    for shape, (args, _) in shapes.items():
+        kind, rows, d = shape[0], args[0], shape[-1]
+        want = plain_of(kind, args)
+        view = torch.int16 if rows.dtype == torch.bfloat16 else torch.int32
+        v, h = rows.shape
+        aligned = all(t.data_ptr() % 16 == 0 for t in args
+                      if t.dim() == 2 and t.dtype == rows.dtype)
         for key, lib in libs.items():
-            fn = getattr(lib, f"ell_edge_conv_sum_fwd_{ell._DTYPES[p.dtype]}")
+            fn = getattr(lib, ell.launcher_name(kind, rows.dtype))
             per = times[key].setdefault(shape, {})
             for groups in GROUPS:
                 try:
-                    plan = ell.ell_plan(v, h, p.dtype, aligned, groups)
+                    plan = ell.ell_plan(v, h, rows.dtype, aligned, groups,
+                                        kind)
                 except ValueError:
                     continue
-                out = torch.empty_like(p)
+                out = torch.empty_like(rows)
 
                 def call(fn=fn, plan=plan, out=out):
-                    rc = fn(p.data_ptr(), q.data_ptr(), nbr.data_ptr(),
-                            deg.data_ptr(), out.data_ptr(), v, h,
-                            nbr.shape[1], *ell._plan_args(plan), dev.index,
+                    rc = fn(*[t.data_ptr() for t in args], out.data_ptr(),
+                            v, h, d, *ell._plan_args(plan), dev.index,
                             _cuda.stream_of(dev))
                     cs.check(rc == 0, f"{key} {shape}: cudaError {rc}")
 
@@ -147,20 +174,38 @@ def main():
                          f"variant {key}, {groups} groups, {shape}: not "
                          "the plain version's bits")
                 per[groups] = cs.host_device_us(torch, call)[2]
-    own = {k: ell.ell_plan(k[1], k[2], getattr(torch, k[0])).groups
-           for k in shapes}
-    cs.say("sweep", "us a call by the card alone, by shape (dtype V H D) x "
-           "calls, each split as groups:us; * ell_plan's split")
+    own = {s: ell.ell_plan(s[2], s[3], getattr(torch, s[1]),
+                           kind=s[0]).groups for s in shapes}
+    totals = (("f32 forward", "sum", "float32"),
+              ("bf16 step", "sum", "bfloat16"),
+              ("bf16 step dp", "dp", "bfloat16"),
+              ("bf16 step dq", "dq", "bfloat16"))
+    cs.say("sweep", "us a call by the card alone, by kind and shape (dtype V "
+           "H D) x calls, each split as groups:us; * ell_plan's split")
     for key, per in times.items():
         sums = {}
         for label, pick in (("ell_plan's split", lambda s, t: t[own[s]]),
                             ("fastest split", lambda s, t: min(t.values()))):
-            sums[label] = {dt: sum(pick(s, t) * shapes[s][1]
-                                   for s, t in per.items() if s[0] == dt)
-                           / 1e3 for dt in ("float32", "bfloat16")}
+            sums[label] = {name: sum(pick(s, t) * shapes[s][1]
+                                     for s, t in per.items()
+                                     if s[:2] == (kind, dt)) / 1e3
+                           for name, kind, dt in totals}
         cs.say("sweep", f"loads {key[0]}, blocks {key[1]}: " + "; ".join(
-            f"{label} f32 forward {v['float32']:.4f} ms, bf16 step "
-            f"{v['bfloat16']:.4f} ms" for label, v in sums.items()))
+            f"{label} " + ", ".join(f"{name} {ms:.4f} ms"
+                                    for name, ms in v.items())
+            for label, v in sums.items()))
+        # ell_plan takes one split a width: the fastest, summed over the
+        # calls of that kind, dtype and width
+        splits = []
+        for width in dict.fromkeys(s[:4] for s in per):
+            on = [s for s in per if s[:4] == width]
+            common = set.intersection(*(set(per[s]) for s in on))
+            best = min(common, key=lambda g: sum(per[s][g] * shapes[s][1]
+                                                 for s in on))
+            splits.append(f"{' '.join(map(str, width))} {best}"
+                          f"{'*' if best == own[on[0]] else ''}")
+        cs.say("sweep", "  fastest split a width, groups: "
+               + ", ".join(splits))
         cs.say("sweep", "  " + "; ".join(
             f"{' '.join(map(str, s))} x{shapes[s][1]} " + " ".join(
                 f"{g}{'*' if g == own[s] else ''}:{t:.1f}"

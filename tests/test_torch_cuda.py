@@ -519,6 +519,160 @@ def test_ell_forward_launcher_checks_the_plan(dev):
                     odd_plan._replace(vector=True)) == 1
 
 
+def _gradient_case(rng, v, h, d, dtype, dev):
+    """p, q, g, nbr, deg, rev, deg_out for K1's dp and dq: NaN, +inf and
+    -inf among the elements of all three rows; receivers' degrees past D
+    (clamped) and 0 among the rows; a skewed out-degree: most senders
+    referenced a few times, a few by a full row of D receivers or past it
+    (clamped), some by none."""
+    rows = []
+    for _ in range(3):
+        x = rng.normal(size=(v, h)) * 10.0 ** rng.integers(-2, 3, (v, 1))
+        for value in (np.nan, np.inf, -np.inf):
+            x[rng.integers(0, v, 3), rng.integers(0, h, 3)] = value
+        rows.append(_cuda_t(x.astype(np.float32), dev).to(dtype))
+    nbr = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    deg = rng.integers(0, d + 4, size=v).astype(np.float32)
+    deg[rng.integers(0, v, 8)] = 0
+    deg[rng.integers(0, v, 8)] = d + 7
+    rev = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    deg_out = rng.integers(0, min(d, 8) + 1, size=v).astype(np.float32)
+    deg_out[rng.integers(0, v, 8)] = 0
+    deg_out[rng.integers(0, v, 4)] = d
+    deg_out[rng.integers(0, v, 4)] = d + 7
+    return (*rows, *(_cuda_t(a, dev) for a in (nbr, deg, rev, deg_out)))
+
+
+def _gradients(p, q, g, nbr, deg, rev, deg_out):
+    """{kind: (wrapper, plain version, raw launcher, the launcher's
+    tensors)} of K1's dp and dq on one case."""
+    return {
+        "dp": (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, g),
+               lambda: ell.ell_edge_conv_dp_plain(p, q, nbr, deg, g),
+               ell.launch_dp, (p, q, nbr, deg, g)),
+        "dq": (lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, deg_out),
+               lambda: ell.ell_edge_conv_dq_plain(q, g, p, rev, deg_out),
+               ell.launch_dq, (q, g, p, rev, deg_out))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [4, 8, 20, 128, 130, 256, 512, 520])
+@pytest.mark.parametrize("d", [0, 6, 16, 33, 148])
+def test_ell_gradient_rows_bitwise(dev, d, h, dtype):
+    """ell_dp_rows and ell_dq_rows against their plain versions, bit for
+    bit, at widths of every layout class (1 chunk a lane: a row split
+    into twice the forward's groups where the forward holds 2), on V =
+    1001 rows, with NaN and +-inf in p, q and g
+    (an inf g times a step of 0 is NaN in both), clamped and zero degrees
+    and a skewed out-degree up to D; the launch is `ell_plan`'s of its
+    kind; twice the same bits; every split of the rows that the plan
+    allows gives the same bits too; each wrapper counts one launch a
+    call."""
+    v = 1001
+    rng = np.random.default_rng(h * 1000 + d + 7)
+    case = _gradient_case(rng, v, h, d, dtype, dev)
+    for kind, (kernel, plain, launch, args) in _gradients(*case).items():
+        counter = getattr(ell, f"ell_edge_conv_{kind}_kernel")
+        before = counter.launches
+        got = kernel()
+        launched = ell.last_launch(kind)
+        want = plain()
+        again = kernel()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 2, kind
+        plan = ell.ell_plan(v, h, dtype, kind=kind)
+        assert launched == _launched(plan), kind
+        assert _bitwise(got, want) and _bitwise(again, got), kind
+        for groups in range(1, 4 * plan.groups + 1):
+            try:
+                split = ell.ell_plan(v, h, dtype, groups=groups, kind=kind)
+            except ValueError:
+                continue
+            out = launch(split, *args)
+            assert ell.last_launch(kind) == _launched(split)
+            torch.cuda.synchronize()
+            assert _bitwise(out, want), (kind, split)
+
+
+def _raw(kind, args, out, plan):
+    """Call the C launcher of `kind` with `plan` as it stands; its code."""
+    fn = getattr(_cuda.library("ell_edge_conv"),
+                 ell.launcher_name(kind, args[0].dtype))
+    d = args[3 if kind == "dq" else 2].shape[1]
+    return fn(*[t.data_ptr() for t in args], out.data_ptr(),
+              args[0].shape[0], args[0].shape[1], d, *ell._plan_args(plan),
+              args[0].device.index, _cuda.stream_of(args[0].device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", [128, 512])
+def test_ell_gradients_unaligned_views_take_element_loads(dev, h, dtype):
+    """Each of dp's and dq's row operands, and out, one element past
+    16-byte alignment: the wrapper picks the element body, the launcher
+    takes an unaligned out with it and refuses 16-byte loads on it; the
+    bits are the plain version's."""
+    v, d = 1001, 16
+    rng = np.random.default_rng(h + 11)
+    p, q, g, nbr, deg, rev, deg_out = _gradient_case(rng, v, h, d, dtype,
+                                                     dev)
+    for kind, (_, plain, _, args) in _gradients(
+            p, q, g, nbr, deg, rev, deg_out).items():
+        want = plain()
+        plan = ell.ell_plan(v, h, dtype, aligned=False, kind=kind)
+        wrapper = getattr(ell, f"ell_edge_conv_{kind}_kernel")
+        for i, row in enumerate(args):
+            if row.dim() != 2 or row.dtype != dtype:
+                continue
+            moved = list(args)
+            moved[i] = _offset_view(row, dev)
+            got = wrapper(*moved)
+            assert ell.last_launch(kind) == _launched(plan), (kind, i)
+            torch.cuda.synchronize()
+            assert _bitwise(got, want), (kind, i)
+        out = _offset_view(torch.zeros_like(args[0]), dev)
+        assert _raw(kind, args, out, plan) == 0
+        torch.cuda.synchronize()
+        assert _bitwise(out, want), kind
+        assert _raw(kind, args, out, plan._replace(vector=True)) == 1
+
+
+@pytest.mark.parametrize("kind", ["dp", "dq"])
+def test_ell_gradient_launcher_checks_the_plan(dev, kind):
+    """The C launchers of dp and dq launch the plan they are given and
+    refuse one that does not describe the shapes."""
+    v, h, d = 1001, 512, 6
+    z = torch.zeros(v, h, dtype=torch.bfloat16, device=dev)
+    idx = torch.zeros(v, d, dtype=torch.int32, device=dev)
+    count = torch.zeros(v, device=dev)
+    args = ((z, z, idx, count, z) if kind == "dp"
+            else (z, z, z, idx, count))
+    out = torch.empty_like(z)
+    plan = ell.ell_plan(v, h, torch.bfloat16, kind=kind)
+    assert _raw(kind, args, out, plan) == 0
+    torch.cuda.synchronize()
+    assert ell.last_launch(kind) == _launched(plan)
+    bad = [plan._replace(lanes=24), plan._replace(lanes=64),
+           plan._replace(chunks=0), plan._replace(chunks=3),
+           plan._replace(groups=plan.groups + 2),   # groups left empty
+           plan._replace(blocks=plan.blocks + 1),
+           plan._replace(blocks=plan.blocks - 1)]
+    if plan.chunks == 1:
+        bad.append(plan._replace(groups=1))           # a chunk uncovered
+    else:
+        bad.append(plan._replace(chunks=1))
+    for pl in bad:
+        assert _raw(kind, args, out, pl) == 1, pl
+    odd = torch.zeros(v, 130, dtype=torch.bfloat16, device=dev)
+    odd_args = tuple(odd if t.dim() == 2 and t.dtype == odd.dtype else t
+                     for t in args)
+    odd_plan = ell.ell_plan(v, 130, torch.bfloat16, kind=kind)
+    assert not odd_plan.vector
+    assert _raw(kind, odd_args, torch.empty_like(odd),
+                odd_plan._replace(vector=True)) == 1
+
+
 @pytest.mark.parametrize("v,h,d,halo,tile", [
     (1024, 128, 12, 96, 256), (512, 72, 5, 40, 128),
     (1024, 130, 12, 200, 256),   # window clamped at both ends of V

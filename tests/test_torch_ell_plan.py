@@ -1,17 +1,19 @@
-"""The layout of the K1 forward kernel (ops/ell.py:ell_plan), on the CPU.
+"""The layout of the K1 row kernels (ops/ell.py:ell_plan), on the CPU.
 
-The kernel (ops/cuda/ell_edge_conv.cu: ell_fwd_rows) runs only on the card;
-its (block, thread, chunk) -> (row, channels) map is `EllPlan.chunk_of`,
-which these tests enumerate: every output element is written by exactly
-one lane, for rows of every width class, both dtypes, the 16-byte and the
-element body, split rows, and a last block that is only partly filled. The
-card tests (tests/test_torch_cuda.py) check that the library launches this
-plan and that its bits are the plain version's."""
+The kernels (ops/cuda/ell_edge_conv.cu: ell_fwd_rows, ell_dp_rows,
+ell_dq_rows) run only on the card; their (block, thread, chunk) -> (row,
+channels) map is `EllPlan.chunk_of`, which these tests enumerate: every
+output element is written by exactly one lane, for rows of every width
+class, both dtypes, the 16-byte and the element body, split rows, and a
+last block that is only partly filled, for the forward's plans and for
+dp's and dq's. The card tests (tests/test_torch_cuda.py) check that the
+library launches these plans and that its bits are the plain version's."""
 import numpy as np
 import pytest
 import torch
 
-from stinet_tpu_torch.ops.ell import MAX_CHUNKS, THREADS, ell_plan
+from stinet_tpu_torch.ops.ell import (KIND_CHUNKS, KINDS, MAX_CHUNKS,
+                                      THREADS, ell_plan)
 
 WIDTHS = (1, 3, 4, 8, 20, 64, 128, 130, 256, 512, 520)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -32,15 +34,18 @@ def _writes(plan):
     return counts
 
 
-def _splits(v, h, dtype):
-    """The default plan and every split of its rows the plan allows."""
-    base = ell_plan(v, h, dtype)
+def _splits(v, h, dtype, kind="sum"):
+    """The default plan of `kind` and every other split of its rows the
+    plan allows."""
+    base = ell_plan(v, h, dtype, kind=kind)
     plans = [base]
-    for groups in range(base.groups + 1, 4 * base.groups + 1):
+    for groups in range(1, 4 * base.groups + 1):
         try:
-            plans.append(ell_plan(v, h, dtype, groups=groups))
+            split = ell_plan(v, h, dtype, groups=groups, kind=kind)
         except ValueError:
-            pass
+            continue
+        if split != base:
+            plans.append(split)
     return plans
 
 
@@ -55,6 +60,26 @@ def test_ell_plan_writes_every_element_once(v, h, dtype):
         assert (plan.v * plan.groups) % plan.groups_per_block != 0, plan
         assert plan.blocks == -(-plan.v * plan.groups
                                 // plan.groups_per_block)
+        counts = _writes(plan)
+        assert counts.min() == 1 and counts.max() == 1, plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
+@pytest.mark.parametrize("h", WIDTHS)
+@pytest.mark.parametrize("v", [37, 1001])
+@pytest.mark.parametrize("kind", ["dp", "dq"])
+def test_ell_gradient_plans_write_every_element_once(kind, v, h, dtype):
+    """dp's and dq's plans, the default split of each and every other
+    split the plan allows (fewer groups too), cover every output element
+    exactly once, with whole groups a warp and a partly filled last
+    block."""
+    plans = _splits(v, h, dtype, kind)
+    assert plans[0].groups == -(-(-(-plans[0].row_chunks // plans[0].lanes))
+                                // KIND_CHUNKS[kind])
+    for plan in plans:
+        assert 32 % plan.lanes == 0, plan
+        assert 1 <= plan.chunks <= MAX_CHUNKS, plan
+        assert (plan.v * plan.groups) % plan.groups_per_block != 0, plan
         counts = _writes(plan)
         assert counts.min() == 1 and counts.max() == 1, plan
 
@@ -114,3 +139,25 @@ def test_ell_plan_is_cached_and_refuses_empty_groups():
         ell_plan(64, 512, torch.float32, groups=1)
     tail = ell_plan(0, 512, torch.float32)
     assert tail.blocks == 0
+
+
+def test_ell_plan_gradient_layouts():
+    """The default splits of dp and dq at the flagship's level-2 shape
+    (V_pad 6144, H=512 bf16), as the sweep (sweep_k1.py) chose them: both
+    in 2 groups of 32 lanes x 1 chunk a row (12288 warps, not the
+    forward's 6144 of 32 lanes x 2 chunks); and the kinds' order, which is
+    the library's."""
+    bf16 = torch.bfloat16
+    assert KINDS == ("sum", "dp", "dq")
+    dp = ell_plan(6144, 512, bf16, kind="dp")
+    dq = ell_plan(6144, 512, bf16, kind="dq")
+    assert (dp.lanes, dp.chunks, dp.groups, dp.blocks) == (32, 1, 2, 1536)
+    assert dq == dp
+    assert dp.vector and dq.vector
+    fwd = ell_plan(6144, 512, bf16)
+    assert (fwd.chunks, fwd.groups) == (2, 1)
+    assert ell_plan(6144, 512, bf16, groups=2) == dp
+    f32_dq = ell_plan(6144, 512, torch.float32, kind="dq")
+    assert (f32_dq.chunks, f32_dq.groups) == (1, 4)
+    with pytest.raises(ValueError):
+        ell_plan(6144, 512, bf16, kind="dx")

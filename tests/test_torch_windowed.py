@@ -294,6 +294,25 @@ def test_windowed_f32_autograd_bitwise_equals_jax(h):
 
 # --- ELL backward, bit for bit --------------------------------------------
 
+def _assert_ell_vjp_bitwise(p, q, g, nbr, deg, rev, deg_out, dtype):
+    """The port's ELL sum and its backward (dp, dq) under the cotangent g,
+    against jax.vjp of stinet_tpu.ops.ell.ell_edge_conv_sum, bit for bit."""
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    tables = [jnp.asarray(a) for a in (nbr, rev, deg,
+                                       deg_out.astype(np.float32))]
+    out, vjp = jax.vjp(lambda p, q: jax_ell.ell_edge_conv_sum(p, q, *tables),
+                       jnp.asarray(p, jdt), jnp.asarray(q, jdt))
+    dp, dq = vjp(jnp.asarray(g, jdt))
+    pt, qt = (t(p, tdt).requires_grad_(), t(q, tdt).requires_grad_())
+    got = ell.ell_edge_conv_sum(pt, qt, t(nbr), t(deg), t(rev),
+                                t(deg_out.astype(np.float32)))
+    got.backward(t(g, tdt))
+    for a, b in ((got.detach(), out), (pt.grad, dp), (qt.grad, dq)):
+        np.testing.assert_array_equal(
+            a.float().numpy(), np.asarray(b, np.float32))
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("v,h,d", [(300, 16, 6), (257, 130, 12)])
 def test_ell_backward_bit_identical_to_jax(v, h, d, dtype):
@@ -312,20 +331,59 @@ def test_ell_backward_bit_identical_to_jax(v, h, d, dtype):
     for s_, r_ in zip(src, dst):
         rev[s_, fill[s_]] = r_
         fill[s_] += 1
-    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
-                else (jnp.float32, torch.float32))
-    tables = [jnp.asarray(a) for a in (nbr, rev, deg,
-                                       deg_out.astype(np.float32))]
-    out, vjp = jax.vjp(lambda p, q: jax_ell.ell_edge_conv_sum(p, q, *tables),
-                       jnp.asarray(p, jdt), jnp.asarray(q, jdt))
-    dp, dq = vjp(jnp.asarray(g, jdt))
-    pt, qt = (t(p, tdt).requires_grad_(), t(q, tdt).requires_grad_())
-    got = ell.ell_edge_conv_sum(pt, qt, t(nbr), t(deg), t(rev),
-                                t(deg_out.astype(np.float32)))
-    got.backward(t(g, tdt))
-    for a, b in ((got.detach(), out), (pt.grad, dp), (qt.grad, dq)):
-        np.testing.assert_array_equal(
-            a.float().numpy(), np.asarray(b, np.float32))
+    _assert_ell_vjp_bitwise(p, q, g, nbr, deg, rev, deg_out, dtype)
+
+
+def _level2_tables(case, v=384, d=16, width=72, seed=5):
+    """nbr [v, d], deg, rev [v, width], deg_out shaped like the flagship's
+    level-2 tables at a small V (4-8 live slots a row, a receiver-side
+    table of 16 slots, a wide reverse table): "skewed", one sender
+    referenced by 64 receivers; "past_d", by 80, past rev's width, and ten
+    receivers with degrees past D (both clamped); "zero", the skew with a
+    quarter of the receivers at degree 0 (and the senders only they
+    referenced at out-degree 0). rev lists each sender's receivers in
+    order, pad slots at the last row."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    deg = rng.integers(4, 9, size=v)
+    fans = 80 if case == "past_d" else 64
+    nbr[20:20 + fans, 0] = 7
+    if case == "past_d":
+        deg[:10] = d + 5
+    if case == "zero":
+        deg[rng.permutation(v)[:v // 4]] = 0
+    live = np.arange(d)[None, :] < np.minimum(deg, d)[:, None]
+    dst, slot = np.nonzero(live)
+    src = nbr[dst, slot]
+    deg_out = np.bincount(src, minlength=v)
+    rev = np.full((v, width), v - 1, np.int32)
+    fill = np.zeros(v, np.int64)
+    for s_, r_ in zip(src, dst):
+        if fill[s_] < width:
+            rev[s_, fill[s_]] = r_
+        fill[s_] += 1
+    return nbr, deg.astype(np.float32), rev, deg_out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["skewed", "past_d", "zero"])
+def test_ell_backward_level2_tables_bit_identical_to_jax(case, dtype):
+    """The gradients' oracle on the shapes of the flagship's level-2
+    tables: a skewed out-degree, degrees past the tables' widths (clamped)
+    and rows of degree 0, bit for bit against JAX. One shape for every
+    case, so JAX compiles each op once a dtype."""
+    nbr, deg, rev, deg_out = _level2_tables(case)
+    v, h = nbr.shape[0], 64
+    if case == "past_d":
+        assert deg.max() > nbr.shape[1] and deg_out.max() > rev.shape[1]
+    else:
+        assert deg_out.max() >= 48 and deg_out.max() <= rev.shape[1]
+    if case == "zero":
+        assert (deg == 0).sum() == v // 4 and (deg_out == 0).any()
+    rng = np.random.default_rng(len(case))
+    p, q, g = (rng.normal(size=(v, h)).astype(np.float32) for _ in range(3))
+    q *= 10.0 ** rng.integers(-3, 4, size=(v, 1))
+    _assert_ell_vjp_bitwise(p, q, g, nbr, deg, rev, deg_out, dtype)
 
 
 # --- max routing with forced ties, pooling gradients -----------------------
