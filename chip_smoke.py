@@ -20,7 +20,7 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    below), the launch's plan (ops/ell.py:ell_plan, checked against what
    the library launched) and the other split of the rows into one or two
    groups, bitwise and timed beside it; for K2 also, here and in phases 6
-   and 9: every
+   and 10: every
    call run twice gives the same bits, the device launches of one call
    counted in a profiler window (K2_DEVICE_LAUNCHES) with each launch's
    device time there, a distinct shape a call, and a call's time
@@ -62,7 +62,27 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    twice); one step on a small scene against the CPU plain path
    (SMALL_TRAIN_TOL); then ms/step by CUDA events, split into forward,
    backward and optimizer, and the peak device memory of a step;
-8. serving-windowed: the flagship f32 server with windowed=True on phase
+8. trainer: the port's CLI (`stinet_tpu_torch.train.main`) on 3 flagship
+   scenes (seeds 0-2: 2 train, 1 val) written in the ScanNet loader's
+   format to a temporary directory. The loader alone builds the train set
+   once (its build ms, no step running). The production bf16 config
+   (windowed, full width and depth; data roots and save_dir repointed,
+   TRAINER_EPOCHS epochs, a checkpoint every epoch) trains with the
+   kernels' launch counts zeroed before and read after: each kernel of the
+   bf16 path launched, each step's launches equal to the calls a
+   plain-path trainer's step records on the same batch, the first loss
+   within TRAIN_TOL of that trainer's, every loss finite, the last epoch's
+   mean train loss below the first's, the checkpoints written; then its
+   ms/step by its own clock, the loader's build ms a batch, each step's
+   wait on `iter_placed`, the step by CUDA events and peak memory. It
+   resumes from the last checkpoint for one more epoch (parameters and
+   Adam state bitwise the file's before the first step), evaluates
+   model_best (`-e valid`) and serves it with `from_checkpoint`, within
+   PATH_TOL of a server of the trainer's own weights. Last, the f32
+   reference config at `--bs 2` with accumulation F32_ACCUMULATE for
+   F32_EPOCHS epochs (one optimizer step): f32 K1, dp, dq and multi-graph
+   K2 launched and held per step as above, with the same readings;
+9. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
    of the three timed, with K3b's bound and plan and the device-alone
@@ -70,7 +90,7 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    convs the dispatch sends to it (at least 1); the output
    (in the scene's vertex order) within PATH_TOL of phase 4's and of the
    windowed plain path; ms/scene split into phases;
-9. serving-batched: `predict_batch` at B = BATCH (flagship scenes of seeds
+10. serving-batched: `predict_batch` at B = BATCH (flagship scenes of seeds
    0..B-1) stacked and concatenated, each scene within PATH_TOL of its own
    forward; every multi-graph K2 call of the concatenated forward within
    K2_RTOL/K2_ATOL of its plain version, timed beside `F.instance_norm` on
@@ -97,6 +117,7 @@ process, by this script's code).
 import contextlib
 import copy
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -715,22 +736,27 @@ def record_calls(targets):
             setattr(mod, name, fn)
 
 
+def train_targets():
+    """The plain functions of every kernel on the train path, for
+    `record_calls`: {key: (module, name)}."""
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    return {"k3a": (windowed, "windowed_edge_conv_sum"),
+            "k3c": (windowed, "windowed_dq"),
+            "k1": (ell, "ell_edge_conv_sum_plain"),
+            "k1dp": (ell, "ell_edge_conv_dp_plain"),
+            "k1dq": (ell, "ell_edge_conv_dq_plain"),
+            "k2": (norms, "masked_instance_norm_plain")}
+
+
 def capture_train_calls(torch, model, graph, cfg):
     """Phase 6, first half: one plain-path train step of a copy of `model`
     with the plain functions of every kernel on the path recorded."""
-    from stinet_tpu_torch.ops import ell, norms, windowed
     from stinet_tpu_torch.trainers import graph_common as gc
     model = copy.deepcopy(model)
     opt, lr = gc.build_optimizer(model.parameters(), cfg["optimizer"])
     step, _ = gc.make_inpainting_steps(
         model, opt, cfg["trainer"]["use_mask_weighted_loss"], impl="plain")
-    targets = {"k3a": (windowed, "windowed_edge_conv_sum"),
-               "k3c": (windowed, "windowed_dq"),
-               "k1": (ell, "ell_edge_conv_sum_plain"),
-               "k1dp": (ell, "ell_edge_conv_dp_plain"),
-               "k1dq": (ell, "ell_edge_conv_dq_plain"),
-               "k2": (norms, "masked_instance_norm_plain")}
-    with record_calls(targets) as calls:
+    with record_calls(train_targets()) as calls:
         step(graph, lr)
         torch.cuda.synchronize()
     return calls
@@ -1062,6 +1088,342 @@ def train_slice(torch, card, model, graph, cfg, captured):
     return launches
 
 
+# --- the trainer and its CLI -------------------------------------------------
+
+TRAINER_EPOCHS = 3          # epochs of the bf16 run (2 train scenes each)
+F32_EPOCHS = 2              # the f32 run at --bs 2: one step an epoch
+F32_ACCUMULATE = 2          # its num_cumulated_train_batches
+REF_CONFIG = ("experiments/3d_inpainting/config/"
+              "config_stinet_surfacetextureinpainting.json")
+
+
+def _train_counters():
+    """The launch counters of the train path's kernels: {key: (wrapper,
+    counter attribute)}; keys as in capture_train_calls, K2's multi-graph
+    launches apart."""
+    from stinet_tpu_torch.ops import ell, norms, windowed
+    k2 = norms.masked_instance_norm_kernel
+    return {"k3a": (windowed.windowed_edge_conv_sum_kernel, "launches"),
+            "k3c": (windowed.windowed_dq_kernel, "launches"),
+            "k1": (ell.ell_edge_conv_sum_kernel, "launches"),
+            "k1dp": (ell.ell_edge_conv_dp_kernel, "launches"),
+            "k1dq": (ell.ell_edge_conv_dq_kernel, "launches"),
+            "k2": (k2, "launches"), "k2mg": (k2, "multigraph_launches")}
+
+
+class StepProbe:
+    """Stands in for a trainer's train step: runs it, and records each
+    call's kernel launches, a copy of its graph, its loss, its time by CUDA
+    events and the accumulation's mini-step after it. On its first call it
+    may hold the model and optimizer bitwise against a checkpoint file.
+    Every other attribute is the step's."""
+
+    def __init__(self, torch, step, model, optimizer, expect=None):
+        self._torch, self._step = torch, step
+        self._model, self._optimizer, self._expect = model, optimizer, expect
+        self.launches, self.graphs, self.losses = [], [], []
+        self.events, self.mini_steps = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, graph, lr):
+        torch = self._torch
+        from stinet_tpu_torch.graph.hierarchy import map_tensors
+        if self._expect is not None:
+            self._check_against(self._expect)
+            self._expect = None
+        self.graphs.append(map_tensors(graph, lambda t: t.clone()))
+        counters = _train_counters()
+        before = _read(counters)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics = self._step(graph, lr)
+        ev[1].record()
+        after = _read(counters)
+        self.launches.append({k: after[k] - before[k] for k in after})
+        self.losses.append(metrics["loss"].detach())
+        self.events.append(ev)
+        self.mini_steps.append(self._step.mini_step)
+        return metrics
+
+    def _check_against(self, path):
+        """The model's parameters and the optimizer's state bitwise those
+        of the checkpoint file at `path`."""
+        torch = self._torch
+        from stinet_tpu_torch.core.checkpoint import load_checkpoint
+        sds, opts, _, _ = load_checkpoint(path)
+        for k, v in self._model.state_dict().items():
+            check(torch.equal(v.cpu(), sds["graph"][k]),
+                  f"resumed parameter {k} differs from {path}")
+        got = self._optimizer.state_dict()["state"]
+        want = opts["graph"]["state"]
+        check(sorted(got) == sorted(want) and len(want) > 0,
+              f"resumed optimizer state holds {len(got)} entries, the file "
+              f"{len(want)}")
+        for i, st in want.items():
+            for k, v in st.items():
+                check(torch.equal(got[i][k].cpu(), v),
+                      f"resumed Adam state {i}/{k} differs from {path}")
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+@contextlib.contextmanager
+def probed_trainer(torch, expect=None):
+    """While open, every Inpainting3DTrainer built takes a StepProbe for
+    its train step (yielded, in order of construction) and keeps a copy of
+    its weights at each `model_best` save (`best_weights`)."""
+    from stinet_tpu_torch.trainers import inpainting3d
+    probes, best = [], {}
+    make, save_best = (inpainting3d.make_inpainting_steps,
+                       inpainting3d.Inpainting3DTrainer._save_best)
+
+    def make_probed(model, optimizer, *args, **kw):
+        step, eval_step = make(model, optimizer, *args, **kw)
+        probes.append(StepProbe(torch, step, model, optimizer, expect))
+        return probes[-1], eval_step
+
+    def save_best_kept(self, epoch):
+        save_best(self, epoch)
+        best.update(epoch=epoch, weights={
+            k: v.detach().clone() for k, v in self.model.state_dict().items()})
+
+    inpainting3d.make_inpainting_steps = make_probed
+    inpainting3d.Inpainting3DTrainer._save_best = save_best_kept
+    try:
+        yield probes, best
+    finally:
+        inpainting3d.make_inpainting_steps = make
+        inpainting3d.Inpainting3DTrainer._save_best = save_best
+
+
+def write_trainer_scenes(root):
+    """Loader-format flagship scenes (seeds 0-2) under the port's split
+    lists' first names: 2 train scenes, 1 val scene. Returns the data
+    roots and the val scene."""
+    from stinet_tpu_torch.data.scannet import (
+        SCANNET_TRAIN_FILE, SCANNET_VAL_FILE, read_split)
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene, write_loader_scene)
+    roots, seed = {}, 0
+    for split, names in (("train", read_split(SCANNET_TRAIN_FILE)[:2]),
+                         ("val", read_split(SCANNET_VAL_FILE)[:1])):
+        roots[split] = str(root / split)
+        for name in names:
+            scene = synthetic_scene(**dict(FLAGSHIP_SCENE, seed=seed))
+            write_loader_scene(roots[split], name, scene)
+            seed += 1
+    return roots, scene
+
+
+def trainer_config(path, roots, save_dir, source, epochs, **loader_args):
+    """A copy of the config file `source` with the data roots and save_dir
+    repointed, `epochs` epochs, a checkpoint every epoch and `loader_args`
+    set; written to `path`. Returns it."""
+    cfg = json.loads(pathlib.Path(source).read_text())
+    cfg["data_loader"]["args"].update(train_root_dir=roots["train"],
+                                      val_root_dir=roots["val"],
+                                      **loader_args)
+    cfg["trainer"].update(save_dir=str(save_dir), epochs=epochs,
+                          save_period=1)
+    pathlib.Path(path).write_text(json.dumps(cfg))
+    return cfg
+
+
+def check_trainer_launches(torch, cfg, probe, device):
+    """Each train step's kernel launches equal the kernel calls a plain-path
+    trainer's step (same config, same initial weights) records on the same
+    batch; returns the plain trainer's loss on the first batch."""
+    from stinet_tpu_torch.core.config import ConfigParser
+    from stinet_tpu_torch.trainers.inpainting3d import Inpainting3DTrainer
+    plain = Inpainting3DTrainer(ConfigParser(copy.deepcopy(cfg),
+                                             dry_run=True),
+                                device=device, impl="plain")
+    lr = plain.lr_fn(1)
+    first = None
+    for i, (graph, launched) in enumerate(zip(probe.graphs, probe.launches)):
+        with record_calls(train_targets()) as calls:
+            loss = float(plain._train_step(graph, lr)["loss"])
+            torch.cuda.synchronize()
+        first = loss if first is None else first
+        want = {k: len(v) for k, v in calls.items()}
+        got = dict(launched)
+        got["k2"] += got.pop("k2mg")
+        check(got == want, f"step {i}: launches {got} differ from the calls "
+              f"a plain-path step records on its batch {want}")
+    return first
+
+
+def trainer_readings(phase, trainer, probe, card):
+    """Print the run's trainer clock, loader build, placement wait, step
+    time and peak memory, each with the card."""
+    import torch
+    per_epoch = [t["train_s"] * 1e3 / t["steps"]
+                 for t in trainer.epoch_timings]
+    waits = [w for t in trainer.epoch_timings for w in t["wait_ms"]]
+    build = trainer.data_loader.train_loader.build_ms
+    step = probe.step_ms()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fmt = ", ".join
+    say(phase, f"trainer clock: ms/step by epoch (train loop time over "
+        f"steps) {fmt(f'{x:.2f}' for x in per_epoch)}; on {card}")
+    say(phase, f"loader build ms per train batch (prefetch thread) "
+        f"{fmt(f'{x:.2f}' for x in build)}, median "
+        f"{statistics.median(build):.2f}; on {card}")
+    say(phase, "wait on iter_placed ms per step "
+        f"{fmt(f'{x:.2f}' for x in waits)}, median "
+        f"{statistics.median(waits):.2f}; on {card}")
+    say(phase, f"step ms by CUDA events {fmt(f'{x:.2f}' for x in step)}, "
+        f"median {statistics.median(step):.2f}; on {card}")
+    say(phase, f"peak device memory {peak:.2f} GiB; on {card}")
+
+
+def trainer_phase(torch, card):
+    """The trainer phase: the port's CLI trains the production bf16 config
+    (full width and depth, windowed) on fabricated flagship scenes, resumes
+    it, evaluates it and serves its model_best; then trains the f32
+    reference config at --bs 2 with gradient accumulation."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.models.factory import define_G
+    counters = _train_counters()
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"   # the runs tag no commit
+    with tempfile.TemporaryDirectory(prefix="stinet_trainer_") as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        roots, val_scene = write_trainer_scenes(tmp)
+        cfg = trainer_config(tmp / "bf16.json", roots, tmp / "saved",
+                             BF16_CONFIG, TRAINER_EPOCHS)
+        say("trainer", f"3 flagship scenes written in "
+            f"{time.perf_counter() - t0:.1f} s; bf16 config: data roots and "
+            f"save_dir repointed, epochs {TRAINER_EPOCHS}, save_period 1; "
+            f"lr {cfg['optimizer']['args']['lr']}, the config's")
+
+        # --- the loader alone, then the bf16 run
+        from stinet_tpu_torch.data.scannet import ScanNetGraphColorDataLoader
+        alone = ScanNetGraphColorDataLoader(cfg["data_loader"]["args"])
+        for _ in alone.train_loader:
+            pass
+        say("trainer", "the loader alone (its prefetch thread, no step "
+            "running): build ms per train batch " + ", ".join(
+                f"{x:.2f}" for x in alone.train_loader.build_ms)
+            + f"; on {card}")
+        del alone
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_trainer(torch) as (probes, best):
+            trainer = cli.main(["-c", str(tmp / "bf16.json"), "-d", "cuda",
+                                "-n", "bf16"])
+        launches = _read(counters)
+        probe = probes[0]
+        check(all(launches[k] > 0 for k in ("k3a", "k3c", "k1", "k1dp",
+                                            "k1dq", "k2")),
+              f"a kernel of the bf16 train path never launched: {launches}")
+        losses = [float(x) for x in probe.losses]
+        steps = len(losses)
+        check(steps == 2 * TRAINER_EPOCHS, f"{steps} train steps")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        first_epoch, last_epoch = (statistics.mean(losses[:2]),
+                                   statistics.mean(losses[-2:]))
+        check(last_epoch < first_epoch, f"epoch-mean train loss "
+              f"{last_epoch} in the last epoch, {first_epoch} in the first")
+        plain_first = check_trainer_launches(torch, cfg, probe, "cuda")
+        rel = abs(losses[0] - plain_first) / abs(plain_first)
+        check(rel <= TRAIN_TOL, f"first loss {losses[0]} vs the plain-path "
+              f"trainer's {plain_first}: relative {rel:.3e} > {TRAIN_TOL}")
+        run = trainer.checkpoint_dir
+        names = [f"checkpoint-epoch{e}.ckpt"
+                 for e in range(1, TRAINER_EPOCHS + 1)] + ["model_best.ckpt"]
+        for name in names:
+            for f in (run / name, run / (name + ".meta.json")):
+                check(f.exists(), f"{f} was not written")
+        say("trainer", f"bf16 run: {steps} steps, losses "
+            f"{[round(x, 6) for x in losses]}; epoch-mean train loss "
+            f"{first_epoch:.6f} -> {last_epoch:.6f}; first loss "
+            f"{losses[0]:.6f} against the plain-path trainer's "
+            f"{plain_first:.6f} (relative {rel:.2e}); launches in the run "
+            f"{launches}; per step {probe.launches[0]}, each step equal to "
+            f"the plain path's recorded calls; model_best at epoch "
+            f"{best['epoch']}; {', '.join(names)} written")
+        trainer_readings("trainer", trainer, probe, card)
+        del trainer, probes
+
+        # --- resume from the last checkpoint for one more epoch
+        last = run / f"checkpoint-epoch{TRAINER_EPOCHS}.ckpt"
+        trainer_config(tmp / "bf16_more.json", roots, tmp / "saved",
+                       BF16_CONFIG, TRAINER_EPOCHS + 1)
+        with probed_trainer(torch, expect=last) as (probes, _):
+            resumed = cli.main(["-c", str(tmp / "bf16_more.json"), "-r",
+                                str(last), "-d", "cuda", "-n", "resume"])
+        epochs = [t["epoch"] for t in resumed.epoch_timings]
+        check(epochs == [TRAINER_EPOCHS + 1], f"resumed epochs {epochs}")
+        check(all(math.isfinite(float(x)) for x in probes[0].losses),
+              "non-finite resumed loss")
+        say("trainer", f"resume from {last.name}: epoch {epochs[0]} ran; "
+            "parameters and Adam state bitwise the file's before its first "
+            f"step; losses {[round(float(x), 6) for x in probes[0].losses]}")
+        del resumed, probes
+
+        # --- eval mode and serving from model_best
+        best_path = run / "model_best.ckpt"
+        evaluator = cli.main(["-r", str(best_path), "-e", "valid", "-d",
+                              "cuda", "-n", "eval"])
+        result = evaluator.valid_metrics.result()
+        check(all(math.isfinite(v) for v in result.values()),
+              f"eval metrics {result}")
+        say("trainer", "eval -e valid -r model_best.ckpt: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in result.items()))
+        del evaluator
+        args = cfg["archs"]["SurfaceTextureInpaintingNet"]["args"]
+        served = SceneInpainter.from_checkpoint(best_path, val_scene,
+                                                device="cuda", windowed=True)
+        direct = SceneInpainter(define_G(**args), best["weights"],
+                                device="cuda", windowed=True)
+        out = served.predict(val_scene)
+        err = float(abs(out - direct.predict(val_scene)).max())
+        check(out.shape == (val_scene.num_vertices[0], 3), f"{out.shape}")
+        check(err <= PATH_TOL, f"from_checkpoint vs the trainer's weights: "
+              f"max |diff| {err:.3e} > {PATH_TOL}")
+        say("trainer", f"from_checkpoint(model_best) serves the flagship "
+            f"scene windowed, {list(out.shape)}; against a server of the "
+            f"trainer's in-memory weights max |diff| {err:.3e}")
+        del served, direct
+
+        # --- the f32 reference config at --bs 2 with accumulation
+        f32 = trainer_config(tmp / "f32.json", roots, tmp / "saved",
+                             REF_CONFIG, F32_EPOCHS,
+                             num_cumulated_train_batches=F32_ACCUMULATE)
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_trainer(torch) as (probes, _):
+            trainer = cli.main(["-c", str(tmp / "f32.json"), "-d", "cuda",
+                                "-n", "f32", "--bs", "2"])
+        launches = _read(counters)
+        probe = probes[0]
+        check(all(launches[k] > 0 for k in ("k1", "k1dp", "k1dq", "k2",
+                                            "k2mg")),
+              f"a kernel of the f32 train path never launched: {launches}")
+        check(launches["k3a"] == launches["k3c"] == 0,
+              f"windowed kernels on the f32 ELL path: {launches}")
+        check(probe.mini_steps == [1, 0], f"accumulation mini-steps "
+              f"{probe.mini_steps}, expected [1, 0]")
+        check_trainer_launches(torch, f32, probe, "cuda")
+        losses = [float(x) for x in probe.losses]
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        say("trainer", f"f32 run at --bs 2, accumulation "
+            f"{F32_ACCUMULATE} (one optimizer step, after the second "
+            f"epoch's batch), full depth: losses "
+            f"{[round(x, 6) for x in losses]}; launches {launches}; per step "
+            f"{probe.launches}, equal to the plain path's recorded calls")
+        trainer_readings("trainer-f32", trainer, probe, card)
+
+
 # --- windowed f32 and batched serving ----------------------------------------
 
 def _counters():
@@ -1086,7 +1448,7 @@ def _read(counters):
 
 
 def serving_windowed(torch, card, scene, whost, weights, ref_out):
-    """Phase 8: the flagship f32 server with windowed=True. Every K3b call
+    """Phase 9: the flagship f32 server with windowed=True. Every K3b call
     of one plain-path forward is recorded and held bitwise against its
     plain version and against f32 K1 on the same inputs, each timed; one
     predict on the kernel path, counted; its output against the
@@ -1258,7 +1620,7 @@ def check_multigraph_k2(torch, calls):
 
 
 def serving_batched(torch, card, server, scene, first):
-    """Phase 9: predict_batch at B = BATCH (flagship scenes of seeds 0..B-1,
+    """Phase 10: predict_batch at B = BATCH (flagship scenes of seeds 0..B-1,
     one size, so one stacked layout) on the windowed f32 server, stacked
     and concatenated, each scene against its own forward; every
     multi-graph K2 call of the concatenated forward held against its
@@ -1528,8 +1890,11 @@ def main(argv=None):
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
 
-    # --- windowed f32 and batched serving
+    # --- the trainer and its CLI
     del train_model, wgraph, captured
+    trainer_phase(torch, card)
+
+    # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,
                                                 weights, out)
     k2mg, b_launches = serving_batched(

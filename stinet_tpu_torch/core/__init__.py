@@ -1,1 +1,2 @@
-"""Run-level machinery of the port: checkpoints."""
+"""Run-level machinery of the port: config and run directories, logging,
+registries, the TensorBoard writer and checkpoints."""

@@ -1,1 +1,2 @@
-"""Graph-domain quality metrics of the port."""
+"""Graph-domain quality metrics and the metric tracker of the port."""
+from stinet_tpu_torch.metrics.tracker import MetricTracker  # noqa: F401

@@ -134,13 +134,29 @@ class PackedPlacer:
     device. The placer keeps a ring of `slots` pinned buffers, used in
     turn; an event recorded after each copy guards its buffer from being
     refilled while the copy still reads it, so `slots` copies may be in
-    flight at once. On a CPU device the graph is moved leaf by leaf."""
+    flight at once. On a CPU device the graph is moved leaf by leaf.
 
-    def __init__(self, device: torch.device, slots: int = 1):
+    With a copy `stream`, each slot also owns the device buffer its copy
+    lands in, and the copy runs on that stream, beside the work on the
+    caller's stream. The caller then takes a slot's graph with `ready`
+    (its stream waits for the copy) and hands the slot back with `release`
+    once the work that reads the graph is enqueued; `pack` blocks until
+    the slot it takes has been handed back, and the copy into it waits on
+    the device for that work. So a buffer is never refilled while a
+    pending step still reads it, and a graph is valid until its slot is
+    released."""
+
+    def __init__(self, device: torch.device, slots: int = 1,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.device = device
         self._pinned = [None] * slots      # reusable pinned buffers (int32)
         self._copy_done = [None] * slots   # event after each one's last copy
         self._next = 0
+        self._stream = stream
+        if stream is not None:
+            self._device_bufs = [None] * slots
+            self._released = [None] * slots    # event after the last reader
+            self._free = threading.Semaphore(slots)
 
     def __call__(self, graph: HierarchicalGraph) -> HierarchicalGraph:
         return self.put(self.pack(graph))
@@ -148,6 +164,8 @@ class PackedPlacer:
     def pack(self, graph: HierarchicalGraph) -> _Packed:
         """Pack the leaves of `graph` into the next buffer of the ring,
         after that buffer's last copy has ended."""
+        if self._stream is not None:
+            self._free.acquire()
         slot = self._next
         self._next = (slot + 1) % len(self._pinned)
         if self.device.type != "cuda":
@@ -178,10 +196,24 @@ class PackedPlacer:
         the graph as views of the copy."""
         if self.device.type != "cuda":
             return packed.graph.to(self.device)
-        flat = self._pinned[packed.slot][:packed.total].to(
-            self.device, non_blocking=True)
+        src = self._pinned[packed.slot][:packed.total]
         event = torch.cuda.Event()
-        event.record()
+        if self._stream is None:
+            flat = src.to(self.device, non_blocking=True)
+            event.record()
+        else:
+            with torch.cuda.stream(self._stream):
+                if self._released[packed.slot] is not None:
+                    self._stream.wait_event(self._released[packed.slot])
+                # a buffer grown here is freed to this stream's pool after
+                # the wait above, so no reader of it is still pending
+                dbuf = self._device_bufs[packed.slot]
+                if dbuf is None or dbuf.numel() < packed.total:
+                    dbuf = self._device_bufs[packed.slot] = torch.empty(
+                        packed.total, dtype=torch.int32, device=self.device)
+                flat = dbuf[:packed.total]
+                flat.copy_(src, non_blocking=True)
+                event.record(self._stream)
         self._copy_done[packed.slot] = event
         offset = [0]
 
@@ -192,6 +224,20 @@ class PackedPlacer:
             return view
 
         return map_tensors(packed.graph, unpack)
+
+    def ready(self, slot: int) -> None:
+        """The caller's current stream waits for the copy into `slot`."""
+        if self._copy_done[slot] is not None:
+            torch.cuda.current_stream(self.device).wait_event(
+                self._copy_done[slot])
+
+    def release(self, slot: int) -> None:
+        """Hand `slot` back: the work enqueued so far on the caller's
+        current stream is the last that reads it."""
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._released[slot] = event
+        self._free.release()
 
 
 def _signature(graph: HierarchicalGraph):
@@ -302,9 +348,10 @@ class SceneInpainter:
     # -- inference -----------------------------------------------------
     @torch.inference_mode()
     def forward(self, graph: HierarchicalGraph) -> torch.Tensor:
-        """The generator on a graph already on the device."""
+        """The generator on a graph already on the device, in f32 (a
+        bf16 model's output is cast up)."""
         with full_f32_matmuls():
-            return self.model(graph, impl=self.impl)
+            return self.model(graph, impl=self.impl).float()
 
     @torch.inference_mode()
     def forward_stacked(self, graph: HierarchicalGraph) -> torch.Tensor:
@@ -482,21 +529,39 @@ class SceneInpainter:
     # -- construction --------------------------------------------------
     @classmethod
     def from_checkpoint(cls, ckpt_path, example_scene: RawHierarchy,
-                        arch_key: str = "graph",
-                        arch_overrides: Optional[dict] = None, **kw):
+                        arch_key: Optional[str] = None,
+                        arch_overrides: Optional[dict] = None,
+                        model_key: str = "graph", **kw):
         """A server for the generator of a port checkpoint
         (core/checkpoint.py): the model rebuilt from the config in its
         meta sidecar, its weights restored, then warmed up on
-        `example_scene`. `arch_overrides` changes arch arguments against
-        the training config (e.g. dtype="bfloat16"); `kw` goes to the
-        constructor."""
+        `example_scene`.
+
+        The weights are `state_dicts[model_key]`. The arch arguments are
+        the config's `archs[arch_key]`; by default `arch_key` is the arch
+        the sidecar names for `model_key` (the trainer's checkpoints:
+        model "graph", arch "SurfaceTextureInpaintingNet") where the
+        config has that entry, else `model_key` itself (a config whose arch
+        is named after the model). `arch_overrides` changes arch arguments
+        against the training config (e.g. dtype="bfloat16"); `kw` goes to
+        the constructor.
+
+        The warmup is kept on purpose: it builds and loads the kernels,
+        fills the allocator's caches and settles the table widths before
+        the first live request. The JAX server takes `example_scene` for
+        its parameter template instead, which a torch model does not
+        need."""
         from stinet_tpu_torch.core.checkpoint import load_model_params
         from stinet_tpu_torch.models.factory import define_G
         with open(str(ckpt_path) + ".meta.json") as f:
             meta = json.load(f)
-        args = dict(meta["config"]["archs"][arch_key]["args"])
+        archs = meta["config"]["archs"]
+        if arch_key is None:
+            named = meta["archs"].get(model_key)
+            arch_key = named if named in archs else model_key
+        args = dict(archs[arch_key]["args"])
         args.update(arch_overrides or {})
-        server = cls(define_G(**args), load_model_params(ckpt_path, arch_key),
+        server = cls(define_G(**args), load_model_params(ckpt_path, model_key),
                      **kw)
         server.warmup([example_scene])
         return server

@@ -1,6 +1,7 @@
 """Training machinery of the graph models: the optimizer from a config's
 `optimizer` block, the epoch -> learning-rate schedules, the inpainting
-loss and metrics, and the train / eval step factory.
+loss and metrics, the train / eval step factory with gradient
+accumulation, and the placement of a loader's batches on the device.
 
 PyTorch counterpart of `stinet_tpu/trainers/graph_common.py`. The JAX
 package writes torch's Adam(amsgrad=True) out by hand
@@ -14,9 +15,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from stinet_tpu_torch.data.prefetch import PrefetchIterator
 from stinet_tpu_torch.graph.hierarchy import HierarchicalGraph
 from stinet_tpu_torch.metrics import graph_metrics as gm
-from stinet_tpu_torch.serving import full_f32_matmuls
+from stinet_tpu_torch.serving import PackedPlacer, full_f32_matmuls
 
 
 def build_optimizer(params, opt_config: Dict):
@@ -182,32 +184,73 @@ def inpainting_metrics(composite, graph: HierarchicalGraph, loss):
     }
 
 
-def make_inpainting_steps(model, optimizer, use_mask_weighted, impl=None):
+class _TrainStep:
+    """train_step(graph, lr) -> metrics of `make_inpainting_steps`, with
+    gradient accumulation over `accumulate` calls: each call backpropagates
+    loss / accumulate into the parameters' gradients, and every
+    accumulate-th call takes one optimizer step at its `lr` and clears
+    them (optax.MultiSteps, which the JAX trainer uses, steps on the mean
+    of the gradients; this is the same sum). The partial sum carries over
+    from call to call, so over an epoch's end as well; `state` and
+    `load_state` hold it for checkpoints."""
+
+    def __init__(self, model, optimizer, loss_of, accumulate):
+        self.model, self.optimizer = model, optimizer
+        self.loss_of, self.accumulate = loss_of, int(accumulate)
+        self.mini_step = 0
+
+    def __call__(self, graph, lr):
+        self.model.train()
+        with full_f32_matmuls():
+            if self.mini_step == 0:
+                self.optimizer.zero_grad(set_to_none=True)
+            loss, composite = self.loss_of(graph)
+            (loss / self.accumulate if self.accumulate > 1
+             else loss).backward()
+            self.mini_step = (self.mini_step + 1) % self.accumulate
+            if self.mini_step == 0:
+                for group in self.optimizer.param_groups:
+                    group["lr"] = float(lr)
+                self.optimizer.step()
+            with torch.no_grad():
+                return inpainting_metrics(composite.detach(), graph,
+                                          loss.detach())
+
+    def state(self):
+        """{"mini_step": calls since the last optimizer step, "grads":
+        {parameter name: its partial gradient sum}} (no grads at 0)."""
+        grads = {}
+        if self.mini_step:
+            grads = {k: p.grad.detach().clone()
+                     for k, p in self.model.named_parameters()
+                     if p.grad is not None}
+        return {"mini_step": self.mini_step, "grads": grads}
+
+    def load_state(self, state):
+        self.mini_step = int(state["mini_step"])
+        if self.mini_step >= self.accumulate:
+            raise ValueError(f"{self.mini_step} accumulated calls saved, "
+                             f"the optimizer steps every {self.accumulate}")
+        for k, p in self.model.named_parameters():
+            g = state["grads"].get(k)
+            p.grad = None if g is None else g.to(p.device, p.dtype).clone()
+
+
+def make_inpainting_steps(model, optimizer, use_mask_weighted, impl=None,
+                          accumulate=1):
     """(train_step, eval_step) over graphs already on the model's device.
 
-    train_step(graph, lr) -> metrics: one forward, the loss, one backward
-    and one optimizer step at learning rate `lr`; eval_step(graph) ->
-    (metrics, composite) without gradients. Metrics are detached 0-d
-    tensors, so a step does not wait for the device. f32 matmuls run in
-    full f32 (TF32 off), as the JAX f32 model's do; `impl` is passed to the
-    model (None: kernels on a CUDA graph)."""
+    train_step(graph, lr) -> metrics: one forward, the loss and one
+    backward, then one optimizer step at learning rate `lr` every
+    `accumulate` calls (`_TrainStep`); eval_step(graph) -> (metrics,
+    composite) without gradients. Metrics are detached 0-d tensors, so a
+    step does not wait for the device. f32 matmuls run in full f32 (TF32
+    off), as the JAX f32 model's do; `impl` is passed to the model (None:
+    kernels on a CUDA graph)."""
     def loss_of(graph):
         out = model(graph, impl=impl)
         return inpainting_loss(out, graph.color, graph.mask,
                                vertex_mask(graph), use_mask_weighted)
-
-    def train_step(graph, lr):
-        model.train()
-        with full_f32_matmuls():
-            optimizer.zero_grad(set_to_none=True)
-            loss, composite = loss_of(graph)
-            loss.backward()
-            for group in optimizer.param_groups:
-                group["lr"] = float(lr)
-            optimizer.step()
-            with torch.no_grad():
-                return inpainting_metrics(composite.detach(), graph,
-                                          loss.detach())
 
     def eval_step(graph):
         model.eval()
@@ -215,4 +258,56 @@ def make_inpainting_steps(model, optimizer, use_mask_weighted, impl=None):
             loss, composite = loss_of(graph)
             return inpainting_metrics(composite, graph, loss), composite
 
-    return train_step, eval_step
+    return _TrainStep(model, optimizer, loss_of, accumulate), eval_step
+
+
+def host_metrics(metrics) -> Dict[str, float]:
+    """A step's metric dict as Python floats, in ONE device-to-host copy."""
+    values = torch.stack([v.detach().to(torch.float32).reshape(())
+                          for v in metrics.values()]).cpu().tolist()
+    return dict(zip(metrics, values))
+
+
+def iter_placed(batches, device: torch.device, slots: int = 3):
+    """Iterate (graph, names) pairs of host graphs with the graphs already
+    on `device`.
+
+    On a card a thread packs and copies batch i+1 on a copy stream while
+    the caller's step i runs, through a `PackedPlacer` ring of `slots`
+    buffers: the caller's stream waits for each copy before the batch is
+    handed out, and a slot goes back to the ring only when the caller asks
+    for the next batch, so its buffer is not refilled while a step still
+    reads it. A yielded graph is valid until then. At most `slots` batches
+    are placed at once (one in the caller's hands, `slots` - 2 queued, one
+    in the placing thread). On a CPU device each graph is moved in the
+    caller's thread. When the caller stops early, the placing thread and
+    the loader's own prefetch (`batches`' iterator, where it has `close`)
+    are stopped."""
+    src = iter(batches)
+    try:
+        if device.type != "cuda":
+            for graph, names in src:
+                yield graph.to(device), names
+            return
+        placer = PackedPlacer(device, slots=slots,
+                              stream=torch.cuda.Stream(device))
+
+        def placed():
+            for graph, names in src:
+                packed = placer.pack(graph)
+                yield placer.put(packed), names, packed.slot
+
+        it = PrefetchIterator(placed(), buffer_size=slots - 2)
+        try:
+            for graph, names, slot in it:
+                placer.ready(slot)
+                yield graph, names
+                placer.release(slot)
+        finally:
+            it.close()
+            # wake a placing thread parked on the ring; what it may still
+            # copy waits on the device for the work enqueued so far
+            for slot in range(slots):
+                placer.release(slot)
+    finally:
+        getattr(src, "close", lambda: None)()

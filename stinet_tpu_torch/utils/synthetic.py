@@ -9,6 +9,7 @@ topology: planar-like connectivity, bounded degree, local decimation
 traces, dilation edges at graph distance ~d. Vertex ids are SHUFFLED before
 return so nothing downstream relies on the construction order.
 """
+import os
 from typing import Sequence
 
 import numpy as np
@@ -142,3 +143,35 @@ def synthetic_scene(num_vertices: int = 65536, levels: int = 3,
         x=x.astype(np.float32), color=color, mask=mask,
         num_vertices=nv, level_edges=edges, traces=traces,
         dilated=dilated, name=name)
+
+
+def write_loader_scene(root: str, name: str, scene: RawHierarchy,
+                       mask_name: str = "rad_16") -> None:
+    """Write `scene` in the on-disk format of the ScanNet loader
+    (data/scannet.py): `graphs/<name>.npz` with per-level vertices (level
+    0 carries positions, colors mapped back to [0, 1] and normals), edges,
+    traces (traces_0 the identity), dilated edge sets, num_levels and
+    dilation_dists, and one mask set `masks/<mask_name>/<name>/0.npz`."""
+    levels = len(scene.num_vertices)
+    dists = sorted({int(d) for per in scene.dilated.values() for d in per})
+    arrays = {"num_levels": levels, "dilation_dists": np.array(dists)}
+    for l, v in enumerate(scene.num_vertices):
+        verts = np.zeros((v, 10), np.float32)
+        if l == 0:
+            verts[:, 0:3] = scene.x[:, 6:9]
+            verts[:, 3:6] = (scene.color + 1.0) / 2.0
+            verts[:, 6:9] = scene.x[:, 3:6]
+        verts[:, 9] = np.arange(v)
+        arrays[f"vertices_{l}"] = verts
+        arrays[f"edges_{l}"] = scene.level_edges[l]
+        for d, e in scene.dilated.get(l, {}).items():
+            arrays[f"dil_{int(d)}_edges_{l}"] = e
+    arrays["traces_0"] = np.arange(scene.num_vertices[0])
+    for l, t in enumerate(scene.traces):
+        arrays[f"traces_{l + 1}"] = t
+    os.makedirs(os.path.join(root, "graphs"), exist_ok=True)
+    np.savez(os.path.join(root, "graphs", name + ".npz"), **arrays)
+    mask_dir = os.path.join(root, "masks", mask_name, name)
+    os.makedirs(mask_dir, exist_ok=True)
+    np.savez(os.path.join(mask_dir, "0.npz"),
+             vertex_mask=scene.mask[:, 0].astype(np.float32))

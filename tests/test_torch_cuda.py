@@ -9,6 +9,7 @@ tests/test_torch_ops.py and tests/test_torch_model.py). Run on a card with
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -925,3 +926,36 @@ def test_bf16_train_step_kernel_path_matches_plain_path(dev):
             impl is None)
     assert np.isfinite(losses).all()
     assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
+
+
+def test_iter_placed_never_refills_a_buffer_a_pending_step_reads(dev):
+    """Batches of one shape through a ring of 3 slots, each read by a step
+    that first sleeps on the stream (about 10 ms): the placing thread runs
+    ahead of the card, and every batch still reads back as its host graph.
+    Stopping early ends the placing thread."""
+    import dataclasses
+    import threading
+    base = build_hierarchical_graph([synthetic_scene(
+        num_vertices=4096, levels=3, seed=0, dilation_dists=(2,))])
+    graphs = [dataclasses.replace(base, x=base.x + i) for i in range(9)]
+    read = []
+    batches = [(g, [str(i)]) for i, g in enumerate(graphs)]
+    for graph, names in gc.iter_placed(batches, dev, slots=3):
+        torch.cuda._sleep(20_000_000)
+        read.append((names, graph.x.clone(),
+                     graph.levels[0].edges.nbr.clone()))
+    torch.cuda.synchronize()
+    assert [n for n, _, _ in read] == [[str(i)] for i in range(9)]
+    for (_, x, nbr), g in zip(read, graphs):
+        assert torch.equal(x.cpu(), g.x)
+        assert torch.equal(nbr.cpu(), g.levels[0].edges.nbr)
+
+    threads = threading.active_count()
+    it = gc.iter_placed(batches, dev, slots=3)
+    next(it)
+    it.close()
+    for _ in range(50):
+        if threading.active_count() <= threads:
+            break
+        time.sleep(0.1)
+    assert threading.active_count() <= threads
