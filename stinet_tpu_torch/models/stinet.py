@@ -19,13 +19,16 @@ Activation checkpointing (`torch.utils.checkpoint`, non-reentrant) sits where
 the JAX model puts `nn.remat`: on the io, encoder and decoder blocks when
 `remat_io_blocks`, and on the bottleneck blocks per `checkpoint_bottleneck`
 and `num_blocks_per_uncheckpointed_block`. It acts only when gradients are
-recorded; a checkpointed block runs its forward again in the backward.
+recorded; a checkpointed block runs its forward again in the backward, and
+the batch norm moves its running statistics in the first run only.
 
 `impl` (None | "plain") is passed down to the ops: None runs the CUDA
 kernels on a CUDA graph and the plain versions on a CPU graph; "plain"
 forces the plain versions.
 """
+import contextlib
 import math
+import threading
 from typing import Optional, Sequence
 
 import torch
@@ -37,7 +40,9 @@ from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph)
 from stinet_tpu_torch.ops.ell import ell_pool_max, ell_pool_mean, ell_unpool
 from stinet_tpu_torch.ops.message_passing import edge_conv_aggregate
-from stinet_tpu_torch.ops.norms import masked_instance_norm
+from stinet_tpu_torch.ops.norms import (
+    _valid_weight, masked_batch_norm_stats, masked_graph_norm,
+    masked_instance_norm)
 from stinet_tpu_torch.ops.segment import segment_max, segment_mean
 
 
@@ -59,26 +64,89 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
 
 
+_recompute = threading.local()
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Marks a checkpointed block's second forward (in the backward), so
+    the batch norm updates its running statistics once a step, as the JAX
+    model's nn.remat does."""
+    prev = getattr(_recompute, "on", False)
+    _recompute.on = True
+    try:
+        yield
+    finally:
+        _recompute.on = prev
+
+
 class GraphNormLayer(nn.Module):
-    """Norm dispatcher: 'instance' (affine-free, per graph, masked) or
-    'none'. The graph and batch norms are not ported yet."""
+    """Norm dispatcher (stinet_tpu/models/stinet.py:40-102), masked:
+
+    - 'instance': affine-free, per graph (the CUDA kernel on a card);
+    - 'graph': GraphNorm per graph with `weight`, `bias` and `mean_scale`
+      (the reference's SingleBatchGraphNorm keys);
+    - 'batch': PyG's BatchNorm over every valid row, its parameters and
+      buffers in `module` (an nn.BatchNorm1d used as their holder only, so
+      the keys are the reference's `module.{weight, bias, running_mean,
+      running_var, num_batches_tracked}`). In training mode it normalizes
+      by the batch's mean and biased variance and moves the running ones by
+      `momentum`, the variance unbiased with n = max(valid rows, 2); in eval
+      mode it normalizes by the running ones;
+    - 'none'.
+
+    Statistics are f32 and the output takes the input's dtype."""
 
     def __init__(self, features: int, norm_type: str = "instance",
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
-        if norm_type not in ("instance", "none"):
-            raise NotImplementedError(f"norm type {norm_type!r} is not "
-                                      "ported yet")
-        self.features, self.norm_type, self.eps = features, norm_type, eps
+        if norm_type not in ("instance", "graph", "batch", "none"):
+            raise NotImplementedError(f"norm type {norm_type!r}")
+        self.features, self.norm_type = features, norm_type
+        self.eps, self.momentum = eps, momentum
+        if norm_type == "graph":
+            self.weight = nn.Parameter(torch.ones(features))
+            self.bias = nn.Parameter(torch.zeros(features))
+            self.mean_scale = nn.Parameter(torch.ones(features))
+        elif norm_type == "batch":
+            self.module = nn.BatchNorm1d(features, eps=eps,
+                                         momentum=momentum)
 
     def forward(self, x, level: GraphLevel, num_graphs: int, impl=None):
         # statistics in >= f32 (bf16 means over 10^5 rows drift)
         if self.norm_type == "none":
             return x
         xa = x.to(torch.promote_types(x.dtype, torch.float32))
-        return masked_instance_norm(xa, level.graph_id, num_graphs,
-                                    level.num_vertices, eps=self.eps,
-                                    impl=impl).to(x.dtype)
+        if self.norm_type == "instance":
+            out = masked_instance_norm(xa, level.graph_id, num_graphs,
+                                       level.num_vertices, eps=self.eps,
+                                       impl=impl)
+        elif self.norm_type == "graph":
+            out = masked_graph_norm(xa, level.graph_id, num_graphs,
+                                    level.num_vertices, self.weight,
+                                    self.bias, self.mean_scale, eps=self.eps)
+        else:
+            out = self._batch_norm(xa, level.num_vertices)
+        return out.to(x.dtype)
+
+    def _batch_norm(self, x, num_valid):
+        bn = self.module
+        if self.training:
+            mean, var = masked_batch_norm_stats(x, num_valid)
+            if not getattr(_recompute, "on", False):
+                with torch.no_grad():
+                    n = torch.clamp(torch.as_tensor(
+                        num_valid, device=x.device).to(x.dtype), min=2.0)
+                    m = self.momentum
+                    bn.running_mean.mul_(1 - m).add_(m * mean)
+                    unbiased = var * n / (n - 1.0)
+                    bn.running_var.mul_(1 - m).add_(m * unbiased)
+                    bn.num_batches_tracked.add_(1)
+        else:
+            mean, var = bn.running_mean, bn.running_var
+        inv = torch.rsqrt(var + self.eps)
+        return ((x - mean) * inv * bn.weight + bn.bias) * _valid_weight(
+            x, num_valid)
 
 
 class EdgeConvFilter(nn.Module):
@@ -161,7 +229,9 @@ class GraphResnetBlock(nn.Module):
             # no random draws inside a block: nothing to replay
             return checkpoint(self._forward, x, edges, level, num_graphs,
                               impl, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False,
+                              context_fn=lambda: (contextlib.nullcontext(),
+                                                  _recomputing()))
         return self._forward(x, edges, level, num_graphs, impl)
 
     def _forward(self, x, edges, level, num_graphs, impl):

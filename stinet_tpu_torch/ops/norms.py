@@ -1,4 +1,4 @@
-"""Masked per-graph instance norm.
+"""Masked per-graph instance norm, and the graph and batch norms' statistics.
 
 PyTorch counterpart of `masked_instance_norm` in `stinet_tpu/ops/norms.py`:
 per-graph, per-channel standardization over the valid rows, with the
@@ -105,6 +105,36 @@ def masked_instance_norm_plain(x, graph_id, num_graphs, num_valid, eps=1e-5):
     centered = (xa - rows(mean)) * w
     var = total(centered * centered) / n
     return (centered * rows((var + eps) ** -0.5)).to(x.dtype)
+
+
+def masked_graph_norm(x, graph_id, num_graphs, num_valid, weight, bias,
+                      mean_scale, eps=1e-5):
+    """GraphNorm with a learned mean scale a (stinet_tpu/ops/norms.py:
+    107-133): out = weight * (x - a*mean) / sqrt(E[(x - a*mean)^2] + eps)
+    + bias per graph and channel over the valid rows. The variance is the
+    UNcentered second moment of x - a*mean, as in the reference. Pad rows
+    are 0. Plain torch ops (XLA in JAX); autograd gives the gradient."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    w = _valid_weight(x, num_valid)
+    xa = x.to(acc)
+    total, rows = _per_graph(graph_id, num_graphs, acc)
+    n = torch.clamp(total(w), min=1.0)
+    mean = total(xa * w) / n
+    out = (xa - rows(mean) * mean_scale) * w
+    var = total(out * out) / n
+    out = out * rows((var + eps) ** -0.5)
+    return ((weight * out + bias) * w).to(x.dtype)
+
+
+def masked_batch_norm_stats(x, num_valid):
+    """(mean [C], biased variance [C]) over every valid row, whatever graph
+    it is in (PyG's BatchNorm normalizes over the whole node dimension;
+    stinet_tpu/ops/norms.py:136-144). Plain torch ops."""
+    w = _valid_weight(x, num_valid).to(x.dtype)
+    n = torch.clamp(w.sum(), min=1.0)
+    mean = (x * w).sum(0) / n
+    centered = (x - mean) * w
+    return mean, (centered * centered).sum(0) / n
 
 
 # The kernel's layout (ops/cuda/instance_norm.cu keeps the same numbers):

@@ -14,10 +14,17 @@ dict, whose keys are the reference checkpoint's. Flax Dense kernels are
   final_linear{1,2}/{kernel,bias}    -> final_linear{1,2}.{weight,bias}
 
 with <b> one of input_block, encoder_block, bottleneck_block, decoder_block,
-output_block.
+output_block. The norms (`<n>` = <b>s.{i}.first_norm or final_norm1; the
+JAX model's own names, stinet_tpu/models/stinet.py:71-86):
 
-Only the parameters of the ported layers convert (instance norm has none);
-anything else raises rather than being dropped.
+  graph: <N>/{weight,bias,mean_scale} -> <n>.{weight,bias,mean_scale}
+  batch: <N>/scale                    -> <n>.module.weight
+         <N>/bias                     -> <n>.module.bias
+         batch_stats <N>/{mean,var}   -> <n>.module.running_{mean,var}
+
+and every batch norm gets `<n>.module.num_batches_tracked` = 0 (JAX keeps
+no count; with a fixed momentum nothing reads it). Instance norm has no
+parameters. Anything else raises rather than being dropped.
 """
 from typing import Dict
 
@@ -31,7 +38,7 @@ _BLOCKS = {"input_block": "input_blocks", "encoder_block": "encoder_blocks",
 
 def _tensor(a, transpose: bool) -> torch.Tensor:
     a = np.asarray(a, dtype=np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a.T if transpose else a))
+    return torch.tensor(np.ascontiguousarray(a.T if transpose else a))
 
 
 def _dense(prefix: str, leaves: Dict, out: Dict) -> None:
@@ -44,13 +51,36 @@ def _dense(prefix: str, leaves: Dict, out: Dict) -> None:
             raise ValueError(f"unexpected Dense leaf {prefix}/{name}")
 
 
-def state_dict_from_jax_params(params) -> Dict[str, torch.Tensor]:
-    """Flax params of a `stinet_tpu` SurfaceTextureInpaintingNet -> the
-    port's state dict (CPU float32 tensors)."""
+def _norm(prefix: str, leaves: Dict, stats: Dict, out: Dict) -> None:
+    if "scale" in leaves:   # batch norm: PyG's wrapper keeps `module`
+        m = f"{prefix}.module"
+        if "mean" not in stats or "var" not in stats:
+            raise ValueError(f"batch norm {prefix} needs its batch_stats")
+        names = {"scale": f"{m}.weight", "bias": f"{m}.bias"}
+        out[f"{m}.running_mean"] = _tensor(stats["mean"], False)
+        out[f"{m}.running_var"] = _tensor(stats["var"], False)
+        out[f"{m}.num_batches_tracked"] = torch.tensor(0)
+    else:
+        names = {k: f"{prefix}.{k}" for k in ("weight", "bias", "mean_scale")}
+    for name, val in leaves.items():
+        if name not in names:
+            raise ValueError(f"unexpected norm leaf {prefix}/{name}")
+        out[names[name]] = _tensor(val, False)
+
+
+def state_dict_from_jax_params(params, batch_stats=None
+                               ) -> Dict[str, torch.Tensor]:
+    """Flax params (and, for norm="batch", the `batch_stats` collection) of
+    a `stinet_tpu` SurfaceTextureInpaintingNet -> the port's state dict
+    (CPU tensors, float32 but for the batch counts)."""
+    batch_stats = batch_stats or {}
     out = {}
     for top, sub in params.items():
         if top in ("final_linear1", "final_linear2"):
             _dense(top, sub, out)
+            continue
+        if top == "final_norm1":
+            _norm(top, sub, batch_stats.get(top, {}), out)
             continue
         kind, _, idx = top.rpartition("_")
         if kind not in _BLOCKS or not idx.isdigit():
@@ -59,6 +89,9 @@ def state_dict_from_jax_params(params) -> Dict[str, torch.Tensor]:
         for name, leaves in sub.items():
             if name == "shortcut":
                 _dense(f"{prefix}.shortcut", leaves, out)
+            elif name == "first_norm":
+                _norm(f"{prefix}.first_norm", leaves,
+                      batch_stats.get(top, {}).get(name, {}), out)
             elif name == "first_filter":
                 ff = f"{prefix}.first_filter.nn"
                 for leaf, val in leaves.items():

@@ -188,8 +188,6 @@ def test_init_is_drawn_from_the_generator():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        define_G(**{**CFG, "norm": "batch"})
-    with pytest.raises(NotImplementedError):
         define_G(**{**CFG, "filter_type": "sageconv"})
     with pytest.raises(NotImplementedError):
         define_G(**CFG, use_label_embedding=True)
