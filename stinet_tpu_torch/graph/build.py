@@ -1,10 +1,15 @@
-"""Host-side (numpy) construction of padded `HierarchicalGraph`s.
+"""Host-side construction of padded `HierarchicalGraph`s.
 
-A numpy-only copy of `stinet_tpu/graph/build.py` (the RCM reorder takes
-scipy's `reverse_cuthill_mckee`, not the JAX package's native one), which
-the tests hold leaf for leaf against the JAX package's builder.
-Graphs are batched by concatenation with vertex-offset shifts, then padded
-up to bucket shapes; every edge set gets hybrid ELL(+COO spill) tables.
+A copy of `stinet_tpu/graph/build.py`, which the tests hold leaf for leaf
+against the JAX package's builder. Graphs are batched by concatenation
+with vertex-offset shifts, then padded up to bucket shapes; every edge set
+gets hybrid ELL(+COO spill) tables.
+
+The edge-set tables and the children tables run in C++ (`graph/native`,
+the JAX package's `graph_builder.cpp` through ctypes, with the interpreter
+lock released), dispatched as the JAX package dispatches them.
+`STINET_NATIVE_BUILD=0` takes the numpy bodies here instead, which stay as
+the tests' oracle. The RCM reorder of a windowed build takes scipy's.
 The result holds CPU tensors that share memory with the numpy arrays;
 `HierarchicalGraph.to(device)` moves them.
 """
@@ -16,6 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from stinet_tpu_torch.graph import native as _native
 from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph, map_tensors, tensor_leaves,
     tree_structure)
@@ -164,7 +170,11 @@ def _build_children(trace, num_valid_fine, coarse_pad, fine_trash,
                     max_children=128):
     """Children table (coarse vertex -> its valid fine vertices) for
     gather-only pooling. Returns (children [Vc, C] int32, counts [Vc] f32),
-    or (None, None) when a cluster exceeds max_children."""
+    or (None, None) when a cluster exceeds max_children. Native unless
+    STINET_NATIVE_BUILD=0."""
+    if num_valid_fine > 0 and _native.available():
+        return _native.build_children_table(
+            trace, num_valid_fine, coarse_pad, fine_trash, max_children)
     tv = trace[:num_valid_fine].astype(np.int64)
     counts = np.bincount(tv, minlength=coarse_pad)
     cmax = int(counts.max()) if num_valid_fine else 0
@@ -189,10 +199,20 @@ def _pad_edge_set(edges: np.ndarray, e_pad: int, trash: int, v_pad: int,
                   window_halo: Optional[int] = None) -> EdgeSet:
     """Sort a [2, E] COO edge array by destination, pad it to e_pad with
     trash self-edges, and add the valid in-degree and the ELL tables
-    (banded to `window_halo` when given)."""
+    (banded to `window_halo` when given). Native unless
+    STINET_NATIVE_BUILD=0."""
     src, dst = np.asarray(edges[0]), np.asarray(edges[1])
     if src.shape[0] > e_pad:
         raise ValueError(f"edge bucket too small: {src.shape[0]} > {e_pad}")
+    if src.shape[0] > 0 and _native.available():
+        fields = _native.build_edge_set_tables(
+            src, dst, e_pad, trash, v_pad, ell_max_degree, cap_quantile,
+            max_spill_frac=0.25, window_halo=window_halo,
+            bucket=bucket_size)
+        e = int(fields.pop("num_edges"))
+        return EdgeSet(num_edges=torch.tensor(e, dtype=torch.int32),
+                       **{k: v if k == "halo" else _t(v)
+                          for k, v in fields.items()})
     order = _stable_argsort_int(dst)
     src, dst = src[order], dst[order]
     e = src.shape[0]

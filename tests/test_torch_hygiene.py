@@ -94,3 +94,14 @@ def test_ctypes_signatures_match_the_c_launchers(source):
     assert signatures and set(signatures) <= set(declared)
     for fn, argtypes in signatures.items():
         assert argtypes == declared[fn], fn
+
+
+def test_native_builder_compiles_the_ports_own_source():
+    """graph/native builds and loads its own copy of graph_builder.cpp
+    into stinet_tpu_torch/_build/, never the JAX package's file or
+    library, and its binding is among the sources checked above."""
+    from stinet_tpu_torch.graph import native
+    assert PORT / "graph" / "native" / "__init__.py" in _port_sources()
+    assert native.SRC == PORT / "graph" / "native" / "graph_builder.cpp"
+    assert native.lib_path().parent == PORT / "_build"
+    assert pathlib.Path(native.get_lib()._name).parent == PORT / "_build"
