@@ -5,11 +5,11 @@ against the JAX package's builder. Graphs are batched by concatenation
 with vertex-offset shifts, then padded up to bucket shapes; every edge set
 gets hybrid ELL(+COO spill) tables.
 
-The edge-set tables and the children tables run in C++ (`graph/native`,
-the JAX package's `graph_builder.cpp` through ctypes, with the interpreter
-lock released), dispatched as the JAX package dispatches them.
-`STINET_NATIVE_BUILD=0` takes the numpy bodies here instead, which stay as
-the tests' oracle. The RCM reorder of a windowed build takes scipy's.
+The edge-set tables, the children tables and the RCM order of a windowed
+build run in C++ (`graph/native`, the JAX package's `graph_builder.cpp`
+through ctypes, with the interpreter lock released), dispatched as the JAX
+package dispatches them. `STINET_NATIVE_BUILD=0` takes the numpy bodies
+here instead (and scipy's RCM), which stay as the tests' oracle.
 The result holds CPU tensors that share memory with the numpy arrays;
 `HierarchicalGraph.to(device)` moves them.
 """
@@ -236,15 +236,20 @@ def _pad_edge_set(edges: np.ndarray, e_pad: int, trash: int, v_pad: int,
 
 
 def rcm_perm(edges: np.ndarray, nv: int):
-    """Reverse-Cuthill-McKee ordering of one level (scipy's
-    `reverse_cuthill_mckee`): returns ``(order, inv)`` with
-    ``order[new_id] = old_id`` and ``inv[old_id] = new_id``."""
-    from scipy.sparse import csr_matrix
-    from scipy.sparse.csgraph import reverse_cuthill_mckee
-    ones = np.ones(edges.shape[1], np.int8)
-    adj = csr_matrix((ones, (edges[0], edges[1])), shape=(nv, nv))
-    order = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=False),
-                       np.int64)
+    """Reverse-Cuthill-McKee ordering of one level: returns ``(order,
+    inv)`` with ``order[new_id] = old_id`` and ``inv[old_id] = new_id``.
+    The native RCM, or scipy's `reverse_cuthill_mckee` under
+    STINET_NATIVE_BUILD=0: the two may break ties another way, and either
+    is a pure relabelling."""
+    if _native.available():
+        order = _native.rcm_order(edges, nv).astype(np.int64)
+    else:
+        from scipy.sparse import csr_matrix
+        from scipy.sparse.csgraph import reverse_cuthill_mckee
+        ones = np.ones(edges.shape[1], np.int8)
+        adj = csr_matrix((ones, (edges[0], edges[1])), shape=(nv, nv))
+        order = np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=False),
+                           np.int64)
     inv = np.empty(nv, np.int64)
     inv[order] = np.arange(nv)
     return order, inv

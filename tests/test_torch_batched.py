@@ -106,6 +106,16 @@ def test_table_widths_and_padding_match_jax(scipy_rcm, windowed):
 def test_build_stacked_graph_matches_jax(scipy_rcm, windowed):
     """Three scenes of one bucket, of two sizes: the stacked graph, leaf
     for leaf, and the widths."""
+    _stacked_graph_matches_jax(windowed)
+
+
+def test_native_windowed_stacked_graph_matches_jax_native():
+    """The same, windowed, with both native builders (one C++ RCM)."""
+    assert port_build._native.available() and jax_build._native.available()
+    _stacked_graph_matches_jax(True)
+
+
+def _stacked_graph_matches_jax(windowed):
     ref_scenes, scenes = _scenes((1500, 1400, 1500), (0, 1, 2))
     kw = dict(geometric=True, windowed=windowed)
     ref, ref_w = jax_build.build_stacked_graph(ref_scenes, **kw)

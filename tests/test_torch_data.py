@@ -277,9 +277,22 @@ def test_loader_matches_jax_leaf_for_leaf(tmp_path, scene_roots, monkeypatch,
                                           batch, windowed):
     """Two epochs of train and val batches (the train set shuffled and
     augmented by RandomLinearTransformation and RandomRotation): every
-    batch equal leaf for leaf, with the same scene names. The JAX
-    builder's RCM goes through scipy, as the port's."""
+    batch equal leaf for leaf, with the same scene names. Both builders
+    take their numpy paths, RCM through scipy."""
     monkeypatch.setattr(jax_build._native, "available", lambda: False)
+    monkeypatch.setattr(port_build._native, "available", lambda: False)
+    _loader_matches_jax(tmp_path, scene_roots, batch, windowed)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_native_windowed_loader_matches_jax_native(tmp_path, scene_roots,
+                                                   batch):
+    """The windowed batches with both native builders (one C++ RCM)."""
+    assert port_build._native.available() and jax_build._native.available()
+    _loader_matches_jax(tmp_path, scene_roots, batch, True)
+
+
+def _loader_matches_jax(tmp_path, scene_roots, batch, windowed):
     kind = "grid" if windowed else "random"
     args = _loader_config(tmp_path, scene_roots, kind, batch, windowed)
     want = jax_scannet.ScanNetGraphColorDataLoader(copy.deepcopy(args),

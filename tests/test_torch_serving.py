@@ -17,12 +17,14 @@ import pytest
 import torch
 from test_torch_windowed import scipy_rcm  # noqa: F401 (a fixture)
 
+from stinet_tpu.graph import native as jax_native
 from stinet_tpu.graph.build import build_hierarchical_graph as jax_build
 from stinet_tpu.models.factory import define_G as jax_define_G
 from stinet_tpu.ops.pallas import onehot_gather
 from stinet_tpu.serving import SceneInpainter as JaxSceneInpainter
 from stinet_tpu.utils.synthetic import synthetic_scene as jax_scene
 from stinet_tpu_torch.core import checkpoint
+from stinet_tpu_torch.graph import native as port_native
 from stinet_tpu_torch.graph.build import (
     build_hierarchical_graph, windowed_layout)
 from stinet_tpu_torch.models.factory import define_G
@@ -71,7 +73,17 @@ def test_windowed_f32_predict_matches_jax(scipy_rcm, monkeypatch):
     interpret mode) and the port's send the same convs to the exact-f32
     windowed kernel, and their outputs agree. JAX's server returns the rows
     in the build's RCM order, the port's in the scene's order, so JAX's are
-    put back in the scene's order first."""
+    put back in the scene's order first. Both builders take scipy's RCM."""
+    _windowed_f32_predict_matches_jax(monkeypatch)
+
+
+def test_native_windowed_f32_predict_matches_jax_native(monkeypatch):
+    """The same with both native builders (one C++ RCM)."""
+    assert port_native.available() and jax_native.available()
+    _windowed_f32_predict_matches_jax(monkeypatch)
+
+
+def _windowed_f32_predict_matches_jax(monkeypatch):
     monkeypatch.setenv("STINET_WINDOWED_INTERPRET", "1")
     cfg = dict(TINY, ngf=64, dilations=[1, 2])
     kw = dict(num_vertices=4096, levels=3, seed=3, dilation_dists=(2,))

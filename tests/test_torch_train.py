@@ -35,6 +35,7 @@ from stinet_tpu.models.factory import define_G as jax_define_G
 from stinet_tpu.ops import message_passing as jax_mp
 from stinet_tpu.trainers import graph_common as jax_gc
 from stinet_tpu.utils.synthetic import synthetic_scene as jax_scene
+from stinet_tpu_torch.graph import build as port_build
 from stinet_tpu_torch.graph.build import build_hierarchical_graph
 from stinet_tpu_torch.models.factory import define_G
 from stinet_tpu_torch.models.stinet import EdgeConvFilter
@@ -191,6 +192,7 @@ def test_bf16_windowed_train_step_matches_jax(monkeypatch):
     built windowed; JAX reaches its Pallas kernels in interpret mode."""
     monkeypatch.setenv("STINET_WINDOWED_INTERPRET", "1")
     monkeypatch.setattr(jax_build._native, "available", lambda: False)
+    monkeypatch.setattr(port_build._native, "available", lambda: False)
     args = dict(BF16_CONFIG["archs"]["SurfaceTextureInpaintingNet"]["args"],
                 n_blocks=2, dilations=[1, 2])
     jg, pg = _graphs(windowed=True, scene=dict(SCENE, num_vertices=2048))

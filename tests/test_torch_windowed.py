@@ -52,9 +52,12 @@ def t(a, dtype=None):
 
 @pytest.fixture
 def scipy_rcm(monkeypatch):
-    """The JAX builder's RCM through scipy, as the port's: its native RCM
-    may break ties another way (stinet_tpu/graph/build.py:245-246)."""
+    """Both builders' numpy paths, RCM through scipy: the scipy path of the
+    port held against the JAX package's (the native RCM breaks ties
+    otherwise than scipy's; tests/test_torch_native_build.py and the
+    `native_` twins below hold the two native builders together)."""
     monkeypatch.setattr(jax_build._native, "available", lambda: False)
+    monkeypatch.setattr(port_build._native, "available", lambda: False)
 
 
 def _banded(mod, scene):
@@ -67,6 +70,17 @@ def _banded(mod, scene):
 
 @pytest.mark.parametrize("case", ["shuffled", "banded"])
 def test_windowed_build_matches_jax_leaf_for_leaf(scipy_rcm, case):
+    _windowed_build_matches_jax(case)
+
+
+@pytest.mark.parametrize("case", ["shuffled", "banded"])
+def test_native_windowed_build_matches_jax_native(case):
+    """The same with both native builders: one C++ RCM, so one order."""
+    assert port_build._native.available() and jax_build._native.available()
+    _windowed_build_matches_jax(case)
+
+
+def _windowed_build_matches_jax(case):
     ref_scene = jax_synthetic.synthetic_scene(**SCENE)
     scene = port_synthetic.synthetic_scene(**SCENE)
     if case == "banded":
