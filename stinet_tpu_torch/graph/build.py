@@ -372,6 +372,11 @@ def build_hierarchical_graph(
     their ids are already banded (`_is_banded`), and each edge set's ELL
     tables are banded to a halo read from the band's `window_quantile`
     (out-of-band edges spill to COO), which the windowed kernels need.
+
+    The edge sets' tables build on a thread pool of `STINET_BUILD_WORKERS`
+    threads (the JAX package's switch; default one an edge set, at most
+    the CPU count), since the native builder releases the interpreter
+    lock; 1 builds them in turn.
     """
     if windowed:
         samples = [windowed_layout(s, window_quantile)[0] for s in samples]
@@ -389,14 +394,15 @@ def build_hierarchical_graph(
         v_buckets = [bucket_size(int(t) + 1, pad_multiple, geometric)
                      for t in totals]
 
-    levels, traces, children = [], [], []
+    # stage 1: every edge set's task, keyed (level, dist), dist None for
+    # the level's base set
+    tasks = {}
     for l in range(num_levels):
         v_pad = int(v_buckets[l])
         if v_pad <= totals[l]:
             raise ValueError(f"vertex bucket {v_pad} must exceed the valid "
                              f"count {int(totals[l])} at level {l}")
         trash = v_pad - 1
-
         edges = np.concatenate(
             [s.level_edges[l] + offsets[l, g]
              for g, s in enumerate(samples)], axis=1)
@@ -404,10 +410,7 @@ def build_hierarchical_graph(
                  else bucket_size(edges.shape[1], pad_multiple, geometric))
         halo = (_auto_halo(edges, v_pad, window_quantile) if windowed
                 else None)
-        base = _pad_edge_set(edges, e_pad, trash, v_pad,
-                             cap_quantile=ell_cap_quantile, window_halo=halo)
-
-        dil = {}
+        tasks[(l, None)] = (edges, e_pad, trash, v_pad, halo)
         for dist in sorted({d for s in samples for d in s.dilated.get(l, {})}):
             # a scene missing this distance contributes zero edges
             de = np.concatenate(
@@ -417,9 +420,33 @@ def build_hierarchical_graph(
             de_pad = bucket_size(de.shape[1], pad_multiple, geometric)
             dhalo = (_auto_halo(de, v_pad, window_quantile) if windowed
                      else None)
-            dil[int(dist)] = _pad_edge_set(de, de_pad, trash, v_pad,
-                                           cap_quantile=ell_cap_quantile,
-                                           window_halo=dhalo)
+            tasks[(l, int(dist))] = (de, de_pad, trash, v_pad, dhalo)
+
+    # stage 2: the tables, on a thread pool (the native builder releases
+    # the interpreter lock); a task reads only its own arrays, so thread
+    # timing changes no result
+    def run(task):
+        edges, e_pad, trash, v_pad, halo = task
+        return _pad_edge_set(edges, e_pad, trash, v_pad,
+                             cap_quantile=ell_cap_quantile, window_halo=halo)
+
+    workers = os.environ.get("STINET_BUILD_WORKERS")
+    workers = (int(workers) if workers
+               else min(len(tasks), os.cpu_count() or 4))
+    if workers <= 1 or len(tasks) <= 1:
+        built = {k: run(t) for k, t in tasks.items()}
+    else:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            futures = {k: pool.submit(run, t) for k, t in tasks.items()}
+            built = {k: f.result() for k, f in futures.items()}
+
+    # stage 3: the levels, traces and children tables
+    levels, traces, children = [], [], []
+    for l in range(num_levels):
+        v_pad = int(v_buckets[l])
+        base = built[(l, None)]
+        dil = {d: es for (ll, d), es in built.items()
+               if ll == l and d is not None}
 
         graph_id = np.full(v_pad, num_graphs, dtype=np.int32)
         for g in range(num_graphs):

@@ -228,3 +228,16 @@ def test_source_is_the_jax_packages_unchanged():
     assert native.SRC.read_bytes() == (
         native.SRC.parents[3] / "stinet_tpu" / "graph" / "native"
         / "graph_builder.cpp").read_bytes()
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_thread_pool_gives_the_sequential_graph(monkeypatch, windowed):
+    """STINET_BUILD_WORKERS=6 fans the edge sets out to 6 threads; the
+    graph is the one 1 thread builds, leaf for leaf."""
+    scenes = [synthetic_scene(2500, levels=3, seed=s, dilation_dists=(2, 4))
+              for s in range(2)]
+    graphs = []
+    for workers in (1, 6):
+        monkeypatch.setenv("STINET_BUILD_WORKERS", str(workers))
+        graphs.append(B.build_hierarchical_graph(scenes, windowed=windowed))
+    assert_same_tree(*graphs)
