@@ -9,6 +9,15 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    (`nvidia-smi`), whether nvcc and triton are present;
 2. build: compiles the port's CUDA kernels (stinet_tpu_torch/ops/cuda/*.cu)
    from this checkout, all sources in parallel;
+2b. host-build: the native host graph builder (stinet_tpu_torch/graph/
+   native, g++ at first use) against the numpy path (STINET_NATIVE_BUILD=0,
+   scipy's RCM) on the flagship scene, in this process: the first windowed
+   build of the process each way, the median of HOST_BUILD_REPS plain and
+   windowed builds each way (and native on one build thread), the plain
+   graphs leaf for leaf equal and the windowed tables of both paths equal
+   on one native-RCM order, and the share of a windowed build spent in the
+   native calls. Every later phase that builds (4, 5, 8, 9, 10) checks
+   that the native builder was called;
 3. kernels: every kernel launch of one flagship forward, replayed on the
    inputs the forward gave it, held against the kernel's plain torch
    version (K1 bit for bit, K2 within K2_RTOL/K2_ATOL) and timed beside it
@@ -35,8 +44,9 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    that one call; the output checked (shape, finite, tanh range), held
    against the plain path on the card (PATH_TOL) and, on a small scene,
    against the plain path on the CPU; then timed end to end and split into
-   its phases (host build, host-to-device copy, forward, copy back);
-5. the windowed build: the flagship scene built with windowed=True (scipy
+   its phases (host build, host-to-device copy, forward, copy back), with
+   the native builder and again with the numpy one;
+5. the windowed build: the flagship scene built with windowed=True (native
    RCM), each edge set's V_pad, width, slots and halo, and which convs of a
    forward dispatch the windowed kernels (K3); the band of every K3 table
    checked on the card;
@@ -61,11 +71,15 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    the calls phase 6 recorded (checkpointed blocks run their forward
    twice); one step on a small scene against the CPU plain path
    (SMALL_TRAIN_TOL); then ms/step by CUDA events, split into forward,
-   backward and optimizer, and the peak device memory of a step;
+   backward and optimizer, and the peak device memory of a step; then
+   the step with another thread looping on windowed builds, on the
+   native RCM alone and on a Python loop (what the trainer's loader
+   thread does to the step);
 8. trainer: the port's CLI (`stinet_tpu_torch.train.main`) on 3 flagship
    scenes (seeds 0-2: 2 train, 1 val) written in the ScanNet loader's
    format to a temporary directory. The loader alone builds the train set
-   once (its build ms, no step running). The production bf16 config
+   once with the native builder and once with the numpy one (its build ms,
+   no step running). The production bf16 config
    (windowed, full width and depth; data roots and save_dir repointed,
    TRAINER_EPOCHS epochs, a checkpoint every epoch) trains with the
    kernels' launch counts zeroed before and read after: each kernel of the
@@ -74,7 +88,8 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    within TRAIN_TOL of that trainer's, every loss finite, the last epoch's
    mean train loss below the first's, the checkpoints written; then its
    ms/step by its own clock, the loader's build ms a batch, each step's
-   wait on `iter_placed`, the step by CUDA events and peak memory. It
+   wait on `iter_placed`, the step by CUDA events and peak memory; the
+   same run again on the numpy builder, for the same readings. It
    resumes from the last checkpoint for one more epoch (parameters and
    Adam state bitwise the file's before the first step), evaluates
    model_best (`-e valid`) and serves it with `from_checkpoint`, within
@@ -89,7 +104,8 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    times, as in phase 6; the K3b launches of one predict equal to the
    convs the dispatch sends to it (at least 1); the output
    (in the scene's vertex order) within PATH_TOL of phase 4's and of the
-   windowed plain path; ms/scene split into phases;
+   windowed plain path; ms/scene split into phases, with the native
+   builder and again with the numpy one;
 10. serving-batched: `predict_batch` at B = BATCH (flagship scenes of seeds
    0..B-1) stacked and concatenated, each scene within PATH_TOL of its own
    forward; every multi-graph K2 call of the concatenated forward within
@@ -145,7 +161,7 @@ STEP_REPS = 10              # timed train steps
 TRAIN_TOL = 1e-3            # each step's loss, kernel path vs plain path
 SMALL_TRAIN_TOL = 1e-2      # small scene, card kernel path vs CPU plain
 MIN_K3_CONVS = 5            # windowed convs per flagship bf16 forward
-WINDOWED_REPS = 3           # timed windowed predicts (the RCM build is slow)
+WINDOWED_REPS = 3           # timed windowed predicts a builder (numpy is slow)
 BATCH = 4                   # scenes in a predict_batch
 BATCH_REPS = 2              # timed predict_batch calls per layout
 STREAM = 8                  # scenes in the predict_stream run
@@ -646,6 +662,137 @@ def time_predict(torch, server, scene, reps):
         f"{k} {statistics.median(v):.2f}" for k, v in phases.items())
 
 
+# --- the host graph build, native and numpy ---------------------------------
+
+HOST_BUILD_REPS = 5         # timed builds a way in the host-build phase
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Environment variables set for the block (None: unset), then put
+    back: STINET_NATIVE_BUILD=0 takes the numpy builder, and
+    STINET_BUILD_WORKERS the build's thread count."""
+    import os
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def native_calls():
+    """The native builder's calls so far, all entry points."""
+    from stinet_tpu_torch.graph import native
+    return sum(native.calls.values())
+
+
+def check_native(phase, before):
+    """Check that the native builder was called since `before` (a
+    native_calls() reading); returns how many times."""
+    n = native_calls() - before
+    check(n > 0, f"{phase}: the host build made no native call")
+    return n
+
+
+def same_graphs(torch, a, b):
+    from stinet_tpu_torch.graph.hierarchy import tensor_leaves, tree_structure
+    return tree_structure(a) == tree_structure(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        for x, y in zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+def host_build_phase(torch, card):
+    """Phase host-build: the flagship scene built plain and windowed, by
+    the native builder and by the numpy path (STINET_NATIVE_BUILD=0,
+    scipy's RCM), in this process. The first windowed build of the process
+    each way, then the median of HOST_BUILD_REPS builds each way and, on
+    the native path, with one build thread (STINET_BUILD_WORKERS=1); the
+    plain builds held leaf for leaf, and the windowed tables of both paths
+    on the one native-RCM order; the share of a one-thread windowed build
+    spent in the native calls (the binding's functions, timed)."""
+    from stinet_tpu_torch.graph import build as B
+    from stinet_tpu_torch.graph import native
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    t0 = time.perf_counter()
+    native.get_lib()
+    lib_s = time.perf_counter() - t0
+    scene = synthetic_scene(**FLAGSHIP_SCENE)
+
+    def build(windowed, s=scene):
+        t = time.perf_counter()
+        g = B.build_hierarchical_graph([s], geometric=True,
+                                       windowed=windowed)
+        return (time.perf_counter() - t) * 1e3, g
+
+    first = {}
+    for way, flag in (("native", None), ("numpy", 0)):
+        with env(STINET_NATIVE_BUILD=flag):
+            first[way] = build(True)[0]
+    med, graphs = {}, {}
+    for windowed in (False, True):
+        for way, values in (("native", {}),
+                            ("native 1 thread", {"STINET_BUILD_WORKERS": 1}),
+                            ("numpy", {"STINET_NATIVE_BUILD": 0})):
+            with env(**values):
+                runs = [build(windowed) for _ in range(HOST_BUILD_REPS)]
+            med[(windowed, way)] = statistics.median(r[0] for r in runs)
+            graphs[(windowed, way)] = runs[-1][1]
+    check(same_graphs(torch, graphs[(False, "native")],
+                      graphs[(False, "numpy")]),
+          "plain build: the native and numpy graphs differ")
+    banded, _ = B.windowed_layout(scene)
+    with env(STINET_NATIVE_BUILD=0):
+        np_tables = build(True, banded)[1]
+    check(same_graphs(torch, build(True, banded)[1], np_tables),
+          "windowed build on one RCM order: native and numpy tables differ")
+
+    spent = [0.0]
+
+    def timed(fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t
+        return run
+
+    names = ("build_edge_set_tables", "build_children_table", "rcm_order")
+    saved = {n: getattr(native, n) for n in names}
+    for n, fn in saved.items():
+        setattr(native, n, timed(fn))
+    try:
+        with env(STINET_BUILD_WORKERS=1):
+            walls = [build(True)[0] for _ in range(HOST_BUILD_REPS)]
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+    share = spent[0] * 1e3 / sum(walls)
+    for windowed in (False, True):
+        say("host-build", f"{'windowed' if windowed else 'plain'} build, "
+            f"median ms of {HOST_BUILD_REPS}: native "
+            f"{med[(windowed, 'native')]:.2f}, native on 1 thread "
+            f"{med[(windowed, 'native 1 thread')]:.2f}, numpy "
+            f"{med[(windowed, 'numpy')]:.2f}")
+    say("host-build", f"g++ build and load of the native library "
+        f"{lib_s:.2f} s; first windowed build of the process: native "
+        f"{first['native']:.2f} ms, numpy (first scipy RCM) "
+        f"{first['numpy']:.2f} ms; a windowed build on 1 thread "
+        f"{statistics.median(walls):.2f} ms, {share * 100:.1f}% of it in the "
+        f"native calls; plain graphs leaf for leaf equal, windowed tables "
+        f"equal on one RCM order; calls {native.calls}; on {card}")
+
+
 # --- the bf16 windowed train path -----------------------------------------
 
 def conv_uses(model):
@@ -692,8 +839,10 @@ def windowed_build(torch, scene, model):
     from stinet_tpu_torch.ops.windowed import band_violations, default_tile
     from stinet_tpu_torch.serving import PackedPlacer
     t0 = time.perf_counter()
+    before = native_calls()
     host = build_hierarchical_graph([scene], geometric=True, windowed=True)
     secs = time.perf_counter() - t0
+    n_native = check_native("windowed", before)
     k3 = windowed_convs(torch, "windowed", model, host, torch.bfloat16)
     check(k3 >= MIN_K3_CONVS, f"{k3} convs per forward take the windowed "
           f"kernels, expected at least {MIN_K3_CONVS}")
@@ -707,7 +856,8 @@ def windowed_build(torch, scene, model):
                    + band_violations(e.rev_dst, e.out_degree, e.halo, tile))
             check(bad == 0, f"{bad} live slots outside their tile's window "
                   f"(V={e.nbr.shape[0]}, halo={e.halo})")
-    say("windowed", f"host build {secs * 1e3:.1f} ms (scipy RCM); "
+    say("windowed", f"host build {secs * 1e3:.1f} ms (native, "
+        f"{n_native} calls, RCM included); "
         f"{k3} of {len(conv_uses(model))} convs per forward on K3; every K3 "
         "table within its band")
     return host, graph
@@ -1085,7 +1235,61 @@ def train_slice(torch, card, model, graph, cfg, captured):
         f"{plain_ms:.2f} ms/step; split, median ms: " + ", ".join(
             f"{k} {statistics.median(v):.2f}" for k, v in split.items())
         + f"; peak memory {peak:.2f} GiB; on {card}")
+
+    # the step with other host work on another thread, as the trainer's
+    # loader runs beside it: a whole windowed build (its numpy glue holds
+    # the interpreter lock), the native RCM alone (C with the lock
+    # released) and a Python loop (the lock only)
+    from stinet_tpu_torch.graph import native
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.utils.synthetic import synthetic_scene
+    scene = synthetic_scene(**FLAGSHIP_SCENE)
+    edges0 = scene.level_edges[0]
+
+    def step():
+        return timed(lambda: kstep(graph, lr))
+
+    beside = step_beside(step, {
+        "nothing": None,
+        "windowed builds": lambda: build_hierarchical_graph(
+            [scene], geometric=True, windowed=True),
+        "native RCM calls": lambda: native.rcm_order(
+            edges0, scene.num_vertices[0])}, STEP_REPS)
+    # a step takes seconds beside a Python loop: 2 of them
+    beside.update(step_beside(step, {"a Python loop": lambda: sum(
+        i * i for i in range(200_000))}, 2))
+    say("train", "train step by CUDA events, median ms, with another "
+        "thread looping on: " + ", ".join(
+            f"{k} {ms:.2f} ({n} done in {reps} steps)"
+            for k, (ms, n, reps) in beside.items()) + f"; on {card}")
     return launches
+
+
+def step_beside(step, loads, reps):
+    """{name: (median ms of `reps` calls of `step`, loads done, reps)} with
+    `loads[name]` called in a loop on another thread meanwhile (None: no
+    thread)."""
+    import threading
+    out = {}
+    for name, load in loads.items():
+        stop, done = threading.Event(), [0]
+
+        def loop(load=load, done=done, stop=stop):
+            while not stop.is_set():
+                load()
+                done[0] += 1
+
+        th = threading.Thread(target=loop, daemon=True) if load else None
+        if th:
+            th.start()
+        try:
+            out[name] = (statistics.median(step() for _ in range(reps)),
+                         done[0], reps)
+        finally:
+            stop.set()
+            if th:
+                th.join()
+    return out
 
 
 # --- the trainer and its CLI -------------------------------------------------
@@ -1305,21 +1509,26 @@ def trainer_phase(torch, card):
 
         # --- the loader alone, then the bf16 run
         from stinet_tpu_torch.data.scannet import ScanNetGraphColorDataLoader
-        alone = ScanNetGraphColorDataLoader(cfg["data_loader"]["args"])
-        for _ in alone.train_loader:
-            pass
-        say("trainer", "the loader alone (its prefetch thread, no step "
-            "running): build ms per train batch " + ", ".join(
-                f"{x:.2f}" for x in alone.train_loader.build_ms)
-            + f"; on {card}")
-        del alone
+        for way, flag in (("native", None), ("numpy", 0)):
+            with env(STINET_NATIVE_BUILD=flag):
+                alone = ScanNetGraphColorDataLoader(
+                    cfg["data_loader"]["args"])
+                for _ in alone.train_loader:
+                    pass
+            say("trainer", f"the loader alone, {way} builder (its prefetch "
+                "thread, no step running): build ms per train batch "
+                + ", ".join(f"{x:.2f}" for x in alone.train_loader.build_ms)
+                + f"; on {card}")
+            del alone
         _zero(counters)
+        before = native_calls()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with probed_trainer(torch) as (probes, best):
             trainer = cli.main(["-c", str(tmp / "bf16.json"), "-d", "cuda",
                                 "-n", "bf16"])
         launches = _read(counters)
+        n_native = check_native("trainer", before)
         probe = probes[0]
         check(all(launches[k] > 0 for k in ("k3a", "k3c", "k1", "k1dp",
                                             "k1dq", "k2")),
@@ -1346,11 +1555,18 @@ def trainer_phase(torch, card):
             f"{[round(x, 6) for x in losses]}; epoch-mean train loss "
             f"{first_epoch:.6f} -> {last_epoch:.6f}; first loss "
             f"{losses[0]:.6f} against the plain-path trainer's "
-            f"{plain_first:.6f} (relative {rel:.2e}); launches in the run "
-            f"{launches}; per step {probe.launches[0]}, each step equal to "
+            f"{plain_first:.6f} (relative {rel:.2e}); native build calls "
+            f"{n_native}; launches in the run {launches}; per step {probe.launches[0]}, each step equal to "
             f"the plain path's recorded calls; model_best at epoch "
             f"{best['epoch']}; {', '.join(names)} written")
         trainer_readings("trainer", trainer, probe, card)
+        del trainer, probes
+
+        # the same run on the numpy builder, for its readings
+        with env(STINET_NATIVE_BUILD=0), probed_trainer(torch) as (probes, _):
+            trainer = cli.main(["-c", str(tmp / "bf16.json"), "-d", "cuda",
+                                "-n", "bf16-numpy"])
+        trainer_readings("trainer-numpy", trainer, probes[0], card)
         del trainer, probes
 
         # --- resume from the last checkpoint for one more epoch
@@ -1522,7 +1738,9 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
 
     counters = _counters()
     _zero(counters)
+    before = native_calls()
     out = server.predict(scene)
+    n_native = check_native("serving-windowed", before)
     launches = _read(counters)
     check(launches["k3b"] == dispatched,
           f"K3b launched {launches['k3b']} times in one predict, the "
@@ -1541,10 +1759,13 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
           f"windowed predict vs non-windowed kernel path {ref_err:.3e}, vs "
           f"windowed plain path {plain_err:.3e}: over {PATH_TOL}")
     say("serving-windowed", f"predict {list(out.shape)} finite in [-1, 1]; "
-        f"launches {launches}; max |diff| against the non-windowed kernel "
+        f"launches {launches}; native build calls {n_native}; max |diff| "
+        f"against the non-windowed kernel "
         f"path {ref_err:.3e}, against the windowed plain path "
         f"{plain_err:.3e}")
     ms, split = time_predict(torch, server, scene, WINDOWED_REPS)
+    with env(STINET_NATIVE_BUILD=0):
+        np_ms, np_split = time_predict(torch, server, scene, WINDOWED_REPS)
     fwd_ms = median_ms(torch, lambda: server.forward(graph), reps=10,
                        inner=1)
     say("serving-windowed", f"predict {ms:.2f} ms/scene end to end; by "
@@ -1553,6 +1774,9 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
         f"the same inputs {row['k1_same_inputs_ms']:.4f} ms (device alone "
         f"{row['device_ms']:.4f} against {row['k1_device_ms']:.4f}); on "
         f"{card}")
+    say("serving-windowed", f"the same with the numpy builder "
+        f"(STINET_NATIVE_BUILD=0, scipy RCM): predict {np_ms:.2f} ms/scene "
+        f"end to end; by phase: {np_split}")
     return server, row, launches
 
 
@@ -1657,7 +1881,9 @@ def serving_batched(torch, card, server, scene, first):
     results = {}
     for layout, stacked in (("stacked", True), ("concatenated", False)):
         _zero(counters)
+        before = native_calls()
         outs = server.predict_batch(batch, stacked=stacked)
+        check_native(f"serving-batched {layout}", before)
         launches = _read(counters)
         err = agree(outs, BATCH, f"{layout} batch")
         e2e = []
@@ -1710,16 +1936,19 @@ def serving_batched(torch, card, server, scene, first):
 
     # predict_stream: in order, each scene against its own forward
     yields, outs = [], []
+    before = native_calls()
     t0 = time.perf_counter()
     for out in server.predict_stream(scenes):
         outs.append(out)
         yields.append(time.perf_counter())
+    n_native = check_native("serving-batched predict_stream", before)
     err = agree(outs, STREAM, "predict_stream")
     whole = (yields[-1] - t0) / len(yields) * 1e3
     after = (yields[-1] - yields[0]) / (len(yields) - 1) * 1e3
     say("serving-batched", f"predict_stream over {len(scenes)} scenes: "
         f"{whole:.2f} ms/scene over the whole stream, {after:.2f} ms/scene "
-        f"after the first result; stream_stats {server.stream_stats()}; "
+        f"after the first result; native build calls {n_native}; "
+        f"stream_stats {server.stream_stats()}; "
         f"max |diff| "
         f"against single-scene forwards {err:.3e}; host builds of "
         f"{len(scenes) - 1} scenes on 4 threads {build_s:.2f} s; on {card}")
@@ -1796,6 +2025,7 @@ def main(argv=None):
     build_kernels()
     if args.k1_only:
         return k1_only(torch, card)
+    host_build_phase(torch, card)
 
     from stinet_tpu_torch.graph.build import windowed_layout
     from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
@@ -1826,7 +2056,9 @@ def main(argv=None):
     # --- the slice: one predict on the kernel path, counted
     ell_edge_conv_sum_kernel.launches = 0
     masked_instance_norm_kernel.launches = 0
+    before = native_calls()
     out = server.predict(scene)
+    n_native = check_native("slice", before)
     launches = {"ell_edge_conv_sum": ell_edge_conv_sum_kernel.launches,
                 "masked_instance_norm": masked_instance_norm_kernel.launches}
     check(launches["ell_edge_conv_sum"] == len(k1_calls) > 0,
@@ -1844,7 +2076,8 @@ def main(argv=None):
     check(path_err <= PATH_TOL, f"kernel path vs plain path: max |diff| "
           f"{path_err:.3e} > {PATH_TOL}")
     say("slice", f"predict {list(out.shape)} finite in [-1, 1]; launches "
-        f"{launches}; kernel vs plain path max |diff| {path_err:.3e}")
+        f"{launches}; native build calls {n_native}; kernel vs plain path "
+        f"max |diff| {path_err:.3e}")
 
     small = synthetic_scene(**dict(FLAGSHIP_SCENE,
                                      num_vertices=SMALL_VERTICES))
@@ -1858,6 +2091,8 @@ def main(argv=None):
         f"max |diff| {small_err:.3e}")
 
     ms, split = time_predict(torch, server, scene, PREDICT_REPS)
+    with env(STINET_NATIVE_BUILD=0):
+        np_ms, np_split = time_predict(torch, server, scene, PREDICT_REPS)
     fwd_ms = median_ms(torch, lambda: server.forward(graph), reps=20,
                        inner=1)
     plain_fwd_ms = median_ms(torch, lambda: plain_server.forward(graph),
@@ -1866,6 +2101,8 @@ def main(argv=None):
         f"{nv / ms * 1e3:.0f} vertices/s end to end; by phase, median ms "
         f"of {PREDICT_REPS}: {split}; device forward {fwd_ms:.3f} ms "
         f"kernel path, {plain_fwd_ms:.3f} ms plain path; on {card}")
+    say("slice", f"the same with the numpy builder (STINET_NATIVE_BUILD=0): "
+        f"predict {np_ms:.2f} ms/scene end to end; by phase: {np_split}")
 
     # --- the bf16 windowed train path
     cfg = json.loads(pathlib.Path(BF16_CONFIG).read_text())
