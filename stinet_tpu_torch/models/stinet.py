@@ -96,21 +96,20 @@ class GraphNormLayer(nn.Module):
     - 'none'.
 
     Statistics are f32 and the output takes the input's dtype."""
+    momentum = 0.1      # torch's BatchNorm default, as the JAX layer's
 
     def __init__(self, features: int, norm_type: str = "instance",
-                 eps: float = 1e-5, momentum: float = 0.1):
+                 eps: float = 1e-5):
         super().__init__()
         if norm_type not in ("instance", "graph", "batch", "none"):
             raise NotImplementedError(f"norm type {norm_type!r}")
-        self.features, self.norm_type = features, norm_type
-        self.eps, self.momentum = eps, momentum
+        self.features, self.norm_type, self.eps = features, norm_type, eps
         if norm_type == "graph":
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
             self.mean_scale = nn.Parameter(torch.ones(features))
         elif norm_type == "batch":
-            self.module = nn.BatchNorm1d(features, eps=eps,
-                                         momentum=momentum)
+            self.module = nn.BatchNorm1d(features, eps=eps)
 
     def forward(self, x, level: GraphLevel, num_graphs: int, impl=None):
         # statistics in >= f32 (bf16 means over 10^5 rows drift)
