@@ -97,6 +97,24 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    reference config at `--bs 2` with accumulation F32_ACCUMULATE for
    F32_EPOCHS epochs (one optimizer step): f32 K1, dp, dq and multi-graph
    K2 launched and held per step as above, with the same readings;
+8b. segmentation: the CLI trains the shipped segmentation config
+   (SingleConvMeshNet at its full width, f32; torch ops only, no kernel of
+   its own) for SEG_EPOCHS epochs on 2 training crops and 1 uncropped val
+   scene (`synthetic_scene(65536, levels=4)`, seeds 0-2, labels over 0..20
+   from a seeded numpy generator): the model's parameters and buffers on
+   the card, every epoch's losses finite, the full-scene IoU computed,
+   every masked batch norm's running statistics one update from its first
+   forward each step (the checkpointed blocks' recomputed forwards leave
+   them alone), the checkpoints written; one step from the trainer's
+   weights on the card against the same step on the CPU (loss, logits and
+   running statistics within SEG_TOL; the confusion matrices equal but
+   for vertices whose top two logits lie within twice the logits' largest
+   difference); then the trainer's ms/step, the loader's build ms, the
+   wait on `iter_placed`, a bare step by CUDA events split into forward,
+   backward and optimizer with peak memory, the eval step, and a traced
+   step (device busy ms, launches, idle share, top 8 ops); a resume for
+   one more epoch (state and Adam state bitwise the file's) and
+   `-e valid`; the phase's wall time;
 9. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
@@ -1640,6 +1658,426 @@ def trainer_phase(torch, card):
         trainer_readings("trainer-f32", trainer, probe, card)
 
 
+# --- the segmentation workload -----------------------------------------------
+
+SEG_CONFIG = ("experiments/semantic_segmentation/config/"
+              "config_scmnet_segmentation.json")
+SEG_EPOCHS = 3              # epochs of the segmentation run (2 crops each)
+SEG_SCENE = dict(num_vertices=65536, levels=4, dilation_dists=())
+SEG_TOL = 1e-3              # card vs CPU step: loss, logits, statistics
+SEG_STATS_TOL = 1e-6        # a running statistic against its one update
+SEG_STEP_REPS = 5           # timed bare steps, traced steps, eval calls
+
+
+def write_segmentation_scenes(root):
+    """Label scenes at ScanNet crop scale (`SEG_SCENE`, seeds 0-2) with
+    `labels_0` over 0..20 from a seeded numpy generator: 2 training crops
+    (`<train scene>_0`; a crop stores no original-mesh trace, so its
+    traces_l maps level l to l + 1) and 1 val scene, uncropped (traces_0
+    maps its original vertices to level 0). Returns the data roots."""
+    import numpy as np
+    from stinet_tpu_torch.data.scannet import (
+        SCANNET_TRAIN_FILE, SCANNET_VAL_FILE, read_split)
+    from stinet_tpu_torch.utils.synthetic import (
+        synthetic_scene, write_loader_scene)
+    roots, seed = {}, 0
+    for split, names in (("train", read_split(SCANNET_TRAIN_FILE)[:2]),
+                         ("val", read_split(SCANNET_VAL_FILE)[:1])):
+        roots[split] = str(root / split)
+        for name in names:
+            crop = split == "train"
+            name = f"{name}_0" if crop else name
+            write_loader_scene(roots[split], name, synthetic_scene(
+                **dict(SEG_SCENE, seed=seed)))
+            path = pathlib.Path(roots[split]) / "graphs" / f"{name}.npz"
+            arrays = dict(np.load(path))
+            levels = int(arrays["num_levels"])
+            if crop:
+                for l in range(levels - 1):
+                    arrays[f"traces_{l}"] = arrays[f"traces_{l + 1}"]
+                del arrays[f"traces_{levels - 1}"]
+            arrays["labels_0"] = np.random.default_rng(100 + seed).integers(
+                0, 21, size=len(arrays["vertices_0"]))
+            np.savez(path, **arrays)
+            seed += 1
+    return roots
+
+
+class SegStepProbe:
+    """Stands in for a segmentation trainer's train step: runs it, and
+    records each call's loss and time by CUDA events, and checks that
+    every masked batch norm moved its running statistics once, by one
+    update from the statistics of the call's first forward (the backward
+    recomputes the checkpointed blocks; their norms must not move again).
+    On its first call it may hold the model and optimizer bitwise against
+    a checkpoint file. Every other attribute is the step's."""
+
+    def __init__(self, torch, step, model, optimizer, expect=None):
+        from stinet_tpu_torch.models.singleconvmeshnet import (
+            _MaskedEdgeBatchNorm)
+        from stinet_tpu_torch.models.stinet import is_recomputing
+        self._torch, self._step = torch, step
+        self._model, self._optimizer, self._expect = model, optimizer, expect
+        self.losses, self.events, self.recomputed = [], [], []
+        self._norms = {n: m for n, m in model.named_modules()
+                       if isinstance(m, _MaskedEdgeBatchNorm)}
+        self._seen = {}
+
+        def hook(module, args, _out, name=None):
+            if not module.training:
+                return
+            if is_recomputing():
+                self._seen[name][1] += 1
+                return
+            m, mask = args
+            with torch.no_grad():
+                w = mask[:, None]
+                n = torch.clamp(mask.sum(), min=1.0)
+                mean = (m * w).sum(0) / n
+                var = (((m - mean) * w) ** 2).sum(0) / n
+                unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
+            self._seen[name][0].append((mean, unbiased))
+
+        self._hooks = [mod.register_forward_hook(
+            lambda mod, a, o, name=name: hook(mod, a, o, name))
+            for name, mod in self._norms.items()]
+
+    def remove_hooks(self):
+        for h in self._hooks:
+            h.remove()
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, graph, lr):
+        torch = self._torch
+        if self._expect is not None:
+            self._check_against(self._expect)
+            self._expect = None
+        old = {n: (m.running_mean.clone(), m.running_var.clone())
+               for n, m in self._norms.items()}
+        self._seen = {n: [[], 0] for n in self._norms}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        metrics, conf = self._step(graph, lr)
+        ev[1].record()
+        step = len(self.losses)
+        for n, m in self._norms.items():
+            firsts, again = self._seen[n]
+            check(len(firsts) == 1, f"step {step}: {n} normalized "
+                  f"{len(firsts)} first forwards")
+            (mean, var), k = firsts[0], m.momentum
+            for got, was, stat in ((m.running_mean, old[n][0], mean),
+                                   (m.running_var, old[n][1], var)):
+                want = (1 - k) * was + k * stat
+                err = float((got - want).abs().max())
+                check(err <= SEG_STATS_TOL * (1 + float(want.abs().max())),
+                      f"step {step}: {n}'s running statistics are not one "
+                      f"update from its first forward: max |diff| {err}")
+        self.recomputed.append(sum(v[1] for v in self._seen.values()))
+        self.losses.append(metrics["loss"].detach())
+        self.events.append(ev)
+        return metrics, conf
+
+    def _check_against(self, path):
+        """The model's state (buffers included) and the optimizer's state
+        bitwise those of the checkpoint file at `path`."""
+        torch = self._torch
+        from stinet_tpu_torch.core.checkpoint import load_checkpoint
+        sds, opts, _, _ = load_checkpoint(path)
+        for k, v in self._model.state_dict().items():
+            check(torch.equal(v.cpu(), sds["seg"][k]),
+                  f"resumed state {k} differs from {path}")
+        got = self._optimizer.state_dict()["state"]
+        want = opts["seg"]["state"]
+        check(sorted(got) == sorted(want) and len(want) > 0,
+              f"resumed optimizer state holds {len(got)} entries, the file "
+              f"{len(want)}")
+        for i, st in want.items():
+            for k, v in st.items():
+                check(torch.equal(got[i][k].cpu(), v),
+                      f"resumed Adam state {i}/{k} differs from {path}")
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+@contextlib.contextmanager
+def probed_segmentation(torch, expect=None):
+    """While open, every GraphSegmentationTrainer built takes a
+    SegStepProbe for its train step, and each `_train_epoch` log is kept:
+    yields (probes, logs)."""
+    from stinet_tpu_torch.trainers import segmentation
+    probes, logs = [], []
+    make = segmentation.make_segmentation_steps
+    epoch = segmentation.GraphSegmentationTrainer._train_epoch
+
+    def make_probed(model, optimizer, *args, **kw):
+        step, eval_step = make(model, optimizer, *args, **kw)
+        probes.append(SegStepProbe(torch, step, model, optimizer, expect))
+        return probes[-1], eval_step
+
+    def epoch_kept(self, e):
+        logs.append(epoch(self, e))
+        return logs[-1]
+
+    segmentation.make_segmentation_steps = make_probed
+    segmentation.GraphSegmentationTrainer._train_epoch = epoch_kept
+    try:
+        yield probes, logs
+    finally:
+        segmentation.make_segmentation_steps = make
+        segmentation.GraphSegmentationTrainer._train_epoch = epoch
+
+
+def seg_card_against_cpu(torch, trainer, graph):
+    """One train step from the trainer's weights on `graph` (host tensors)
+    on the card and on the CPU, each with a fresh Adam: the loss, the
+    logits, the confusion matrix and the new running statistics. Returns
+    a summary line."""
+    from stinet_tpu_torch.models.singleconvmeshnet import SingleConvMeshNet
+    from stinet_tpu_torch.trainers.segmentation import (
+        make_segmentation_steps)
+    from stinet_tpu_torch.trainers.graph_common import build_optimizer
+    args = trainer.config["archs"]["SingleConvMeshNet"]["args"]
+    weights = {k: v.detach().cpu().clone()
+               for k, v in trainer.model.state_dict().items()}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = SingleConvMeshNet(**args).to(device)
+        model.load_state_dict(weights)
+        logits = []
+        model.register_forward_hook(
+            lambda m, a, out: logits.append(out.detach().cpu()))
+        opt, lr = build_optimizer(model.parameters(),
+                                  trainer.config["optimizer"])
+        step, _ = make_segmentation_steps(
+            model, opt, trainer.class_weights.to(device),
+            trainer.num_classes)
+        t0 = time.perf_counter()
+        metrics, conf = step(graph.to(device), lr)
+        loss = float(metrics["loss"])
+        runs[device] = dict(
+            loss=loss, logits=logits[0], conf=conf.cpu(),
+            s=time.perf_counter() - t0,
+            stats={k: v.detach().cpu() for k, v in model.state_dict().items()
+                   if "running" in k})
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(loss_rel <= SEG_TOL, f"card loss {card['loss']} vs CPU "
+          f"{cpu['loss']}: relative {loss_rel:.3e} > {SEG_TOL}")
+    nv = int(graph.levels[0].num_vertices)
+    scale = float(cpu["logits"][:nv].abs().max())
+    logit_err = float((card["logits"][:nv] - cpu["logits"][:nv]).abs().max())
+    check(logit_err <= SEG_TOL * scale, f"card logits vs CPU: max |diff| "
+          f"{logit_err:.3e} > {SEG_TOL} x {scale:.3f}")
+    # a vertex can take the other class only where its top two logits lie
+    # within twice the largest logit difference of each other
+    top2 = cpu["logits"][:nv].topk(2, dim=-1).values
+    close = int(((top2[:, 0] - top2[:, 1]) <= 2 * logit_err).sum())
+    moved = int((card["conf"] - cpu["conf"]).abs().sum()) // 2
+    check(moved <= close, f"confusion matrices differ by {moved} vertices; "
+          f"{close} have top two logits within {2 * logit_err:.3e}")
+    stat_err = max(float((card["stats"][k] - v).abs().max())
+                   for k, v in cpu["stats"].items())
+    stat_scale = max(float(v.abs().max()) for v in cpu["stats"].values())
+    check(stat_err <= SEG_TOL * stat_scale, f"running statistics card vs "
+          f"CPU: max |diff| {stat_err:.3e} > {SEG_TOL} x {stat_scale:.3f}")
+    return (f"card vs CPU, one step from the trainer's weights: loss "
+            f"{card['loss']:.6f} vs {cpu['loss']:.6f} (relative "
+            f"{loss_rel:.2e}); logits max |diff| {logit_err:.3e} of "
+            f"{scale:.3f}; confusion matrices apart by {moved} vertices "
+            f"({close} with top two logits within twice that); running "
+            f"statistics "
+            f"max |diff| {stat_err:.3e} of {stat_scale:.3f}; tolerance "
+            f"{SEG_TOL} relative; CPU step {cpu['s']:.1f} s")
+
+
+def seg_bare_step(torch, trainer, graph, card):
+    """The trainer's model and optimizer on one placed graph: a train step
+    by CUDA events split into forward, backward and optimizer, its peak
+    device memory, the eval step, and one traced step (torch.profiler):
+    device busy ms, launches, idle share and the top ops by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    from stinet_tpu_torch.utils.profile_forward import _self_device_us
+    step = trainer._train_step
+    step = getattr(step, "_step", step)
+    model, opt, lr = trainer.model, trainer.optimizer, trainer.lr_fn(1)
+
+    def parts():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        with full_f32_matmuls():
+            opt.zero_grad(set_to_none=True)
+            ev[0].record()
+            loss, _ = step.loss_of(graph)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            ev[3].record()
+        return ev
+
+    for _ in range(2):
+        parts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [parts() for _ in range(SEG_STEP_REPS)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = [[ev[i].elapsed_time(ev[i + 1]) for ev in runs]
+             for i in range(3)]
+    total = [sum(x) for x in zip(*split)]
+    eval_ms = median_ms(torch, lambda: trainer._eval_step(graph),
+                        reps=SEG_STEP_REPS, inner=1, warmup=1)
+    med = statistics.median
+    say("segmentation", f"bare train step by CUDA events, median of "
+        f"{SEG_STEP_REPS}: {med(total):.2f} ms = forward {med(split[0]):.2f}"
+        f" + backward {med(split[1]):.2f} + optimizer {med(split[2]):.2f};"
+        f" peak device memory {peak:.2f} GiB; eval step {eval_ms:.2f} "
+        f"ms/scene; on {card}")
+
+    def steps():
+        for _ in range(SEG_STEP_REPS):
+            parts()
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    steps()
+    end.record()
+    end.synchronize()
+    wall = start.elapsed_time(end) / SEG_STEP_REPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        steps()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = sum(_self_device_us(e) for e in kernels) / 1e3 / SEG_STEP_REPS
+    check(busy > 0, "the profiler recorded no device time")
+    launches = sum(e.count for e in kernels) / SEG_STEP_REPS
+    say("segmentation", f"traced train step ({SEG_STEP_REPS} steps): "
+        f"{busy:.3f} ms device busy, {launches:.0f} kernel launches, idle "
+        f"share {max(0.0, 1 - busy / wall):.1%} of the untraced "
+        f"{wall:.3f} ms; on {card}")
+    for e in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
+        ms = _self_device_us(e) / 1e3 / SEG_STEP_REPS
+        say("segmentation", f"  top {ms:8.3f} ms x{e.count // SEG_STEP_REPS:4d}"
+            f"  {e.key[:100]}")
+
+
+def segmentation_phase(torch, card):
+    """The segmentation phase: the port's CLI trains the shipped
+    segmentation config (full width) on fabricated label scenes, resumes
+    it and evaluates it; one step is held against the CPU."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stinet_seg_") as tmp:
+        tmp = pathlib.Path(tmp)
+        roots = write_segmentation_scenes(tmp)
+        cfg = trainer_config(tmp / "seg.json", roots, tmp / "saved",
+                             SEG_CONFIG, SEG_EPOCHS)
+        args = cfg["archs"]["SingleConvMeshNet"]["args"]
+        say("segmentation", f"3 label scenes written ({SEG_SCENE}; 2 "
+            f"crops, 1 full val scene) in {time.perf_counter() - t_phase:.1f}"
+            f" s; {SEG_CONFIG}: filter_sizes {args['filter_sizes']}, "
+            f"{args['num_propagation_steps']} steps a block, end_level "
+            f"{cfg['data_loader']['args']['end_level']}; data roots and "
+            f"save_dir repointed, epochs {SEG_EPOCHS}, save_period 1")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_segmentation(torch) as (probes, logs):
+            trainer = cli.main(["-c", str(tmp / "seg.json"), "-d", "cuda",
+                                "-n", "seg"])
+        probe = probes[0]
+        tensors = list(trainer.model.parameters()) + list(
+            trainer.model.buffers())
+        check(all(t.is_cuda for t in tensors),
+              "a parameter or buffer of the model is not on the card")
+        losses = [float(x) for x in probe.losses]
+        check(len(losses) == 2 * SEG_EPOCHS, f"{len(losses)} train steps")
+        check(len(logs) == SEG_EPOCHS, f"{len(logs)} epoch logs")
+        for log in logs:
+            for k in ("loss", "val_loss"):
+                check(math.isfinite(log[k]), f"epoch log {k} {log[k]}")
+            check("val_full_scene_mean_iou" in log,
+                  f"no full-scene IoU in the epoch log {sorted(log)}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        check(min(probe.recomputed) > 0, "no checkpointed block recomputed")
+        run = trainer.checkpoint_dir
+        for e in range(1, SEG_EPOCHS + 1):
+            check((run / f"checkpoint-epoch{e}.ckpt").exists(),
+                  f"checkpoint-epoch{e}.ckpt was not written")
+        check((run / "model_best.ckpt").exists(), "no model_best.ckpt")
+        probe.remove_hooks()
+        say("segmentation", f"CLI run: {len(losses)} steps, losses "
+            f"{[round(x, 6) for x in losses]}; every norm's running "
+            f"statistics one update a step ({probe.recomputed[0]} recomputed"
+            " norm calls a step left them alone); epoch logs "
+            + "; ".join(", ".join(f"{k} {log[k]:.4f}" for k in (
+                "loss", "mean_iou", "val_loss", "val_mean_iou",
+                "val_full_scene_mean_iou")) for log in logs))
+        per_epoch = [t["train_s"] * 1e3 / t["steps"]
+                     for t in trainer.epoch_timings]
+        waits = [w for t in trainer.epoch_timings for w in t["wait_ms"]]
+        build = trainer.data_loader.train_loader.build_ms
+        fmt = ", ".join
+        say("segmentation", f"trainer clock ms/step by epoch "
+            f"{fmt(f'{x:.2f}' for x in per_epoch)}; loader build ms per "
+            f"train batch {fmt(f'{x:.2f}' for x in build)}; wait on "
+            f"iter_placed ms per step {fmt(f'{x:.2f}' for x in waits)}; "
+            f"step ms by CUDA events "
+            f"{fmt(f'{x:.2f}' for x in probe.step_ms())}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB;"
+            f" on {card}")
+
+        sample = trainer.data_loader.train_dataset[0]
+        graph = build_hierarchical_graph(
+            [sample], pad_multiple=trainer.data_loader.train_loader
+            .pad_multiple, geometric=True)
+        say("segmentation", seg_card_against_cpu(torch, trainer, graph))
+        seg_bare_step(torch, trainer, graph.to("cuda"), card)
+        del trainer, probes
+
+        last = run / f"checkpoint-epoch{SEG_EPOCHS}.ckpt"
+        trainer_config(tmp / "seg_more.json", roots, tmp / "saved",
+                       SEG_CONFIG, SEG_EPOCHS + 1)
+        with probed_segmentation(torch, expect=last) as (probes, logs):
+            resumed = cli.main(["-c", str(tmp / "seg_more.json"), "-r",
+                                str(last), "-d", "cuda", "-n", "resume"])
+        epochs = [t["epoch"] for t in resumed.epoch_timings]
+        check(epochs == [SEG_EPOCHS + 1], f"resumed epochs {epochs}")
+        check(all(math.isfinite(float(x)) for x in probes[0].losses),
+              "non-finite resumed loss")
+        probes[0].remove_hooks()
+        say("segmentation", f"resume from {last.name}: epoch {epochs[0]} "
+            "ran; state and Adam state bitwise the file's before its first "
+            f"step; losses {[round(float(x), 6) for x in probes[0].losses]}")
+        del resumed, probes
+
+        t0 = time.perf_counter()
+        evaluator = cli.main(["-r", str(run / "model_best.ckpt"), "-e",
+                              "valid", "-d", "cuda", "-n", "eval"])
+        eval_s = time.perf_counter() - t0
+        result = evaluator.valid_metrics.result()
+        check(all(math.isfinite(v) for v in result.values()),
+              f"eval metrics {result}")
+        say("segmentation", f"-e valid -r model_best.ckpt: {result}; "
+            f"{eval_s:.2f} s for {len(evaluator.data_loader.val_dataset)} "
+            f"scene(s), the trainer's construction included")
+        del evaluator
+    say("segmentation", f"phase wall time {time.perf_counter() - t_phase:.1f}"
+        f" s; on {card}")
+
+
 # --- windowed f32 and batched serving ----------------------------------------
 
 def _counters():
@@ -2130,6 +2568,7 @@ def main(argv=None):
     # --- the trainer and its CLI
     del train_model, wgraph, captured
     trainer_phase(torch, card)
+    segmentation_phase(torch, card)
 
     # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,

@@ -610,19 +610,24 @@ def stack_graphs(graphs: Sequence[HierarchicalGraph]) -> HierarchicalGraph:
 def build_stacked_graph(samples: Sequence[RawHierarchy],
                         v_buckets: Optional[Sequence[int]] = None,
                         widths: Optional[Dict[tuple, int]] = None,
+                        pad_multiple: int = 128,
                         geometric: bool = False,
-                        windowed: bool = False):
+                        ell_cap_quantile: float = 0.97,
+                        windowed: bool = False,
+                        window_quantile: float = 0.999):
     """Build each sample as a single-scene graph at common vertex buckets,
     pad the data-dependent table dims to one layout and stack. Returns
     (stacked graph, widths used). Pass `widths` to pin the layout (a
     scene that needs more raises ValueError); otherwise the batch maxima
-    are used. Builds run on a thread pool (numpy's sorts release the
-    GIL)."""
+    are used. The scenes build on a thread pool of `STINET_BUILD_WORKERS`
+    threads (default: one a scene, at most the CPU count; the native
+    builder releases the interpreter lock), in sequence when that is 1 or
+    there is one scene."""
     num_levels = len(samples[0].num_vertices)
     if v_buckets is None:
         v_buckets = [
-            max(bucket_size(int(s.num_vertices[l]) + 1, geometric=geometric)
-                for s in samples)
+            max(bucket_size(int(s.num_vertices[l]) + 1, pad_multiple,
+                            geometric) for s in samples)
             for l in range(num_levels)]
 
     # the union of dilation distances per level: a sample whose dilated set
@@ -649,12 +654,15 @@ def build_stacked_graph(samples: Sequence[RawHierarchy],
         samples = fixed
 
     def one(s):
-        return build_hierarchical_graph([s], v_buckets=v_buckets,
-                                        geometric=geometric,
-                                        windowed=windowed)
+        return build_hierarchical_graph(
+            [s], v_buckets=v_buckets, pad_multiple=pad_multiple,
+            geometric=geometric, ell_cap_quantile=ell_cap_quantile,
+            windowed=windowed, window_quantile=window_quantile)
 
-    workers = min(len(samples), os.cpu_count() or 4)
-    if workers <= 1:
+    workers = os.environ.get("STINET_BUILD_WORKERS")
+    workers = (int(workers) if workers
+               else min(len(samples), os.cpu_count() or 4))
+    if workers <= 1 or len(samples) <= 1:
         graphs = [one(s) for s in samples]
     else:
         with ThreadPoolExecutor(max_workers=workers) as pool:

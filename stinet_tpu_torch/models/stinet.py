@@ -80,6 +80,22 @@ def _recomputing():
         _recompute.on = prev
 
 
+def is_recomputing() -> bool:
+    """True inside a checkpointed block's second forward: a norm there
+    leaves its running statistics alone."""
+    return getattr(_recompute, "on", False)
+
+
+def run_checkpointed(fn, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (non-reentrant), its
+    forward run again in the backward under `_recomputing`. No random
+    draws happen inside a block, so there is no RNG state to replay."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
+
+
 class GraphNormLayer(nn.Module):
     """Norm dispatcher (stinet_tpu/models/stinet.py:40-102), masked:
 
@@ -132,7 +148,7 @@ class GraphNormLayer(nn.Module):
         bn = self.module
         if self.training:
             mean, var = masked_batch_norm_stats(x, num_valid)
-            if not getattr(_recompute, "on", False):
+            if not is_recomputing():
                 with torch.no_grad():
                     n = torch.clamp(torch.as_tensor(
                         num_valid, device=x.device).to(x.dtype), min=2.0)
@@ -225,12 +241,8 @@ class GraphResnetBlock(nn.Module):
     def forward(self, x, edges: EdgeSet, level: GraphLevel,
                 num_graphs: int = 1, impl=None):
         if self.checkpointed and torch.is_grad_enabled():
-            # no random draws inside a block: nothing to replay
-            return checkpoint(self._forward, x, edges, level, num_graphs,
-                              impl, use_reentrant=False,
-                              preserve_rng_state=False,
-                              context_fn=lambda: (contextlib.nullcontext(),
-                                                  _recomputing()))
+            return run_checkpointed(self._forward, x, edges, level,
+                                    num_graphs, impl)
         return self._forward(x, edges, level, num_graphs, impl)
 
     def _forward(self, x, edges, level, num_graphs, impl):

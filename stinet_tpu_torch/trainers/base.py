@@ -2,12 +2,14 @@
 best tracking, early stopping and periodic checkpoints. The counterpart of
 `stinet_tpu/trainers/base.py` (monitor strings like "min val_loss",
 save_period, early_stop, dry_run), for one process: the JAX package's
-multi-host averaging and barriers have nothing to do here."""
+multi-host averaging and barriers have nothing to do here.
+`SingleModelTrainer` adds the checkpoints of a trainer of one model."""
 import time
 from abc import abstractmethod
 
 import numpy as np
 
+from stinet_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from stinet_tpu_torch.core.writer import TensorboardWriter
 
 
@@ -114,3 +116,47 @@ class BaseTrainer:
     def _progress(self, batch_idx, len_epoch):
         return "[{}/{} ({:.0f}%)]".format(
             batch_idx, len_epoch, 100.0 * batch_idx / max(len_epoch, 1))
+
+
+class SingleModelTrainer(BaseTrainer):
+    """A trainer of one model, `self.model`, with `self.optimizer` and a
+    `graph_common._TrainStep` in `self._train_step`. Its checkpoints hold,
+    under MODEL_KEY, the model's state dict and the optimizer's state, and
+    the accumulation state in `extra` (with an empty `batch_stats`, the
+    JAX package's layout; the running statistics are the state dict's
+    buffers). A resume restores all three."""
+    MODEL_KEY = "model"
+
+    def _state_save(self, epoch, path):
+        save_checkpoint(
+            path,
+            models={self.MODEL_KEY: self.model.state_dict()},
+            opt_states={self.MODEL_KEY: self.optimizer.state_dict()},
+            epoch=epoch, monitor_best=self.mnt_best,
+            config=self.config.config,
+            archs={self.MODEL_KEY: type(self.model).__name__},
+            extra={"batch_stats": {},
+                   "accumulation": self._train_step.state()})
+
+    def _save_checkpoint(self, epoch):
+        path = str(self.checkpoint_dir / f"checkpoint-epoch{epoch}.ckpt")
+        self._state_save(epoch, path)
+        self.logger.info("Saving checkpoint: %s ...", path)
+
+    def _save_best(self, epoch):
+        path = str(self.checkpoint_dir / "model_best.ckpt")
+        self._state_save(epoch, path)
+        self.logger.info("Saving current best: model_best.ckpt ...")
+
+    def _resume_checkpoint(self, resume_path):
+        self.logger.info("Loading checkpoint: %s ...", resume_path)
+        models, opts, extra, meta = load_checkpoint(resume_path)
+        self.model.load_state_dict(models[self.MODEL_KEY])
+        self.optimizer.load_state_dict(opts[self.MODEL_KEY])
+        if "accumulation" in extra:
+            self._train_step.load_state(extra["accumulation"])
+        self.start_epoch = meta["epoch"] + 1
+        self.mnt_best = meta["monitor_best"]
+        self.logger.info(
+            "Checkpoint loaded. Resume training from epoch %s",
+            self.start_epoch)

@@ -185,18 +185,20 @@ def inpainting_metrics(composite, graph: HierarchicalGraph, loss):
 
 
 class _TrainStep:
-    """train_step(graph, lr) -> metrics of `make_inpainting_steps`, with
-    gradient accumulation over `accumulate` calls: each call backpropagates
-    loss / accumulate into the parameters' gradients, and every
-    accumulate-th call takes one optimizer step at its `lr` and clears
-    them (optax.MultiSteps, which the JAX trainer uses, steps on the mean
-    of the gradients; this is the same sum). The partial sum carries over
-    from call to call, so over an epoch's end as well; `state` and
-    `load_state` hold it for checkpoints."""
+    """train_step(graph, lr) -> what `metrics_of` returns, with gradient
+    accumulation over `accumulate` calls. `loss_of(graph)` gives (loss,
+    aux); each call backpropagates loss / accumulate into the parameters'
+    gradients, and every accumulate-th call takes one optimizer step at
+    its `lr` and clears them (optax.MultiSteps, which the JAX trainers
+    use, steps on the mean of the gradients; this is the same sum). The
+    partial sum carries over from call to call, so over an epoch's end as
+    well; `state` and `load_state` hold it for checkpoints. The result is
+    `metrics_of(graph, loss, aux)`, taken without gradients."""
 
-    def __init__(self, model, optimizer, loss_of, accumulate):
+    def __init__(self, model, optimizer, loss_of, accumulate, metrics_of):
         self.model, self.optimizer = model, optimizer
         self.loss_of, self.accumulate = loss_of, int(accumulate)
+        self.metrics_of = metrics_of
         self.mini_step = 0
 
     def __call__(self, graph, lr):
@@ -204,7 +206,7 @@ class _TrainStep:
         with full_f32_matmuls():
             if self.mini_step == 0:
                 self.optimizer.zero_grad(set_to_none=True)
-            loss, composite = self.loss_of(graph)
+            loss, aux = self.loss_of(graph)
             (loss / self.accumulate if self.accumulate > 1
              else loss).backward()
             self.mini_step = (self.mini_step + 1) % self.accumulate
@@ -213,8 +215,7 @@ class _TrainStep:
                     group["lr"] = float(lr)
                 self.optimizer.step()
             with torch.no_grad():
-                return inpainting_metrics(composite.detach(), graph,
-                                          loss.detach())
+                return self.metrics_of(graph, loss.detach(), aux)
 
     def state(self):
         """{"mini_step": calls since the last optimizer step, "grads":
@@ -258,7 +259,22 @@ def make_inpainting_steps(model, optimizer, use_mask_weighted, impl=None,
             loss, composite = loss_of(graph)
             return inpainting_metrics(composite, graph, loss), composite
 
-    return _TrainStep(model, optimizer, loss_of, accumulate), eval_step
+    def metrics_of(graph, loss, composite):
+        return inpainting_metrics(composite.detach(), graph, loss)
+
+    return (_TrainStep(model, optimizer, loss_of, accumulate, metrics_of),
+            eval_step)
+
+
+def skip_probe(data_loader):
+    """Advance a trainer's loaders as the JAX trainers' parameter-template
+    probe does: the train loader by one iteration, and the val loader too
+    when the train set is empty (`_SceneLoader.skip_epoch`)."""
+    for loader in (data_loader.train_loader, data_loader.val_loader):
+        loader.skip_epoch()
+        if len(loader):
+            return
+    raise RuntimeError("No data available to initialize the model")
 
 
 def host_metrics(metrics) -> Dict[str, float]:

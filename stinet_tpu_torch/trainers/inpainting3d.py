@@ -18,22 +18,21 @@ torch versions.
 The JAX trainer reads one batch at construction for its parameter
 template, which advances the train loader's epoch key and shuffle by one
 iteration. The port needs no template, but advances the loader the same
-way (`_SceneLoader.skip_epoch`), so its batches are the JAX trainer's.
+way (`graph_common.skip_probe`), so its batches are the JAX trainer's.
 """
 import time
 
 import torch
 
 import stinet_tpu_torch.data.scannet  # noqa: F401  (registers the loader)
-from stinet_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from stinet_tpu_torch.core.registry import DATALOADERS, TRAINERS
 from stinet_tpu_torch.metrics import MetricTracker
 from stinet_tpu_torch.models.factory import define_G
 from stinet_tpu_torch.serving import resolve_device
-from stinet_tpu_torch.trainers.base import BaseTrainer
+from stinet_tpu_torch.trainers.base import SingleModelTrainer
 from stinet_tpu_torch.trainers.graph_common import (
     build_optimizer, host_metrics, iter_placed, make_inpainting_steps,
-    step_lr)
+    skip_probe, step_lr)
 from stinet_tpu_torch.utils.profiling import device_memory_stats
 
 METRICS = ("loss", "l1", "mse", "graph_tv", "graph_lap_var", "psnr",
@@ -69,7 +68,7 @@ def _timed(batches, waits):
 
 
 @TRAINERS.register("Inpainting3DTrainer")
-class Inpainting3DTrainer(BaseTrainer):
+class Inpainting3DTrainer(SingleModelTrainer):
     ARCH_KEY = "SurfaceTextureInpaintingNet"
     MODEL_KEY = "graph"     # the checkpoint's dict key, as the JAX trainer's
 
@@ -89,7 +88,7 @@ class Inpainting3DTrainer(BaseTrainer):
 
         self.data_loader = config.init_obj_with_config(
             "data_loader", DATALOADERS)
-        self._skip_probe()
+        skip_probe(self.data_loader)
 
         dl_args = config["data_loader"]["args"]
         self.num_accum = int(dl_args.get("num_cumulated_train_batches", 1))
@@ -114,17 +113,6 @@ class Inpainting3DTrainer(BaseTrainer):
         # per train epoch: {"epoch", "steps", "train_s", "wait_ms": the ms
         # each step waited for its batch}
         self.epoch_timings = []
-
-    def _skip_probe(self):
-        """Advance the loaders as the JAX trainer's parameter-template
-        probe does: the train loader by one iteration, and the val loader
-        too when the train set is empty."""
-        for loader in (self.data_loader.train_loader,
-                       self.data_loader.val_loader):
-            loader.skip_epoch()
-            if len(loader):
-                return
-        raise RuntimeError("No data available to initialize the model")
 
     # ------------------------------------------------------------------
     def _train_epoch(self, epoch):
@@ -199,38 +187,3 @@ class Inpainting3DTrainer(BaseTrainer):
                     names[0], comp / 2.0 + 0.5, color / 2.0 + 0.5, mask > 0)
         for key, value in self.valid_metrics.result(write=False).items():
             self.logger.info("    %-15s: %s", str(key), value)
-
-    # ------------------------------------------------------------------
-    def _state_save(self, epoch, path):
-        save_checkpoint(
-            path,
-            models={self.MODEL_KEY: self.model.state_dict()},
-            opt_states={self.MODEL_KEY: self.optimizer.state_dict()},
-            epoch=epoch, monitor_best=self.mnt_best,
-            config=self.config.config,
-            archs={self.MODEL_KEY: type(self.model).__name__},
-            extra={"batch_stats": {},
-                   "accumulation": self._train_step.state()})
-
-    def _save_checkpoint(self, epoch):
-        path = str(self.checkpoint_dir / f"checkpoint-epoch{epoch}.ckpt")
-        self._state_save(epoch, path)
-        self.logger.info("Saving checkpoint: %s ...", path)
-
-    def _save_best(self, epoch):
-        path = str(self.checkpoint_dir / "model_best.ckpt")
-        self._state_save(epoch, path)
-        self.logger.info("Saving current best: model_best.ckpt ...")
-
-    def _resume_checkpoint(self, resume_path):
-        self.logger.info("Loading checkpoint: %s ...", resume_path)
-        models, opts, extra, meta = load_checkpoint(resume_path)
-        self.model.load_state_dict(models[self.MODEL_KEY])
-        self.optimizer.load_state_dict(opts[self.MODEL_KEY])
-        if "accumulation" in extra:
-            self._train_step.load_state(extra["accumulation"])
-        self.start_epoch = meta["epoch"] + 1
-        self.mnt_best = meta["monitor_best"]
-        self.logger.info(
-            "Checkpoint loaded. Resume training from epoch %s",
-            self.start_epoch)

@@ -1,4 +1,6 @@
-"""Carry STINet weights from the JAX package to the port.
+"""Carry model weights from the JAX package to the port: STINet's
+(`state_dict_from_jax_params`) and SingleConvMeshNet's
+(`seg_state_dict_from_jax_params`).
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `convert_stinet_state_dict` (stinet_tpu/utils/convert_reference_checkpoint
@@ -106,4 +108,62 @@ def state_dict_from_jax_params(params, batch_stats=None
                                          f"{top}/first_filter/{leaf}")
             else:
                 raise ValueError(f"no port layer for {top}/{name}")
+    return out
+
+
+def seg_state_dict_from_jax_params(params, batch_stats
+                                   ) -> Dict[str, torch.Tensor]:
+    """Flax params and batch_stats of a `stinet_tpu` SingleConvMeshNet ->
+    the port's state dict (models/singleconvmeshnet.py), CPU f32 tensors.
+    The module paths are the same on both sides; the leaves map as
+
+      <blk>/filter_{i}/lin{1,2}_kernel       -> <blk>.filter_{i}.lin{1,2}.weight
+      <blk>/filter_{i}/bn{1,2}/{scale,bias}  -> ...bn{1,2}.{weight,bias}
+      batch_stats <...>/bn{1,2}/{mean,var}   -> ...bn{1,2}.running_{mean,var}
+      head_lin{1,2}/{kernel,bias}            -> head_lin{1,2}.{weight,bias}
+      head_bn/{scale,bias}, batch_stats head_bn/{mean,var}
+                                             -> head_bn.{weight,bias,
+                                                running_mean,running_var}
+
+    with <blk> one of left_{l}, right_{l}; kernels are transposed. Anything
+    else raises rather than being dropped."""
+    out = {}
+
+    def bn(prefix, leaves, stats):
+        names = {"scale": "weight", "bias": "bias"}
+        for leaf, val in leaves.items():
+            if leaf not in names:
+                raise ValueError(f"unexpected batch norm leaf "
+                                 f"{prefix}/{leaf}")
+            out[f"{prefix}.{names[leaf]}"] = _tensor(val, False)
+        if set(stats) != {"mean", "var"}:
+            raise ValueError(f"batch norm {prefix} needs its batch_stats "
+                             f"mean and var, got {sorted(stats)}")
+        out[f"{prefix}.running_mean"] = _tensor(stats["mean"], False)
+        out[f"{prefix}.running_var"] = _tensor(stats["var"], False)
+
+    for top, sub in params.items():
+        if top in ("head_lin1", "head_lin2"):
+            _dense(top, sub, out)
+        elif top == "head_bn":
+            bn(top, sub, batch_stats.get(top, {}))
+        elif top.rpartition("_")[0] in ("left", "right") \
+                and top.rpartition("_")[2].isdigit():
+            for filt, leaves in sub.items():
+                kind, _, i = filt.rpartition("_")
+                if kind != "filter" or not i.isdigit():
+                    raise ValueError(f"no port layer for {top}/{filt}")
+                prefix = f"{top}.{filt}"
+                stats = batch_stats.get(top, {}).get(filt, {})
+                for leaf, val in leaves.items():
+                    if leaf in ("lin1_kernel", "lin2_kernel"):
+                        out[f"{prefix}.{leaf[:4]}.weight"] = _tensor(val,
+                                                                     True)
+                    elif leaf in ("bn1", "bn2"):
+                        bn(f"{prefix}.{leaf}", val, stats.get(leaf, {}))
+                    else:
+                        raise ValueError(f"unexpected filter leaf "
+                                         f"{top}/{filt}/{leaf}")
+        else:
+            raise ValueError(f"no port layer for params entry {top!r}")
     return out

@@ -3,7 +3,8 @@
 J/K/M/F for prediction, ground truth, mask and error heat map, P for a
 screenshot, D to dump a .ply set). It is numpy code; open3d is optional,
 and without it `visualize_result` writes the .ply files directly, so eval
-artifacts are still produced. SemSegVisualizer waits for segmentation.
+artifacts are still produced. SemSegVisualizer shows labels through a
+colour map, and the mismatches as the mask.
 """
 import os
 
@@ -129,3 +130,19 @@ class ColorCompletionVisualizer:
         }
         o3d.visualization.draw_geometries_with_key_callbacks(
             [mesh], key_callbacks)
+
+
+class SemSegVisualizer(ColorCompletionVisualizer):
+    def __init__(self, data_loader, color_map, output_dir="visualizations/"):
+        super().__init__(data_loader, output_dir)
+        self.color_map = color_map
+
+    def visualize_result(self, name, pred_labels, gt_labels):
+        pred_labels = np.asarray(pred_labels).reshape(-1)
+        gt_labels = np.asarray(gt_labels).reshape(-1)
+        lut = np.zeros((max(self.color_map) + 1, 3))
+        for k, v in self.color_map.items():
+            lut[k] = np.asarray(v) / 255.0
+        super().visualize_result(
+            name, lut[pred_labels], lut[gt_labels],
+            (pred_labels != gt_labels).astype(np.float32))

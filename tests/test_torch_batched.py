@@ -136,6 +136,53 @@ def _stacked_graph_matches_jax(windowed):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("native", [False, True])
+def test_build_stacked_graph_passes_its_build_arguments_as_jax_does(
+        monkeypatch, native):
+    """Non-default `pad_multiple`, `ell_cap_quantile` and
+    `window_quantile` reach every scene's build: the stacked graph and its
+    widths equal the JAX package's, leaf for leaf, with both native
+    builders off (scipy's RCM) and with both on."""
+    if native:
+        assert (port_build._native.available()
+                and jax_build._native.available())
+    else:
+        monkeypatch.setattr(jax_build._native, "available", lambda: False)
+        monkeypatch.setattr(port_build._native, "available", lambda: False)
+    ref_scenes, scenes = _scenes((1500, 1400, 1500), (0, 1, 2))
+    kw = dict(pad_multiple=256, geometric=True, ell_cap_quantile=0.8,
+              windowed=True, window_quantile=0.99)
+    ref, ref_w = jax_build.build_stacked_graph(ref_scenes, **kw)
+    got, got_w = port_build.build_stacked_graph(scenes, **kw)
+    assert got_w == ref_w
+    assert_same_tree(got, ref)
+    # the arguments changed the build: the default one differs
+    default, _ = port_build.build_stacked_graph(
+        scenes, geometric=True, windowed=True)
+    assert tree_structure(default) != tree_structure(got) or any(
+        a.shape != b.shape or not torch.equal(a, b) for a, b in zip(
+            tensor_leaves(default), tensor_leaves(got)))
+
+
+def test_build_stacked_graph_with_one_worker_builds_in_sequence(
+        monkeypatch):
+    """STINET_BUILD_WORKERS=1 builds the scenes (and their edge sets) with
+    no thread pool, and the result equals the pooled build's."""
+    _, scenes = _scenes((1500, 1400, 1500), (0, 1, 2))
+    pooled, pooled_w = port_build.build_stacked_graph(scenes, geometric=True)
+
+    def no_pool(*a, **k):
+        raise AssertionError("a thread pool was started")
+
+    monkeypatch.setenv("STINET_BUILD_WORKERS", "1")
+    monkeypatch.setattr(port_build, "ThreadPoolExecutor", no_pool)
+    got, got_w = port_build.build_stacked_graph(scenes, geometric=True)
+    assert got_w == pooled_w
+    assert tree_structure(got) == tree_structure(pooled)
+    for a, b in zip(tensor_leaves(got), tensor_leaves(pooled)):
+        assert torch.equal(a, b)
+
+
 def test_build_stacked_graph_refuses_an_emptied_dilated_set_as_jax_does():
     """A scene without a dilation distance the others have gets an empty
     edge set for it, with no ELL table where theirs have one: the layouts

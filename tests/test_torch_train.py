@@ -62,6 +62,8 @@ def t(a):
     {"type": "Adam", "args": {"lr": 1e-3, "amsgrad": True}},
     {"type": "Adam", "args": {"lr": 7e-5, "weight_decay": 0.01,
                               "amsgrad": True}},
+    {"type": "Adam", "args": {"lr": 1e-3, "weight_decay": 0,
+                              "amsgrad": False}},
     {"type": "SGD", "args": {"lr": 1e-2, "momentum": 0.9}}])
 def test_optimizer_matches_jax_over_20_steps(opt_config):
     rng = np.random.default_rng(0)
