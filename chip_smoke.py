@@ -115,6 +115,30 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    step (device busy ms, launches, idle share, top 8 ops); a resume for
    one more epoch (state and Adam state bitwise the file's) and
    `-e valid`; the phase's wall time;
+8c. inpainting2d: the CLI trains the hermetic 2D config (STINet with
+   edgeconv over 128 x 128 image grid graphs, ngf 64, 9 blocks, f32, B=4;
+   LPIPS every batch and FID on random features) with the cuts listed in
+   `inpainting2d_phase`: INP2D_EPOCHS epochs of 8 steps on 32 synthesized
+   textures, FID at the last one: the kernels' launch counts zeroed
+   before and read after (f32 K1, dp, dq and multi-graph K2 in training,
+   single-graph K2 in validation), each step's launches equal to the calls
+   a plain-path trainer's step records on the same batch, the first loss
+   within TRAIN_TOL of that trainer's, every loss and LPIPS finite, both
+   FIDs finite, the checkpoints written; on one full-width train batch
+   and one val image from the trainer's weights, every K1, dp, dq and K2
+   call of a plain-path forward, backward and eval step held against its
+   kernel on the same inputs (K1, dp and dq bit for bit, K2 of 4 graphs
+   and of one within K2_RTOL/K2_ATOL), and the kernel path's loss and
+   gradients against the plain path's (TRAIN_TOL; all gradients as one
+   vector within INP2D_GRAD_TOL in L2); LPIPS and InceptionV3 on the card
+   (TF32 off) against the CPU within PERCEPTUAL_TOL; then the trainer's
+   ms/step, the loader's ms a batch, the wait on `iter_placed`, the FID
+   passes split into eval and Inception forwards against the host's
+   statistics and sqrtm, a bare step split into forward, backward and
+   optimizer with peak memory and LPIPS's time beside it, eval ms/image,
+   and a traced step (busy ms, launches, idle share, top 8 ops); a resume
+   for one more epoch (parameters and Adam state bitwise the file's) and
+   `-e valid`; the phase's wall time;
 9. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
@@ -1454,15 +1478,16 @@ def trainer_config(path, roots, save_dir, source, epochs, **loader_args):
     return cfg
 
 
-def check_trainer_launches(torch, cfg, probe, device):
+def check_trainer_launches(torch, cfg, probe, device, trainer_cls=None):
     """Each train step's kernel launches equal the kernel calls a plain-path
-    trainer's step (same config, same initial weights) records on the same
-    batch; returns the plain trainer's loss on the first batch."""
+    trainer's step (same config, same initial weights; an
+    Inpainting3DTrainer unless `trainer_cls`) records on the same batch;
+    returns the plain trainer's loss on the first batch."""
     from stinet_tpu_torch.core.config import ConfigParser
     from stinet_tpu_torch.trainers.inpainting3d import Inpainting3DTrainer
-    plain = Inpainting3DTrainer(ConfigParser(copy.deepcopy(cfg),
-                                             dry_run=True),
-                                device=device, impl="plain")
+    plain = (trainer_cls or Inpainting3DTrainer)(
+        ConfigParser(copy.deepcopy(cfg), dry_run=True), device=device,
+        impl="plain")
     lr = plain.lr_fn(1)
     first = None
     for i, (graph, launched) in enumerate(zip(probe.graphs, probe.launches)):
@@ -1803,31 +1828,39 @@ class SegStepProbe:
 
 
 @contextlib.contextmanager
-def probed_segmentation(torch, expect=None):
-    """While open, every GraphSegmentationTrainer built takes a
-    SegStepProbe for its train step, and each `_train_epoch` log is kept:
-    yields (probes, logs)."""
-    from stinet_tpu_torch.trainers import segmentation
+def probed_steps(torch, trainer_cls, factory, probe_cls, expect=None):
+    """While open, every `trainer_cls` built takes a `probe_cls` for the
+    train step that `factory` (a step maker in the trainer's module) makes,
+    and each `_train_epoch` log is kept: yields (probes, logs)."""
+    module = sys.modules[trainer_cls.__module__]
     probes, logs = [], []
-    make = segmentation.make_segmentation_steps
-    epoch = segmentation.GraphSegmentationTrainer._train_epoch
+    make = getattr(module, factory)
+    epoch = trainer_cls._train_epoch
 
     def make_probed(model, optimizer, *args, **kw):
         step, eval_step = make(model, optimizer, *args, **kw)
-        probes.append(SegStepProbe(torch, step, model, optimizer, expect))
+        probes.append(probe_cls(torch, step, model, optimizer, expect))
         return probes[-1], eval_step
 
     def epoch_kept(self, e):
         logs.append(epoch(self, e))
         return logs[-1]
 
-    segmentation.make_segmentation_steps = make_probed
-    segmentation.GraphSegmentationTrainer._train_epoch = epoch_kept
+    setattr(module, factory, make_probed)
+    trainer_cls._train_epoch = epoch_kept
     try:
         yield probes, logs
     finally:
-        segmentation.make_segmentation_steps = make
-        segmentation.GraphSegmentationTrainer._train_epoch = epoch
+        setattr(module, factory, make)
+        trainer_cls._train_epoch = epoch
+
+
+def probed_segmentation(torch, expect=None):
+    """`probed_steps` for GraphSegmentationTrainer's SegStepProbe."""
+    from stinet_tpu_torch.trainers.segmentation import (
+        GraphSegmentationTrainer)
+    return probed_steps(torch, GraphSegmentationTrainer,
+                        "make_segmentation_steps", SegStepProbe, expect)
 
 
 def seg_card_against_cpu(torch, trainer, graph):
@@ -1893,11 +1926,12 @@ def seg_card_against_cpu(torch, trainer, graph):
             f"{SEG_TOL} relative; CPU step {cpu['s']:.1f} s")
 
 
-def seg_bare_step(torch, trainer, graph, card):
+def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
     """The trainer's model and optimizer on one placed graph: a train step
     by CUDA events split into forward, backward and optimizer, its peak
-    device memory, the eval step, and one traced step (torch.profiler):
-    device busy ms, launches, idle share and the top ops by device time."""
+    device memory, the eval step (ms a `unit`, `per` of them a graph), and
+    one traced step (torch.profiler): device busy ms, launches, idle share
+    and the top ops by device time. Returns the median step ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from stinet_tpu_torch.serving import full_f32_matmuls
@@ -1931,13 +1965,13 @@ def seg_bare_step(torch, trainer, graph, card):
              for i in range(3)]
     total = [sum(x) for x in zip(*split)]
     eval_ms = median_ms(torch, lambda: trainer._eval_step(graph),
-                        reps=SEG_STEP_REPS, inner=1, warmup=1)
+                        reps=SEG_STEP_REPS, inner=1, warmup=1) / per
     med = statistics.median
-    say("segmentation", f"bare train step by CUDA events, median of "
+    say(phase, f"bare train step by CUDA events, median of "
         f"{SEG_STEP_REPS}: {med(total):.2f} ms = forward {med(split[0]):.2f}"
         f" + backward {med(split[1]):.2f} + optimizer {med(split[2]):.2f};"
         f" peak device memory {peak:.2f} GiB; eval step {eval_ms:.2f} "
-        f"ms/scene; on {card}")
+        f"ms/{unit}; on {card}")
 
     def steps():
         for _ in range(SEG_STEP_REPS):
@@ -1959,14 +1993,15 @@ def seg_bare_step(torch, trainer, graph, card):
     busy = sum(_self_device_us(e) for e in kernels) / 1e3 / SEG_STEP_REPS
     check(busy > 0, "the profiler recorded no device time")
     launches = sum(e.count for e in kernels) / SEG_STEP_REPS
-    say("segmentation", f"traced train step ({SEG_STEP_REPS} steps): "
+    say(phase, f"traced train step ({SEG_STEP_REPS} steps): "
         f"{busy:.3f} ms device busy, {launches:.0f} kernel launches, idle "
         f"share {max(0.0, 1 - busy / wall):.1%} of the untraced "
         f"{wall:.3f} ms; on {card}")
     for e in sorted(kernels, key=_self_device_us, reverse=True)[:8]:
         ms = _self_device_us(e) / 1e3 / SEG_STEP_REPS
-        say("segmentation", f"  top {ms:8.3f} ms x{e.count // SEG_STEP_REPS:4d}"
+        say(phase, f"  top {ms:8.3f} ms x{e.count // SEG_STEP_REPS:4d}"
             f"  {e.key[:100]}")
+    return med(total)
 
 
 def segmentation_phase(torch, card):
@@ -2025,26 +2060,14 @@ def segmentation_phase(torch, card):
             + "; ".join(", ".join(f"{k} {log[k]:.4f}" for k in (
                 "loss", "mean_iou", "val_loss", "val_mean_iou",
                 "val_full_scene_mean_iou")) for log in logs))
-        per_epoch = [t["train_s"] * 1e3 / t["steps"]
-                     for t in trainer.epoch_timings]
-        waits = [w for t in trainer.epoch_timings for w in t["wait_ms"]]
-        build = trainer.data_loader.train_loader.build_ms
-        fmt = ", ".join
-        say("segmentation", f"trainer clock ms/step by epoch "
-            f"{fmt(f'{x:.2f}' for x in per_epoch)}; loader build ms per "
-            f"train batch {fmt(f'{x:.2f}' for x in build)}; wait on "
-            f"iter_placed ms per step {fmt(f'{x:.2f}' for x in waits)}; "
-            f"step ms by CUDA events "
-            f"{fmt(f'{x:.2f}' for x in probe.step_ms())}; peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB;"
-            f" on {card}")
+        trainer_readings("segmentation", trainer, probe, card)
 
         sample = trainer.data_loader.train_dataset[0]
         graph = build_hierarchical_graph(
             [sample], pad_multiple=trainer.data_loader.train_loader
             .pad_multiple, geometric=True)
         say("segmentation", seg_card_against_cpu(torch, trainer, graph))
-        seg_bare_step(torch, trainer, graph.to("cuda"), card)
+        bare_step(torch, "segmentation", trainer, graph.to("cuda"), card)
         del trainer, probes
 
         last = run / f"checkpoint-epoch{SEG_EPOCHS}.ckpt"
@@ -2076,6 +2099,312 @@ def segmentation_phase(torch, card):
         del evaluator
     say("segmentation", f"phase wall time {time.perf_counter() - t_phase:.1f}"
         f" s; on {card}")
+
+
+# --- the 2D texture-inpainting workload, graph branch -------------------------
+
+INP2D_CONFIG = ("experiments/2d_inpainting/config/"
+                "config_stinet_imageinpainting_hermetic.json")
+INP2D_EPOCHS = 2            # epochs of the 2D run (the config: 2000)
+INP2D_FID_EVERY = 2         # its epochs_per_fid (the config: 5)
+PERCEPTUAL_TOL = 1e-4       # LPIPS and InceptionV3, card vs CPU, relative
+INP2D_GRAD_TOL = 1e-3       # all gradients, kernel vs plain path, L2 relative
+
+
+def probed_2d(torch, expect=None):
+    """`probed_steps` for Inpainting2DTrainer's StepProbe."""
+    from stinet_tpu_torch.trainers.inpainting2d import Inpainting2DTrainer
+    return probed_steps(torch, Inpainting2DTrainer, "make_inpainting2d_steps",
+                        StepProbe, expect)
+
+
+def grads_2d(torch, trainer, graph, vgraph=None, impl=None):
+    """One forward and backward of the trainer's loss on the placed batch
+    `graph` by a copy of the trainer's model on `impl`'s path, then one
+    eval step on the val batch `vgraph` where one is given: (loss,
+    {parameter name: gradient})."""
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    from stinet_tpu_torch.trainers.inpainting2d import make_inpainting2d_steps
+    model = copy.deepcopy(trainer.model)
+    for p in model.parameters():
+        p.grad = None
+    step, eval_step = make_inpainting2d_steps(
+        model, None, trainer.img_size,
+        tv_weight=(trainer.total_variation_weight
+                   if trainer.use_total_variation else None),
+        vgg=trainer.vgg_loss,
+        vgg_weights=(trainer.vgg_content_weight, trainer.vgg_style_weight),
+        impl=impl)
+    model.train()
+    with full_f32_matmuls():
+        loss, _ = step.loss_of(graph)
+        loss.backward()
+    if vgraph is not None:
+        eval_step(vgraph)
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad
+                                  for n, p in model.named_parameters()}
+
+
+def check_2d_grads(kernel, plain):
+    """The kernel path's loss and gradients (`grads_2d`) against the plain
+    path's, from the same weights on the same batch: the loss within
+    TRAIN_TOL, every parameter's gradient taken together as one vector
+    within INP2D_GRAD_TOL of its L2 norm. Element by element the paths
+    part by more: an f32 relu or max pool within rounding of a tie sends
+    an element's gradient the other way, and a bias ahead of an instance
+    norm has a gradient of rounding size (the norm cancels it). Returns a
+    summary line."""
+    (k_loss, k_grads), (p_loss, p_grads) = kernel, plain
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    check(rel <= TRAIN_TOL, f"kernel path loss {k_loss} vs plain path "
+          f"{p_loss}: relative {rel:.3e} > {TRAIN_TOL}")
+    check(sorted(k_grads) == sorted(p_grads)
+          and all(g is not None for g in p_grads.values())
+          and all(g is not None for g in k_grads.values()),
+          "a parameter has no gradient on one of the paths")
+    diff = math.sqrt(sum(float((k_grads[k] - g).double().norm()) ** 2
+                         for k, g in p_grads.items()))
+    norm = math.sqrt(sum(float(g.double().norm()) ** 2
+                         for g in p_grads.values()))
+    check(diff <= INP2D_GRAD_TOL * norm, f"gradients, kernel vs plain "
+          f"path: L2 of the difference {diff:.3e} > {INP2D_GRAD_TOL} x "
+          f"{norm:.3e}")
+    per = [float((k_grads[k] - g).abs().max())
+           / max(float(g.abs().max()), 1e-30) for k, g in p_grads.items()]
+    return (f"one forward and backward from the trainer's weights, kernel "
+            f"vs plain path: loss {k_loss:.6f} vs {p_loss:.6f} (relative "
+            f"{rel:.2e}); the {len(per)} parameters' gradients as one "
+            f"vector apart by {diff / norm:.3e} of its L2 norm (tolerance "
+            f"{INP2D_GRAD_TOL}); per parameter, max |diff| over the largest"
+            f" element: median {statistics.median(per):.3e}")
+
+
+def check_2d_kernels(torch, calls, num_graphs):
+    """Every K1, dp, dq and K2 call recorded on the plain path of
+    `grads_2d` (`record_calls(train_targets())`), on its kernel and on its
+    plain version with the same inputs: K1, dp and dq bit for bit, K2
+    within K2_RTOL/K2_ATOL with its pad rows 0, both as the train step
+    calls it (`num_graphs` graphs) and as the eval step does (one).
+    Returns a summary line."""
+    from stinet_tpu_torch.ops import ell, norms
+    check(not calls["k3a"] and not calls["k3c"],
+          "windowed kernel calls on the 2D path")
+    shapes = {}
+    for key, kernel, plain in (
+            ("k1", ell.ell_edge_conv_sum_kernel, ell.ell_edge_conv_sum_plain),
+            ("k1dp", ell.ell_edge_conv_dp_kernel, ell.ell_edge_conv_dp_plain),
+            ("k1dq", ell.ell_edge_conv_dq_kernel, ell.ell_edge_conv_dq_plain)):
+        check(len(calls[key]) > 0, f"no {key} call on the 2D path")
+        for i, args in enumerate(calls[key]):
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            (v, h), d = args[0].shape, args[3 if key == "k1dq" else 2].shape[1]
+            check(got.dtype == want.dtype == torch.float32
+                  and torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                  f"2D {key} call {i} V={v} H={h} D={d}: kernel and plain "
+                  "version differ")
+            shapes.setdefault(key, set()).add((v, h, d))
+    graphs, err = {}, 0.0
+    for i, (x, gid, ng, nv, eps) in enumerate(calls["k2"]):
+        ng, n = int(ng), int(nv)
+        got = norms.masked_instance_norm_kernel(
+            x, nv, eps, gid if ng > 1 else None, ng)
+        want = norms.masked_instance_norm_plain(x, gid, ng, nv, eps)
+        torch.cuda.synchronize()
+        e = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=K2_RTOL, atol=K2_ATOL),
+              f"2D K2 call {i} {tuple(x.shape)} G={ng}: max |diff| {e:.3e} "
+              f"exceeds rtol {K2_RTOL} / atol {K2_ATOL}")
+        check(torch.all(got[n:] == 0).item(), f"2D K2 call {i}: pad rows "
+              "not 0")
+        err = max(err, e)
+        graphs[ng] = graphs.get(ng, 0) + 1
+    check(sorted(graphs) == sorted({1, num_graphs}),
+          f"K2 calls by graphs a call {graphs}: the train step's have "
+          f"{num_graphs}, the eval step's 1")
+    return ("plain-path train step (forward and backward) and eval step, "
+            "each kernel call held against its plain version on the same "
+            "inputs: " + "; ".join(
+                f"{key} {len(calls[key])} calls bitwise at (V, H, D) "
+                f"{sorted(shapes[key])}" for key in ("k1", "k1dp", "k1dq"))
+            + f"; K2 {len(calls['k2'])} calls ({graphs[num_graphs]} of "
+            f"{num_graphs} graphs, {graphs[1]} of one) within rtol "
+            f"{K2_RTOL} / atol {K2_ATOL}, max |diff| {err:.3e}")
+
+
+def perceptual_card_against_cpu(torch, trainer, graph, card):
+    """The trainer's LPIPS and InceptionV3 on the card (TF32 off) against
+    copies of them on the CPU, on the same images (a batch's ground truth
+    and a shifted copy): relative error of the distances and of the pool3
+    features over their largest. Also the LPIPS call's time by CUDA
+    events. Returns the LPIPS ms."""
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    n = graph.num_graphs
+    gt = trainer._images(graph.color, n)
+    other = torch.roll(gt, shifts=7, dims=2)
+    with full_f32_matmuls(), torch.no_grad():
+        check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+        card_d = trainer.lpips(gt, other).cpu()
+        card_f = trainer.inception(gt / 2.0 + 0.5).cpu()
+        lpips_ms = median_ms(torch, lambda: trainer.lpips(gt, other),
+                             reps=SEG_STEP_REPS, inner=1, warmup=1)
+    cpu_d = copy.deepcopy(trainer.lpips).cpu()(gt.cpu(), other.cpu())
+    with torch.no_grad():
+        cpu_f = copy.deepcopy(trainer.inception).cpu()(gt.cpu() / 2 + 0.5)
+    d_err = float(((card_d - cpu_d).abs() / cpu_d.abs()).max())
+    f_err = float((card_f - cpu_f).abs().max() / cpu_f.abs().max())
+    check(d_err <= PERCEPTUAL_TOL and f_err <= PERCEPTUAL_TOL,
+          f"perceptual nets, card vs CPU: LPIPS relative {d_err:.3e}, "
+          f"Inception {f_err:.3e} of the largest feature > {PERCEPTUAL_TOL}")
+    say("inpainting2d", f"card vs CPU on {n} images: LPIPS "
+        f"{[round(float(x), 6) for x in card_d]} relative {d_err:.3e}; "
+        f"InceptionV3 pool3 {list(card_f.shape)} max |diff| {f_err:.3e} of "
+        f"the largest; TF32 off (cuDNN and matmuls); LPIPS call "
+        f"{lpips_ms:.3f} ms by CUDA events on {card}")
+    return lpips_ms
+
+
+def inpainting2d_phase(torch, card):
+    """The 2D phase: the port's CLI trains the hermetic 2D config (STINet
+    over image grid graphs, full width) with LPIPS and FID on random
+    features, resumes it and evaluates it.
+
+    Cuts, against the shipped hermetic config: `root_dir` an empty
+    temporary directory, so the loader synthesizes 32 train textures (8
+    steps an epoch at B=4) and 8 val textures; `save_dir` repointed;
+    INP2D_EPOCHS epochs, then one more resumed (the config: 2000);
+    `epochs_per_fid` INP2D_FID_EVERY (the config: 5), so FID runs once,
+    at the last epoch, for train and val; a checkpoint every epoch;
+    `tensorboard` as the config sets it, as in phase 8."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.trainers.inpainting2d import Inpainting2DTrainer
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t_phase = time.perf_counter()
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory(prefix="stinet_2d_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "textures").mkdir()
+        cfg = json.loads(pathlib.Path(INP2D_CONFIG).read_text())
+        cfg["data_loader"]["args"]["root_dir"] = str(tmp / "textures")
+        cfg["trainer"].update(save_dir=str(tmp / "saved"),
+                              epochs=INP2D_EPOCHS, save_period=1,
+                              epochs_per_fid=INP2D_FID_EVERY)
+        (tmp / "2d.json").write_text(json.dumps(cfg))
+        args = cfg["archs"]["SurfaceTextureInpaintingNet"]["args"]
+        dl = cfg["data_loader"]["args"]
+        say("inpainting2d", f"{INP2D_CONFIG}: ngf {args['ngf']}, "
+            f"{args['n_blocks']} blocks, {args['filter_type']}, img_size "
+            f"{dl['img_size']}, end_level {dl['end_level']}, batch "
+            f"{dl['train_batch_size']}; root_dir empty (synthesized "
+            f"textures), save_dir repointed, epochs {INP2D_EPOCHS}, "
+            f"epochs_per_fid {INP2D_FID_EVERY}, save_period 1")
+
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_2d(torch) as (probes, logs):
+            trainer = cli.main(["-c", str(tmp / "2d.json"), "-d", "cuda",
+                                "-n", "2d"])
+        launches = _read(counters)
+        probe = probes[0]
+        # before the plain-path trainer below raises the peak
+        trainer_readings("inpainting2d", trainer, probe, card)
+        check(all(launches[k] > 0 for k in ("k1", "k1dp", "k1dq", "k2mg",
+                                            "k2")),
+              f"a kernel of the 2D path never launched: {launches}")
+        check(launches["k3a"] == launches["k3c"] == 0,
+              f"windowed kernels on the 2D path: {launches}")
+        losses = [float(x) for x in probe.losses]
+        steps_a_epoch = len(trainer.data_loader.train_loader)
+        check(len(losses) == INP2D_EPOCHS * steps_a_epoch,
+              f"{len(losses)} train steps")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        tag = trainer.lpips_tag
+        for log in logs:
+            for k in ("loss", tag, "val_loss", "val_" + tag):
+                check(math.isfinite(log[k]), f"epoch log {k} {log[k]}")
+        for k in ("train_fid_random_features", "val_fid_random_features"):
+            check(math.isfinite(logs[-1].get(k, math.nan)),
+                  f"epoch {INP2D_EPOCHS} {k}: {logs[-1].get(k)}")
+        plain_first = check_trainer_launches(torch, cfg, probe, "cuda",
+                                             Inpainting2DTrainer)
+        rel = abs(losses[0] - plain_first) / abs(plain_first)
+        check(rel <= TRAIN_TOL, f"first loss {losses[0]} vs the plain-path "
+              f"trainer's {plain_first}: relative {rel:.3e} > {TRAIN_TOL}")
+        run = trainer.checkpoint_dir
+        names = [f"checkpoint-epoch{e}.ckpt"
+                 for e in range(1, INP2D_EPOCHS + 1)] + ["model_best.ckpt"]
+        for name in names:
+            for f in (run / name, run / (name + ".meta.json")):
+                check(f.exists(), f"{f} was not written")
+        say("inpainting2d", f"CLI run: {len(losses)} steps, losses "
+            f"{[round(x, 6) for x in losses]}; first loss against the "
+            f"plain-path trainer's {plain_first:.6f} (relative {rel:.2e}); "
+            f"launches in the run (train, FID and validation) {launches}; "
+            f"per step {probe.launches[0]}, each step equal to the plain "
+            f"path's recorded calls; {', '.join(names)} written; epoch logs "
+            + "; ".join(", ".join(f"{k} {log[k]:.6g}" for k in log
+                                  if k != "lr") for log in logs))
+        for t in trainer.fid_timings:
+            say("inpainting2d", f"FID epoch {t['epoch']} {t['split']}: "
+                f"{t['features_s']:.3f} s eval steps and InceptionV3 "
+                f"forwards to the host copy, {t['distance_s']:.3f} s host "
+                f"statistics and sqrtm (scipy, 2048 x 2048); on {card}")
+
+        graph, _ = next(iter(trainer.data_loader.train_loader))
+        graph = graph.to("cuda")
+        vgraph = next(iter(trainer.data_loader.val_loader))[0].to("cuda")
+        with record_calls(train_targets()) as calls:
+            plain = grads_2d(torch, trainer, graph, vgraph, impl="plain")
+        say("inpainting2d", check_2d_kernels(torch, calls, graph.num_graphs))
+        del calls
+        say("inpainting2d", check_2d_grads(
+            grads_2d(torch, trainer, graph), plain))
+        lpips_ms = perceptual_card_against_cpu(torch, trainer, graph, card)
+        step_ms = bare_step(torch, "inpainting2d", trainer, graph, card,
+                            unit="image (a batch of 4)", per=graph.num_graphs)
+        eval_ms = median_ms(torch, lambda: trainer._eval_step(vgraph),
+                            reps=SEG_STEP_REPS, inner=1, warmup=1)
+        say("inpainting2d", f"LPIPS {lpips_ms:.3f} ms against the bare "
+            f"step's {step_ms:.2f} ms ({lpips_ms / step_ms:.1%}; the step "
+            f"computes it under no_grad after the backward); eval "
+            f"{eval_ms:.2f} ms/image (a val batch of 1, LPIPS included); "
+            f"on {card}")
+        del trainer, probes
+
+        last = run / f"checkpoint-epoch{INP2D_EPOCHS}.ckpt"
+        cfg["trainer"]["epochs"] = INP2D_EPOCHS + 1
+        (tmp / "2d_more.json").write_text(json.dumps(cfg))
+        with probed_2d(torch, expect=last) as (probes, _):
+            resumed = cli.main(["-c", str(tmp / "2d_more.json"), "-r",
+                                str(last), "-d", "cuda", "-n", "resume"])
+        epochs = [t["epoch"] for t in resumed.epoch_timings]
+        check(epochs == [INP2D_EPOCHS + 1], f"resumed epochs {epochs}")
+        check(all(math.isfinite(float(x)) for x in probes[0].losses),
+              "non-finite resumed loss")
+        say("inpainting2d", f"resume from {last.name}: epoch {epochs[0]} "
+            "ran; parameters and Adam state bitwise the file's before its "
+            f"first step; losses "
+            f"{[round(float(x), 6) for x in probes[0].losses]}")
+        del resumed, probes
+
+        t0 = time.perf_counter()
+        evaluator = cli.main(["-r", str(run / "model_best.ckpt"), "-e",
+                              "valid", "-d", "cuda", "-n", "eval"])
+        eval_s = time.perf_counter() - t0
+        result = evaluator.valid_metrics.result()
+        check(all(math.isfinite(v) for v in result.values()),
+              f"eval metrics {result}")
+        say("inpainting2d", f"-e valid -r model_best.ckpt: {result}; "
+            f"{eval_s:.2f} s for {len(evaluator.data_loader.val_dataset)} "
+            f"images, the trainer's construction included")
+        del evaluator
+    say("inpainting2d", f"phase wall time "
+        f"{time.perf_counter() - t_phase:.1f} s; on {card}")
 
 
 # --- windowed f32 and batched serving ----------------------------------------
@@ -2569,6 +2898,7 @@ def main(argv=None):
     del train_model, wgraph, captured
     trainer_phase(torch, card)
     segmentation_phase(torch, card)
+    inpainting2d_phase(torch, card)
 
     # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,

@@ -1,2 +1,3 @@
 """Data loading of the port: the ScanNet colour loader, its transforms and
-the prefetch thread."""
+the prefetch thread, and the 2D image-graph loader (registered here)."""
+from stinet_tpu_torch.data import imagegraph  # noqa: F401

@@ -484,6 +484,47 @@ def build_hierarchical_graph(
 
 
 # ---------------------------------------------------------------------------
+# The grid-graph hierarchy of the 2D image-inpainting workload: 4-connected
+# grid edges per level and 2x2 nearest-upsample traces with decimation 2
+# (the reference's fake hierarchy, imagegraph_dataloader.py:44-108), built
+# vectorized. numpy only.
+# ---------------------------------------------------------------------------
+
+def grid_edges(n: int) -> np.ndarray:
+    """Directed 4-neighborhood edges of an n x n grid, [2, E] (both
+    directions present, no self loops)."""
+    idx = np.arange(n * n).reshape(n, n)
+    h = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()])   # left->right
+    v = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()])   # up->down
+    und = np.concatenate([h, v], axis=1)
+    return np.concatenate([und, und[::-1]], axis=1)
+
+
+def grid_trace(coarse_n: int, decimation: int = 2) -> np.ndarray:
+    """Fine vertex -> coarse vertex map by 2x2 block replication."""
+    tr = np.arange(coarse_n * coarse_n).reshape(coarse_n, coarse_n)
+    tr = np.repeat(np.repeat(tr, decimation, axis=1), decimation, axis=0)
+    return tr.reshape(-1).astype(np.int64)
+
+
+_GRID_CACHE: Dict[tuple, tuple] = {}
+
+
+def grid_hierarchy(img_size: int, end_level: int, decimation: int = 2):
+    """(num_vertices, level_edges, traces) for an image-as-graph hierarchy,
+    cached per (img_size, end_level)."""
+    key = (img_size, end_level)
+    if key not in _GRID_CACHE:
+        sizes = [img_size // (decimation ** l) for l in range(end_level)]
+        nv = [s * s for s in sizes]
+        edges = [grid_edges(s) for s in sizes]
+        trs = [grid_trace(sizes[l + 1], decimation)
+               for l in range(end_level - 1)]
+        _GRID_CACHE[key] = (nv, edges, trs)
+    return _GRID_CACHE[key]
+
+
+# ---------------------------------------------------------------------------
 # Stacked batching: each scene as its own single-scene padded graph, every
 # tensor stacked to [B, ...], so a forward runs scene by scene over tables
 # that never mix scenes. The vertex and edge buckets are forced to common

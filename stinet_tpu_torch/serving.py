@@ -26,10 +26,10 @@ Host to device: only the leaves the inference forward reads are copied,
 packed into one pinned buffer (`PackedPlacer`, which the trainer's placement
 shares).
 
-Matmul precision: the forward runs its f32 matmuls in full f32, with TF32
-off (`full_f32_matmuls`), since TF32 would move the numbers away from the
-JAX f32 model's. The process's own settings are restored after each
-forward.
+Matmul precision: the forward runs its f32 matmuls (and any cuDNN
+convolution) in full f32, with TF32 off (`full_f32_matmuls`), since TF32
+would move the numbers away from the JAX f32 model's. The process's own
+settings are restored after each forward.
 
 Not ported: serving over a mesh (`mesh=`, `predict_partitioned`),
 `export`, `num_compiles` (eager torch keeps no compile cache) and the wire
@@ -72,16 +72,20 @@ def resolve_device(device) -> torch.device:
 
 @contextlib.contextmanager
 def full_f32_matmuls():
-    """Inside the block, f32 matmuls run in full f32 (TF32 off); after it
-    the process's settings are as they were."""
+    """Inside the block, f32 matmuls and cuDNN convolutions run in full f32
+    (TF32 off for both: torch's default lets cuDNN convolutions use TF32);
+    after it the process's settings are as they were."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
     precision = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     try:
         yield
     finally:
         torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 

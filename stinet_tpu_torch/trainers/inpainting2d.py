@@ -1,0 +1,368 @@
+"""Inpainting2DTrainer: 2D texture-image inpainting over image-as-grid
+graphs, the counterpart of the graph branch and concatenated layout of
+`stinet_tpu/trainers/inpainting2d.py` (the reference's
+inpainting2d_trainer.py).
+
+STINet over the loader's grid graphs (`data/imagegraph.py`), trained on the
+masked-composite L1, mean(|where(mask > 0, out, color) - color|) over the
+batch's num_graphs * img_size^2 pixel rows, plus total variation with
+`use_total_variation`. Per-batch metrics: loss, l1, mse, psnr (data range
+2), graph_tv, graph_lap_var, and LPIPS(alex) with `use_lpips`. Every
+`epochs_per_fid` epochs, FID of predictions against the ground truth over
+the fixed train samples and over the validation set, on InceptionV3 pool3
+features of `images / 2 + 0.5`. With `use_vgg`, the loss adds the VGG16
+content and style terms (`models/vgg.py`). As in JAX, the train ground
+truth's statistics are meant to freeze after the first pass, but freezing
+drops the buffers `num_samples` counts, so each FID epoch takes a new
+ground-truth pass (ROADMAP.md, Queue 3). Gradient accumulation and Adam go
+through `graph_common._TrainStep`; checkpoints hold the model's state dict
+under "graph", the optimizer state and the accumulation state, and
+resume.
+
+Perceptual nets fail closed, as the JAX trainer's do: `use_lpips`, FID or
+`use_vgg` need a weights file (`lpips_weights`, `inception_weights`,
+`vgg_weights`: torch state-dict files) or `allow_random_features`, and
+random-feature scalars are tagged `*_random_features`.
+
+The model runs on an explicit `torch.device`, the card unless the caller
+asks for the CPU; weights are drawn from a `torch.Generator` seeded from
+the config's `seed`. Batches reach the device through `iter_placed`, and
+every step, LPIPS, VGG and Inception forwards included, runs inside
+`full_f32_matmuls`. The JAX trainer's parameter-template probe reads the
+validation loader, which draws nothing, so the port does not probe.
+
+Not ported here (ROADMAP.md, Queue 1 item 3): the `Resnet2D` branch with
+its PatchGAN (`use_gan`), and the stacked layout (Queue 1 item 5).
+`use_gan` is ignored on the graph branch, as in JAX.
+"""
+import time
+
+import numpy as np
+import torch
+
+import stinet_tpu_torch.data.imagegraph  # noqa: F401  (registers the loader)
+from stinet_tpu_torch.core.registry import DATALOADERS, TRAINERS
+from stinet_tpu_torch.metrics import MetricTracker
+from stinet_tpu_torch.metrics import graph_metrics as gm
+from stinet_tpu_torch.metrics.fid import FIDScoreCumulative
+from stinet_tpu_torch.models.factory import define_G
+from stinet_tpu_torch.models.losses import total_variation_loss
+from stinet_tpu_torch.serving import full_f32_matmuls, resolve_device
+from stinet_tpu_torch.trainers.base import SingleModelTrainer
+from stinet_tpu_torch.trainers.graph_common import (
+    _TrainStep, build_optimizer, host_metrics, iter_placed, step_lr,
+    vertex_mask)
+from stinet_tpu_torch.trainers.inpainting3d import (
+    _timed, check_nan_in_params)
+
+def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
+                            lpips_tag="lpips", tv_weight=None, vgg=None,
+                            vgg_weights=(0.03, 3000.0), impl=None,
+                            accumulate=1):
+    """(train_step, eval_step) over grid graphs already on the model's
+    device. train_step(graph, lr) -> metrics, one optimizer step at `lr`
+    every `accumulate` calls (`_TrainStep`); eval_step(graph) -> (metrics,
+    composite) without gradients. The loss adds, on the composite images,
+    `vgg_weights` (content, style) times a VGGLoss `vgg`'s terms and total
+    variation weighted `tv_weight`; `lpips` (an LPIPS module) adds its
+    batch mean to the metrics as `lpips_tag`."""
+    def images(flat):
+        return flat.reshape(-1, img_size, img_size, flat.shape[-1])
+
+    def loss_of(graph):
+        out = model(graph, impl=impl)
+        composite = torch.where(graph.mask > 0, out, graph.color)
+        n = graph.num_graphs * img_size * img_size
+        loss = (composite[:n] - graph.color[:n]).abs().mean()
+        if vgg is not None:
+            content, style = vgg(images(composite[:n]),
+                                 images(graph.color[:n]))
+            loss = loss + vgg_weights[0] * content + vgg_weights[1] * style
+        if tv_weight is not None:
+            loss = loss + total_variation_loss(images(composite[:n]),
+                                               tv_weight)
+        return loss, composite
+
+    def metrics_of(graph, loss, composite):
+        composite = composite.detach().to(torch.float32)
+        lvl0 = graph.levels[0]
+        vmask = vertex_mask(graph)
+        out = {
+            "loss": loss,
+            "l1": gm.l1(composite, graph.color, vmask),
+            "mse": gm.mse(composite, graph.color, vmask),
+            "psnr": gm.psnr(composite, graph.color, vmask, data_range=2.0),
+        }
+        out["graph_tv"], out["graph_lap_var"] = gm.graph_tv_and_lap_var(
+            composite, lvl0.edges, lvl0.num_vertices)
+        if lpips is not None:
+            n = graph.num_graphs * img_size * img_size
+            out[lpips_tag] = lpips(images(composite[:n]),
+                                   images(graph.color[:n])).mean()
+        return out
+
+    def eval_step(graph):
+        model.eval()
+        with full_f32_matmuls(), torch.no_grad():
+            loss, composite = loss_of(graph)
+            return metrics_of(graph, loss, composite), composite
+
+    return (_TrainStep(model, optimizer, loss_of, accumulate, metrics_of),
+            eval_step)
+
+
+@TRAINERS.register("Inpainting2DTrainer")
+class Inpainting2DTrainer(SingleModelTrainer):
+    ARCH_KEY = "SurfaceTextureInpaintingNet"
+    MODEL_KEY = "graph"     # the checkpoint's dict key, as the JAX trainer's
+
+    def __init__(self, config, device=None, impl=None):
+        super().__init__(config)
+        logger = config.get_logger("train")
+        archs = config["archs"]
+        graph_enabled = archs.get(self.ARCH_KEY, {}).get("enabled", False)
+        conv_enabled = archs.get("Resnet2D", {}).get("enabled", False)
+        if graph_enabled == conv_enabled:
+            raise ValueError("Exactly one of SurfaceTextureInpaintingNet/"
+                             "Resnet2D must be enabled")
+        if conv_enabled:
+            raise NotImplementedError(
+                "the Resnet2D branch is not ported yet (ROADMAP.md, Queue 1 "
+                "item 3 (b): the 2D workload's Resnet2D PR)")
+        self.branch = "graph"
+        self.device = resolve_device(
+            device or getattr(config, "device", None) or "cuda")
+
+        self.data_loader = config.init_obj_with_config(
+            "data_loader", DATALOADERS)
+        self.img_size = config["data_loader"]["args"]["img_size"]
+
+        tcfg = config["trainer"]
+        self.use_total_variation = tcfg.get("use_total_variation", False)
+        self.total_variation_weight = tcfg.get("total_variation_weight", 1e-4)
+        self.do_validation = tcfg.get("do_validation", True)
+        self.batches_per_log = tcfg.get("batches_per_log", 1)
+        self.allow_random_features = tcfg.get("allow_random_features", False)
+        self.vgg_content_weight = tcfg.get("vgg_content_weight", 0.03)
+        self.vgg_style_weight = tcfg.get("vgg_style_weight", 3000.0)
+        self.vgg_loss = self._setup_vgg(tcfg) if tcfg.get(
+            "use_vgg", False) else None
+        self.visualize_samples = tcfg.get("visualize_samples", False)
+        self.epochs_per_fid = tcfg.get("epochs_per_fid", 0)
+        self.use_val_fid = tcfg.get("use_val_fid", False)
+        self.use_train_fid = tcfg.get("use_train_fid", False)
+        self._fid_tag = "fid"
+        self._fid = self._setup_fid(tcfg) if (
+            (self.use_val_fid or self.use_train_fid)
+            and self.epochs_per_fid) else None
+        self.lpips_tag = "lpips"
+        self.lpips = self._setup_lpips(tcfg) if tcfg.get(
+            "use_lpips", False) else None
+
+        dl_args = config["data_loader"]["args"]
+        self.num_accum = int(dl_args.get("num_cumulated_train_batches", 1))
+        seed = config.get("seed", 123) or 123
+        self.model = define_G(
+            **archs[self.ARCH_KEY]["args"],
+            generator=torch.Generator().manual_seed(seed)).to(self.device)
+        logger.info("Number of parameters in graph: %d",
+                    sum(p.numel() for p in self.model.parameters()))
+        self.optimizer, self.base_lr = build_optimizer(
+            self.model.parameters(), config["optimizer"])
+        self.lr_fn = step_lr(self.base_lr, config.get("lr_scheduler", {}))
+        self._train_step, self._eval_step = make_inpainting2d_steps(
+            self.model, self.optimizer, self.img_size, lpips=self.lpips,
+            lpips_tag=self.lpips_tag,
+            tv_weight=(self.total_variation_weight
+                       if self.use_total_variation else None),
+            vgg=self.vgg_loss,
+            vgg_weights=(self.vgg_content_weight, self.vgg_style_weight),
+            impl=impl, accumulate=self.num_accum)
+
+        if config.resume is not None:
+            self._resume_checkpoint(config.resume)
+
+        metrics = ["loss", "l1", "mse", "psnr", "graph_tv", "graph_lap_var"]
+        if self.lpips is not None:
+            metrics.append(self.lpips_tag)
+        self.train_metrics = MetricTracker(*metrics, writer=self.writer)
+        self.valid_metrics = MetricTracker(*metrics, writer=self.writer)
+        # per train epoch: {"epoch", "steps", "train_s", "wait_ms": the ms
+        # each step waited for its batch}
+        self.epoch_timings = []
+        # per FID pass: {"epoch", "split", "features_s": eval steps and
+        # Inception forwards up to the host copy, "distance_s": the host
+        # statistics and Frechet distance}
+        self.fid_timings = []
+
+    # ------------------------------------------------------------------
+    def _require_random_optin(self, what, key):
+        """Fail closed: a perceptual net with random weights needs
+        trainer.allow_random_features (its numbers look real otherwise)."""
+        if not self.allow_random_features:
+            raise ValueError(
+                f"{what} is enabled but trainer.{key} is not set. Either "
+                f"point trainer.{key} at a converted torch state-dict file, "
+                "or explicitly set trainer.allow_random_features=true to "
+                "run with randomly initialized features (emitted scalars "
+                "will be tagged *_random_features).")
+        self.logger.warning(
+            "%s running with RANDOM features (trainer.%s not set): values "
+            "are relative trends only, tagged *_random_features", what, key)
+
+    def _setup_vgg(self, tcfg):
+        from stinet_tpu_torch.models.vgg import (
+            VGGLoss, random_vgg, vgg_from_file)
+        path = tcfg.get("vgg_weights")
+        if path:
+            vgg = vgg_from_file(path)
+        else:
+            self._require_random_optin("use_vgg", "vgg_weights")
+            vgg = random_vgg(torch.Generator().manual_seed(0))
+        return VGGLoss(vgg, resize_to=int(tcfg.get("vgg_resize", 224))).to(
+            self.device)
+
+    def _setup_fid(self, tcfg):
+        from stinet_tpu_torch.models.inception import (
+            InceptionV3, inception_from_file)
+        path = tcfg.get("inception_weights")
+        if path:
+            model = inception_from_file(path)
+        else:
+            self._require_random_optin("FID", "inception_weights")
+            self._fid_tag = "fid_random_features"
+            model = InceptionV3(generator=torch.Generator().manual_seed(0))
+        self.inception = model.to(self.device)
+
+        def features(imgs):
+            with full_f32_matmuls(), torch.no_grad():
+                return self.inception(imgs / 2.0 + 0.5)
+        return FIDScoreCumulative(feature_fn=features)
+
+    def _setup_lpips(self, tcfg):
+        from stinet_tpu_torch.metrics.lpips import (
+            lpips_from_file, random_lpips)
+        path = tcfg.get("lpips_weights")
+        if path:
+            return lpips_from_file(path).to(self.device)
+        self._require_random_optin("use_lpips", "lpips_weights")
+        self.lpips_tag = "lpips_random_features"
+        return random_lpips(torch.Generator().manual_seed(0)).to(self.device)
+
+    def _images(self, flat, n_images):
+        """[n_images, s, s, C] from the first rows of a [V_pad, C] leaf."""
+        s = self.img_size
+        return flat[:n_images * s * s].reshape(n_images, s, s, -1)
+
+    # ------------------------------------------------------------------
+    def _train_epoch(self, epoch):
+        check_nan_in_params(self.model, self.logger)
+        self.train_metrics.reset()
+        lr = self.lr_fn(epoch)
+        loader = self.data_loader.train_loader
+        len_epoch = len(loader)
+        waits, steps = [], 0
+        t0 = time.perf_counter()
+        for batch_idx, (graph, names) in enumerate(_timed(
+                iter_placed(loader, self.device), waits)):
+            self.writer.set_step((epoch - 1) * len_epoch + batch_idx)
+            m = host_metrics(self._train_step(graph, lr))
+            for k, v in m.items():
+                self.train_metrics.update(k, v)
+            steps += 1
+            if batch_idx % self.batches_per_log == 0:
+                self.logger.debug(
+                    ":Train Epoch: %s %s I Loss: %.6f", epoch,
+                    self._progress(batch_idx, len_epoch), m["loss"])
+        self.epoch_timings.append({
+            "epoch": epoch, "steps": steps,
+            "train_s": time.perf_counter() - t0, "wait_ms": waits})
+
+        self.writer.set_step(epoch - 1, "epoch_train", quiet=True)
+        log = self.train_metrics.result(write=True)
+        log["lr"] = float(lr)
+        if (self._fid is not None and self.use_train_fid
+                and epoch % self.epochs_per_fid == 0):
+            log["train_" + self._fid_tag] = self._train_fid(epoch)
+        if self.do_validation:
+            val_log = self._valid_epoch(epoch)
+            log.update(**{"val_" + k: v for k, v in val_log.items()})
+        return log
+
+    def _fid_distance(self, epoch, split, key1, key2, t0):
+        t1 = time.perf_counter()
+        fid = self._fid.fid_between(key1, key2)
+        self.fid_timings.append({
+            "epoch": epoch, "split": split, "features_s": t1 - t0,
+            "distance_s": time.perf_counter() - t1})
+        return fid
+
+    def _train_fid(self, epoch):
+        """FID of predictions against the ground truth over the fixed train
+        samples; the ground truth's statistics are frozen after the first
+        pass."""
+        t0 = time.perf_counter()
+        self._fid.reset("train_pred")
+        first = self._fid.num_samples("train_gt") == 0
+        for graph, names in iter_placed(
+                self.data_loader.sample_train_loader, self.device):
+            _, composite = self._eval_step(graph)
+            self._fid.add_images("train_pred",
+                                 self._images(composite, len(names)))
+            if first:
+                self._fid.add_images("train_gt",
+                                     self._images(graph.color, len(names)))
+        if first:
+            self._fid.freeze_statistics("train_gt")
+        fid = self._fid_distance(epoch, "train", "train_gt", "train_pred", t0)
+        self.writer.add_scalar("train_" + self._fid_tag, fid)
+        return fid
+
+    def _valid_epoch(self, epoch):
+        t0 = time.perf_counter()
+        self.valid_metrics.reset()
+        fid_epoch = (self._fid is not None and epoch > 0
+                     and epoch % self.epochs_per_fid == 0)
+        if fid_epoch:
+            self._fid.reset("val_pred")
+        for batch_idx, (graph, names) in enumerate(
+                iter_placed(self.data_loader.val_loader, self.device)):
+            self.writer.set_step(batch_idx, "valid")
+            metrics, composite = self._eval_step(graph)
+            for k, v in host_metrics(metrics).items():
+                self.valid_metrics.update(k, v)
+            if fid_epoch:
+                b = len(names)
+                self._fid.add_images("val_pred", self._images(composite, b))
+                if self._fid.num_samples("val_gt") < b * (batch_idx + 1):
+                    self._fid.add_images("val_gt",
+                                         self._images(graph.color, b))
+        self.writer.set_step(epoch - 1, "epoch_valid", quiet=True)
+        log = self.valid_metrics.result(write=True)
+        if fid_epoch and self._fid.num_samples("val_pred"):
+            log[self._fid_tag] = self._fid_distance(
+                epoch, "val", "val_gt", "val_pred", t0)
+            self.writer.add_scalar(self._fid_tag, log[self._fid_tag])
+        if self.visualize_samples and self.writer.writer is not None:
+            self._visualize_select_data()
+        return log
+
+    def _visualize_select_data(self):
+        """Prediction grids of the fixed sample batches to TensorBoard."""
+        from stinet_tpu_torch.utils.visualization_utils import (
+            visualize_tensor)
+        for tag, loader in (("sample_train",
+                             self.data_loader.sample_train_loader),
+                            ("sample_val",
+                             self.data_loader.sample_val_loader)):
+            preds = [self._images(self._eval_step(graph)[1],
+                                  len(names)).cpu().numpy()
+                     for graph, names in iter_placed(loader, self.device)]
+            if preds:
+                imgs = np.concatenate(preds)[:8] / 2.0 + 0.5
+                visualize_tensor(self.writer, f"predictions_{tag}", imgs)
+
+    def _eval(self, mode):
+        log = self._valid_epoch(0)
+        for key, value in log.items():
+            self.logger.info("    %-15s: %s", str(key), value)

@@ -1,6 +1,9 @@
 """Carry model weights from the JAX package to the port: STINet's
-(`state_dict_from_jax_params`) and SingleConvMeshNet's
-(`seg_state_dict_from_jax_params`).
+(`state_dict_from_jax_params`), SingleConvMeshNet's
+(`seg_state_dict_from_jax_params`), and the 2D trainer's perceptual nets'
+(`inception_state_dict_from_jax_variables`,
+`lpips_state_dict_from_jax_variables`), so the port runs the random
+features a JAX trainer drew under `allow_random_features`.
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `convert_stinet_state_dict` (stinet_tpu/utils/convert_reference_checkpoint
@@ -166,4 +169,81 @@ def seg_state_dict_from_jax_params(params, batch_stats
                                          f"{top}/{filt}/{leaf}")
         else:
             raise ValueError(f"no port layer for params entry {top!r}")
+    return out
+
+
+def _hwio_to_oihw(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(
+        np.asarray(a, dtype=np.float32).transpose(3, 2, 0, 1)))
+
+
+def inception_state_dict_from_jax_variables(variables
+                                            ) -> Dict[str, torch.Tensor]:
+    """Flax variables ({"params", "batch_stats"}) of the JAX package's FID
+    InceptionV3 -> the port's state dict (models/inception.py, pytorch-fid
+    keys), the inverse of the JAX package's `convert_torch_state_dict`:
+
+      <path>/Conv_0/kernel          -> <path>.conv.weight (HWIO -> OIHW)
+      <path>/BatchNorm_0/scale      -> <path>.bn.weight
+      <path>/BatchNorm_0/bias       -> <path>.bn.bias
+      batch_stats <path>/BatchNorm_0/{mean,var}
+                                    -> <path>.bn.running_{mean,var}
+
+    with <path> the module path joined by dots (Conv2d_1a_3x3,
+    Mixed_5b.branch1x1, ...), and every `<path>.bn.num_batches_tracked`
+    0. Anything else raises rather than being dropped."""
+    out = {}
+
+    def walk(tree, path, stats):
+        for name, sub in tree.items():
+            if name == "Conv_0":
+                if set(sub) != {"kernel"}:
+                    raise ValueError(f"unexpected conv leaves {path}: "
+                                     f"{sorted(sub)}")
+                out[f"{path}.conv.weight"] = _hwio_to_oihw(sub["kernel"])
+            elif name == "BatchNorm_0":
+                st = stats.get(name, {})
+                if set(sub) != {"scale", "bias"} or set(st) != {"mean",
+                                                                "var"}:
+                    raise ValueError(f"unexpected batch norm leaves {path}: "
+                                     f"{sorted(sub)}, stats {sorted(st)}")
+                out[f"{path}.bn.weight"] = _tensor(sub["scale"], False)
+                out[f"{path}.bn.bias"] = _tensor(sub["bias"], False)
+                out[f"{path}.bn.running_mean"] = _tensor(st["mean"], False)
+                out[f"{path}.bn.running_var"] = _tensor(st["var"], False)
+                out[f"{path}.bn.num_batches_tracked"] = torch.tensor(0)
+            elif isinstance(sub, dict):
+                walk(sub, f"{path}.{name}" if path else name,
+                     stats.get(name, {}))
+            else:
+                raise ValueError(f"unexpected InceptionV3 leaf "
+                                 f"{path}/{name}")
+
+    walk(variables["params"], "", variables.get("batch_stats", {}))
+    return out
+
+
+def lpips_state_dict_from_jax_variables(variables, lins=None
+                                        ) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX package's LPIPS AlexNet trunk (and its
+    list of head weights, or None) -> the port's LPIPS state dict
+    (metrics/lpips.py):
+
+      conv_{i}/kernel  -> alex.features.{0,3,6,8,10}[i].weight (HWIO -> OIHW)
+      conv_{i}/bias    -> alex.features.{...}[i].bias
+      lins[i]          -> lin{i}
+
+    Anything else raises rather than being dropped."""
+    from stinet_tpu_torch.metrics.lpips import _TORCH_IDX
+    out = {}
+    for name, leaves in variables["params"].items():
+        kind, _, i = name.rpartition("_")
+        if kind != "conv" or not i.isdigit() or int(i) >= len(_TORCH_IDX) \
+                or set(leaves) != {"kernel", "bias"}:
+            raise ValueError(f"no port layer for LPIPS entry {name!r}")
+        ti = _TORCH_IDX[int(i)]
+        out[f"alex.features.{ti}.weight"] = _hwio_to_oihw(leaves["kernel"])
+        out[f"alex.features.{ti}.bias"] = _tensor(leaves["bias"], False)
+    for i, w in enumerate(lins or ()):
+        out[f"lin{i}"] = _tensor(np.asarray(w).reshape(-1), False)
     return out

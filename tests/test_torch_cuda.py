@@ -1008,3 +1008,115 @@ def test_singleconvmeshnet_on_the_card_matches_the_cpu(dev, pool):
             moved += not torch.equal(want[k], torch.zeros_like(want[k])) \
                 and not torch.equal(want[k], torch.ones_like(want[k]))
     assert moved == sum("running" in k for k in want)
+
+
+# --- the 2D workload's perceptual nets and train step -------------------------
+
+def test_lpips_on_the_card_matches_the_cpu(dev):
+    """LPIPS(alex) with random features, with and without heads, on the
+    card with TF32 off against the CPU: within 1e-4 relative."""
+    from stinet_tpu_torch.metrics.lpips import LPIPS, random_lpips
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-1, 1, (3, 64, 64, 3)).astype(
+        np.float32))
+    y = torch.roll(x, 5, dims=1)
+    base = random_lpips(torch.Generator().manual_seed(1))
+    heads = LPIPS([rng.uniform(0, 1, c) for c in (64, 192, 384, 256, 256)])
+    heads.alex.load_state_dict(base.alex.state_dict())
+    for model in (base, heads):
+        with torch.no_grad():
+            want = model(x, y)
+            with full_f32_matmuls():
+                got = model.to(dev)(x.to(dev), y.to(dev)).cpu()
+        assert float(((got - want).abs() / want.abs()).max()) <= 1e-4
+
+
+def test_inception_on_the_card_matches_the_cpu(dev):
+    """InceptionV3 with random features, resized 32 -> 299, on the card with
+    TF32 off against the CPU: pool3 within 1e-4 of the largest feature."""
+    from stinet_tpu_torch.models.inception import InceptionV3
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (2, 32, 32, 3)).astype(np.float32))
+    model = InceptionV3(generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = model(x)
+        with full_f32_matmuls():
+            got = model.to(dev)(x.to(dev)).cpu()
+    assert got.shape == (2, 2048)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_2d_train_step_on_the_card_matches_the_cpu(dev):
+    """One 2D train step (edgeconv STINet over a B=2 grid batch, LPIPS in
+    its metrics) on the card's kernel path and on the CPU's plain path from
+    the same weights: f32 K1, dp, dq and multi-graph K2 launched on the
+    card; the loss and every metric within 1e-4 relative; every
+    parameter's gradient, taken together as one vector, within 1e-4 of its
+    L2 norm (element by element an f32 relu or max pool within rounding of
+    a tie may send a gradient element the other way)."""
+    from stinet_tpu_torch.data.imagegraph import ImageGraphTextureDataLoader
+    from stinet_tpu_torch.metrics.lpips import random_lpips
+    from stinet_tpu_torch.trainers.inpainting2d import make_inpainting2d_steps
+    loader = ImageGraphTextureDataLoader(dict(
+        root_dir="", img_size=32, end_level=3, train_batch_size=2,
+        test_batch_size=1, crop_half_width=4, circle_radius=5,
+        random_mask=True, random_augmentation=True))
+    graph, _ = next(iter(loader.train_loader))
+    args = dict(input_nc=4, output_nc=3, ngf=16, filter_type="edgeconv",
+                norm="instance", n_blocks=2, dilations=[1, 1], n_levels=2,
+                pooling_type="max")
+    counters = (ell.ell_edge_conv_sum_kernel, ell.ell_edge_conv_dp_kernel,
+                ell.ell_edge_conv_dq_kernel)
+    results, grads = [], []
+    for device in (dev, torch.device("cpu")):
+        model = define_G(**args, generator=torch.Generator().manual_seed(0))
+        model = model.to(device)
+        opt, lr = gc.build_optimizer(model.parameters(), {
+            "type": "Adam", "args": {"lr": 1.4e-4, "amsgrad": True}})
+        lpips = random_lpips(torch.Generator().manual_seed(1)).to(device)
+        step, _ = make_inpainting2d_steps(model, opt, 32, lpips=lpips)
+        before = [k.launches for k in counters] + [
+            norms.masked_instance_norm_kernel.multigraph_launches]
+        results.append(gc.host_metrics(step(graph.to(device), lr)))
+        after = [k.launches for k in counters] + [
+            norms.masked_instance_norm_kernel.multigraph_launches]
+        assert all(a > b for a, b in zip(after, before)) == (
+            device.type == "cuda")
+        grads.append({n: p.grad.detach().cpu().double()
+                      for n, p in model.named_parameters()})
+    got, want = results
+    assert sorted(got) == sorted(want) and "lpips" in got
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    assert sorted(grads[0]) == sorted(grads[1])
+    diff = sum(float((grads[0][k] - g).norm()) ** 2
+               for k, g in grads[1].items()) ** 0.5
+    norm = sum(float(g.norm()) ** 2 for g in grads[1].values()) ** 0.5
+    assert norm > 0 and diff <= 1e-4 * norm, (diff, norm)
+
+
+def test_vgg_loss_on_the_card_matches_the_cpu(dev):
+    """The VGG16 content and style terms and their gradient with respect to
+    the prediction, random features, on the card against the CPU in
+    float64: within 1e-9 relative (the gradient: of its largest). In f32 a
+    max pool's near tie or a relu argument within rounding of 0 routes a
+    gradient element otherwise on the other device (measured on an H100:
+    7.4e-3 of the largest); in f64 none does."""
+    from stinet_tpu_torch.models.vgg import VGGLoss, random_vgg
+    rng = np.random.default_rng(5)
+    pred = rng.uniform(-1, 1, (2, 64, 64, 3))
+    target = np.roll(pred, 3, axis=2)
+    loss = VGGLoss(random_vgg(torch.Generator().manual_seed(3)),
+                   resize_to=96).double()
+    out = []
+    for device in ("cpu", dev):
+        p = torch.from_numpy(pred).to(device).requires_grad_(True)
+        content, style = loss.to(device)(p,
+                                         torch.from_numpy(target).to(device))
+        (content + 100.0 * style).backward()
+        out.append((content.item(), style.item(), p.grad.cpu()))
+    (c0, s0, g0), (c1, s1, g1) = out
+    assert abs(c1 - c0) <= 1e-9 * abs(c0) and abs(s1 - s0) <= 1e-9 * abs(s0)
+    assert float((g1 - g0).abs().max()) <= 1e-9 * float(g0.abs().max())
