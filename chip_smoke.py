@@ -139,6 +139,24 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    and a traced step (busy ms, launches, idle share, top 8 ops); a resume
    for one more epoch (parameters and Adam state bitwise the file's) and
    `-e valid`; the phase's wall time;
+8d. inpainting2d-resnet: the CLI trains the hermetic 2D config with
+   `archs.Resnet2D` enabled at its shipped width (ngf 64, 9 blocks, f32,
+   B=4 128 x 128 images; cuDNN convolutions, no kernel of the port's own)
+   and `use_gan` (the PatchGAN discriminator, ndf 64, 5 layers), with
+   `inpainting2d`'s cuts: both models on the card, no graph kernel
+   launched, every loss, GAN loss, accuracy and LPIPS finite, both FIDs
+   finite, the checkpoints holding "2d" and "discriminator"; one GAN step
+   and one plain 2d step from the trainer's weights on the card against
+   the CPU, in f32 and in f64 (every metric within RESNET_TOL relative;
+   G's and D's gradients each within RESNET_TOL of their L2 norm in f64,
+   their f32 distance printed); the trainer's clock, the
+   loader's ms, the wait on `iter_placed`, the FID split, a bare GAN step
+   by CUDA events split into G forward, D forward and backward, D
+   optimizer, G loss and backward, G optimizer, with peak memory and a
+   traced GAN step, a bare plain 2d step beside it, eval ms/image; a
+   resume (both models and Adam states bitwise the file's) and `-e
+   valid`; then `metrics/fid_cli.py` on the card from gz UV maps and .npz
+   statistics; the phase's wall time;
 9. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
@@ -182,6 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 SMALL_VERTICES = 4096      # the scene held against the CPU plain path
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
@@ -1393,24 +1412,30 @@ class StepProbe:
         self.mini_steps.append(self._step.mini_step)
         return metrics
 
+    def _parts(self):
+        """{checkpoint key: (model, optimizer)} the resume check reads."""
+        return {"graph": (self._model, self._optimizer)}
+
     def _check_against(self, path):
-        """The model's parameters and the optimizer's state bitwise those
+        """The models' parameters and the optimizers' states bitwise those
         of the checkpoint file at `path`."""
         torch = self._torch
         from stinet_tpu_torch.core.checkpoint import load_checkpoint
         sds, opts, _, _ = load_checkpoint(path)
-        for k, v in self._model.state_dict().items():
-            check(torch.equal(v.cpu(), sds["graph"][k]),
-                  f"resumed parameter {k} differs from {path}")
-        got = self._optimizer.state_dict()["state"]
-        want = opts["graph"]["state"]
-        check(sorted(got) == sorted(want) and len(want) > 0,
-              f"resumed optimizer state holds {len(got)} entries, the file "
-              f"{len(want)}")
-        for i, st in want.items():
-            for k, v in st.items():
-                check(torch.equal(got[i][k].cpu(), v),
-                      f"resumed Adam state {i}/{k} differs from {path}")
+        for key, (model, optimizer) in self._parts().items():
+            for k, v in model.state_dict().items():
+                check(torch.equal(v.cpu(), sds[key][k]),
+                      f"resumed {key} parameter {k} differs from {path}")
+            got = optimizer.state_dict()["state"]
+            want = opts[key]["state"]
+            check(sorted(got) == sorted(want) and len(want) > 0,
+                  f"resumed {key} optimizer state holds {len(got)} "
+                  f"entries, the file {len(want)}")
+            for i, st in want.items():
+                for k, v in st.items():
+                    check(torch.equal(got[i][k].cpu(), v),
+                          f"resumed {key} Adam state {i}/{k} differs from "
+                          f"{path}")
 
     def step_ms(self):
         return [a.elapsed_time(b) for a, b in self.events]
@@ -1930,15 +1955,11 @@ def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
     """The trainer's model and optimizer on one placed graph: a train step
     by CUDA events split into forward, backward and optimizer, its peak
     device memory, the eval step (ms a `unit`, `per` of them a graph), and
-    one traced step (torch.profiler): device busy ms, launches, idle share
-    and the top ops by device time. Returns the median step ms."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    one traced step (`traced_steps`). Returns the median step ms."""
     from stinet_tpu_torch.serving import full_f32_matmuls
-    from stinet_tpu_torch.utils.profile_forward import _self_device_us
     step = trainer._train_step
     step = getattr(step, "_step", step)
-    model, opt, lr = trainer.model, trainer.optimizer, trainer.lr_fn(1)
+    model, opt = trainer.model, trainer.optimizer
 
     def parts():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1954,15 +1975,7 @@ def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
             ev[3].record()
         return ev
 
-    for _ in range(2):
-        parts()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    runs = [parts() for _ in range(SEG_STEP_REPS)]
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    split = [[ev[i].elapsed_time(ev[i + 1]) for ev in runs]
-             for i in range(3)]
+    split, peak = timed_parts(torch, parts)
     total = [sum(x) for x in zip(*split)]
     eval_ms = median_ms(torch, lambda: trainer._eval_step(graph),
                         reps=SEG_STEP_REPS, inner=1, warmup=1) / per
@@ -1972,10 +1985,36 @@ def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
         f" + backward {med(split[1]):.2f} + optimizer {med(split[2]):.2f};"
         f" peak device memory {peak:.2f} GiB; eval step {eval_ms:.2f} "
         f"ms/{unit}; on {card}")
+    traced_steps(torch, phase, parts, card, "train step")
+    return med(total)
+
+
+def timed_parts(torch, parts):
+    """Run `parts` (one step, recording CUDA events between its parts) 2
+    times untimed, then SEG_STEP_REPS times: (per part, the ms of each
+    run; the peak device memory of those runs in GiB)."""
+    for _ in range(2):
+        parts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [parts() for _ in range(SEG_STEP_REPS)]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return ([[ev[i].elapsed_time(ev[i + 1]) for ev in runs]
+             for i in range(len(runs[0]) - 1)], peak)
+
+
+def traced_steps(torch, phase, step, card, what):
+    """SEG_STEP_REPS calls of `step` untimed by CUDA events, then the same
+    traced (torch.profiler): device busy ms, launches, idle share and the
+    top 8 ops by device time, a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stinet_tpu_torch.utils.profile_forward import _self_device_us
 
     def steps():
         for _ in range(SEG_STEP_REPS):
-            parts()
+            step()
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -1993,7 +2032,7 @@ def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
     busy = sum(_self_device_us(e) for e in kernels) / 1e3 / SEG_STEP_REPS
     check(busy > 0, "the profiler recorded no device time")
     launches = sum(e.count for e in kernels) / SEG_STEP_REPS
-    say(phase, f"traced train step ({SEG_STEP_REPS} steps): "
+    say(phase, f"traced {what} ({SEG_STEP_REPS} calls): "
         f"{busy:.3f} ms device busy, {launches:.0f} kernel launches, idle "
         f"share {max(0.0, 1 - busy / wall):.1%} of the untraced "
         f"{wall:.3f} ms; on {card}")
@@ -2001,7 +2040,6 @@ def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
         ms = _self_device_us(e) / 1e3 / SEG_STEP_REPS
         say(phase, f"  top {ms:8.3f} ms x{e.count // SEG_STEP_REPS:4d}"
             f"  {e.key[:100]}")
-    return med(total)
 
 
 def segmentation_phase(torch, card):
@@ -2405,6 +2443,355 @@ def inpainting2d_phase(torch, card):
         del evaluator
     say("inpainting2d", f"phase wall time "
         f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+
+
+# --- the 2D workload's Resnet2D branch with its PatchGAN ---------------------
+
+RESNET_TOL = 1e-4           # card vs CPU: losses relative, gradients in L2
+FID_CLI_DIMS = 4            # pool3 features the fid_cli check keeps (under
+                            # its 8 samples, so the covariance is full rank)
+
+
+class ResnetStepProbe(StepProbe):
+    """StepProbe of the 2d branch's step: its resume check also reads the
+    discriminator and its Adam state, where the step has them."""
+
+    def _parts(self):
+        parts = {"2d": (self._model, self._optimizer)}
+        if getattr(self._step, "disc", None) is not None:
+            parts["discriminator"] = (self._step.disc,
+                                      self._step.disc_optimizer)
+        return parts
+
+
+def probed_resnet2d(torch, expect=None):
+    """`probed_steps` for the 2d branch's ResnetStepProbe."""
+    from stinet_tpu_torch.trainers.inpainting2d import Inpainting2DTrainer
+    return probed_steps(torch, Inpainting2DTrainer, "make_resnet2d_steps",
+                        ResnetStepProbe, expect)
+
+
+def resnet_steps_on(torch, trainer, graph, device, gan, dtype):
+    """One step of the trainer's 2d branch from copies of its weights on
+    `device` in `dtype` (a fresh Adam for each model), the GAN step or the
+    plain 2d step: (metrics, {"G": gradients, "D": gradients}), the
+    gradients f64 on the host; LPIPS and VGG left out."""
+    from stinet_tpu_torch.graph.hierarchy import map_tensors
+    from stinet_tpu_torch.trainers.graph_common import (
+        build_optimizer, host_metrics)
+    from stinet_tpu_torch.trainers.inpainting2d import make_resnet2d_steps
+    cfg = trainer.config["optimizer"]
+    model = copy.deepcopy(trainer.model).to(device, dtype)
+    opt, lr = build_optimizer(model.parameters(), cfg)
+    disc = dopt = None
+    if gan:
+        disc = copy.deepcopy(trainer.disc).to(device, dtype)
+        dopt, _ = build_optimizer(disc.parameters(), cfg)
+    step, _ = make_resnet2d_steps(
+        model, opt, trainer.img_size,
+        tv_weight=(trainer.total_variation_weight
+                   if trainer.use_total_variation else None),
+        disc=disc, disc_optimizer=dopt, gan_mode=trainer.gan_mode,
+        gan_loss_weight=trainer.gan_loss_weight)
+    graph = map_tensors(graph.to(device), lambda t: t.to(dtype)
+                        if t.is_floating_point() else t)
+    metrics = host_metrics(step(graph, lr))
+    grads = {"G": {k: p.grad.detach().cpu().double()
+                   for k, p in model.named_parameters()}}
+    if gan:
+        grads["D"] = {k: p.grad.detach().cpu().double()
+                      for k, p in disc.named_parameters()}
+    return metrics, grads
+
+
+def resnet_card_against_cpu(torch, trainer, graph):
+    """One GAN step and one plain 2d step from the trainer's weights on the
+    card and on the CPU (TF32 off), in f32 and in f64: every metric within
+    RESNET_TOL relative in both; G's and D's gradients, each taken as one
+    vector, within RESNET_TOL of its L2 norm in f64. In f32 their distance
+    is printed: a max pool's near tie or a relu argument within rounding
+    of 0 may route a gradient element otherwise on the other device, as
+    the f32 card tests found (PERF.md, PR 11); in f64 none does. Returns
+    a summary line."""
+    t0 = time.perf_counter()
+    lines = []
+    for dtype in (torch.float32, torch.float64):
+        for gan in (True, False):
+            what = f"{'GAN' if gan else 'plain 2d'} step {str(dtype)[6:]}"
+            (card_m, card_g), (cpu_m, cpu_g) = (
+                resnet_steps_on(torch, trainer, graph, d, gan, dtype)
+                for d in ("cuda", "cpu"))
+            check(sorted(card_m) == sorted(cpu_m), f"metric keys {card_m}")
+            rel = {k: abs(card_m[k] - v) / max(abs(v), 1e-30)
+                   for k, v in cpu_m.items() if v != 0 or card_m[k] != 0}
+            worst = max(rel, key=rel.get)
+            check(rel[worst] <= RESNET_TOL, f"{what} {worst}: card "
+                  f"{card_m[worst]} vs CPU {cpu_m[worst]}, relative "
+                  f"{rel[worst]:.3e} > {RESNET_TOL}")
+            parts = []
+            for net, want in cpu_g.items():
+                got = card_g[net]
+                check(sorted(got) == sorted(want), f"{net} gradient keys")
+                diff = math.sqrt(sum(float((got[k] - g).norm()) ** 2
+                                     for k, g in want.items()))
+                norm = math.sqrt(sum(float(g.norm()) ** 2
+                                     for g in want.values()))
+                check(norm > 0 and (dtype == torch.float32
+                                    or diff <= RESNET_TOL * norm),
+                      f"{what}, {net}'s gradients card vs CPU: L2 of the "
+                      f"difference {diff:.3e} > {RESNET_TOL} x {norm:.3e}")
+                parts.append(f"{net} {len(want)} gradients {diff / norm:.3e} "
+                             "of their L2 norm apart")
+            lines.append(
+                f"{what}: loss {card_m['loss']:.6f} vs {cpu_m['loss']:.6f}"
+                + (f", loss_D_fake {card_m['loss_D_fake']:.6f}, loss_D_real "
+                   f"{card_m['loss_D_real']:.6f}, loss_G "
+                   f"{card_m['loss_G']:.6f}" if gan else "")
+                + f"; largest metric difference {worst} {rel[worst]:.2e} "
+                f"relative; " + ", ".join(parts))
+    return (f"card vs CPU from the trainer's weights (TF32 off, tolerance "
+            f"{RESNET_TOL}; gradients held in f64): " + "; ".join(lines)
+            + f"; {time.perf_counter() - t0:.1f} s with the CPU steps")
+
+
+def bare_gan_step(torch, trainer, graph, card):
+    """The trainer's GAN step on one placed batch by CUDA events, split
+    into the generator's forward, the discriminator's forward and
+    backward, its optimizer step, the generator's loss (the updated
+    discriminator's forward) and backward, and its optimizer step; peak
+    device memory; one traced step. Returns the median step ms."""
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    from stinet_tpu_torch.trainers.graph_common import set_lr
+    step = trainer._train_step
+    step = getattr(step, "_step", step)
+    model, opt = trainer.model, trainer.optimizer
+    disc, dopt = trainer.disc, trainer.disc_optimizer
+    lr = trainer.lr_fn(1)
+
+    def parts():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        model.train()
+        disc.train()
+        with full_f32_matmuls():
+            opt.zero_grad(set_to_none=True)
+            ev[0].record()
+            fake, color, prior = step.generate(graph)
+            ev[1].record()
+            disc.requires_grad_(True)
+            dopt.zero_grad(set_to_none=True)
+            step.disc_loss(fake, color, prior)[0].backward()
+            ev[2].record()
+            set_lr(dopt, lr)
+            dopt.step()
+            ev[3].record()
+            step.gen_loss(fake, color, prior)[0].backward()
+            ev[4].record()
+            set_lr(opt, lr)
+            opt.step()
+            ev[5].record()
+        return ev
+
+    split, peak = timed_parts(torch, parts)
+    total = [sum(x) for x in zip(*split)]
+    med = statistics.median
+    names = ("G forward", "D forward and backward", "D optimizer",
+             "G loss (D forward) and backward", "G optimizer")
+    say("inpainting2d-resnet", f"bare GAN step by CUDA events, median of "
+        f"{SEG_STEP_REPS}: {med(total):.2f} ms = " + " + ".join(
+            f"{n} {med(x):.2f}" for n, x in zip(names, split))
+        + f"; peak device memory {peak:.2f} GiB; on {card}")
+    traced_steps(torch, "inpainting2d-resnet", parts, card, "GAN step")
+    return med(total)
+
+
+def fid_cli_on_card(torch, tmp, card):
+    """The FID command line's card path without PIL: gz UV maps through a
+    toy renderer into InceptionV3 on the card (its first FID_CLI_DIMS
+    pool3 features) against .npz statistics, and `main` on two .npz
+    files. Returns a summary line."""
+    import gzip
+    import numpy as np
+    from stinet_tpu_torch.metrics import fid_cli
+    from stinet_tpu_torch.metrics.fid import FIDScoreCumulative
+    rng = np.random.default_rng(0)
+    uv_dir = tmp / "uv"
+    uv_dir.mkdir()
+    for i in range(8):
+        with gzip.open(uv_dir / f"{i}.gz", "wb") as f:
+            f.write(rng.uniform(0, 1, (32, 32, 2)).astype(
+                np.float32).tobytes())
+    features = fid_cli.inception_features(torch.device("cuda"))
+    fid = FIDScoreCumulative(
+        feature_fn=lambda imgs: features(imgs)[:, :FID_CLI_DIMS])
+    a = rng.normal(size=(FID_CLI_DIMS, FID_CLI_DIMS)) * 0.1
+    for name, mu in (("truth", 0.0), ("other", 0.1)):
+        np.savez(tmp / f"{name}.npz", mu=np.full(FID_CLI_DIMS, mu),
+                 sigma=a @ a.T)
+    t0 = time.perf_counter()
+    value = fid_cli.fid_given_path_and_model(
+        str(tmp / "truth.npz"), str(uv_dir),
+        lambda uv: np.concatenate([uv, uv[..., :1]], axis=-1), (32, 32), fid,
+        batch_size=4, scale_size=48)
+    secs = time.perf_counter() - t0
+    check(math.isfinite(value), f"fid_given_path_and_model: {value}")
+    npz = fid_cli.main([str(tmp / "truth.npz"), str(tmp / "other.npz")])
+    check(abs(npz - 0.1 ** 2 * FID_CLI_DIMS) <= 1e-9,
+          f"fid_cli main on two .npz files: {npz}, expected "
+          f"{0.1 ** 2 * FID_CLI_DIMS}")
+    return (f"fid_cli: 8 gz UV maps (32 px, scaled to 48) through "
+            f"InceptionV3 on the card against .npz statistics, "
+            f"{FID_CLI_DIMS} features: FID {value:.6g} in {secs:.2f} s; "
+            f"main on two .npz files {npz:.6g}; on {card}")
+
+
+def inpainting2d_resnet_phase(torch, card):
+    """The 2D workload's Resnet2D branch with its PatchGAN: the port's CLI
+    trains the hermetic 2D config with `archs.Resnet2D` enabled (its
+    shipped width: ngf 64, 9 blocks, instance norm, max pooling, dilation
+    order 1), `SurfaceTextureInpaintingNet` disabled and `trainer.use_gan`
+    on (the discriminator at the trainer's defaults: ndf 64, 5 layers),
+    LPIPS and FID on random features; resumes it and evaluates it.
+
+    Cuts, against the shipped hermetic config, as phase `inpainting2d`'s:
+    `root_dir` an empty temporary directory, so the loader synthesizes 32
+    train textures (8 steps an epoch at B=4) and 8 val textures;
+    `save_dir` repointed; INP2D_EPOCHS epochs, then one more resumed (the
+    config: 2000); `epochs_per_fid` INP2D_FID_EVERY (the config: 5), so
+    FID runs once, at the last epoch, for train and val; a checkpoint
+    every epoch. The config is written to the temporary directory; the
+    files under experiments/ stay as they are."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    phase = "inpainting2d-resnet"
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t_phase = time.perf_counter()
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory(prefix="stinet_2d_resnet_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "textures").mkdir()
+        cfg = json.loads(pathlib.Path(INP2D_CONFIG).read_text())
+        cfg["archs"]["SurfaceTextureInpaintingNet"]["enabled"] = False
+        cfg["archs"]["Resnet2D"]["enabled"] = True
+        cfg["data_loader"]["args"]["root_dir"] = str(tmp / "textures")
+        cfg["trainer"].update(save_dir=str(tmp / "saved"),
+                              epochs=INP2D_EPOCHS, save_period=1,
+                              epochs_per_fid=INP2D_FID_EVERY, use_gan=True)
+        (tmp / "2d.json").write_text(json.dumps(cfg))
+        args = cfg["archs"]["Resnet2D"]["args"]
+        dl = cfg["data_loader"]["args"]
+        say(phase, f"{INP2D_CONFIG} with archs.Resnet2D enabled: ngf "
+            f"{args['ngf']}, {args['n_blocks']} blocks, {args['norm']} "
+            f"norm, {args['pooling_type']} pooling, dilation order "
+            f"{args['dilation_order']}; use_gan ({cfg['trainer']['gan_mode']},"
+            f" weight {cfg['trainer']['gan_loss_weight']}); img_size "
+            f"{dl['img_size']}, batch {dl['train_batch_size']}; root_dir "
+            f"empty (synthesized textures), save_dir repointed, epochs "
+            f"{INP2D_EPOCHS}, epochs_per_fid {INP2D_FID_EVERY}, save_period 1")
+
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_resnet2d(torch) as (probes, logs):
+            trainer = cli.main(["-c", str(tmp / "2d.json"), "-d", "cuda",
+                                "-n", "resnet"])
+        launches = _read(counters)
+        probe = probes[0]
+        trainer_readings(phase, trainer, probe, card)
+        check(trainer.branch == "2d" and trainer.disc is not None,
+              "the trainer did not take the 2d branch with the GAN")
+        for name, net in (("G", trainer.model), ("D", trainer.disc)):
+            check(all(p.is_cuda for p in net.parameters()),
+                  f"{name}'s parameters are not all on the card")
+        check(not any(launches.values()), f"a graph kernel launched on the "
+              f"Resnet2D path: {launches}")
+        losses = [float(x) for x in probe.losses]
+        steps_a_epoch = len(trainer.data_loader.train_loader)
+        check(len(losses) == INP2D_EPOCHS * steps_a_epoch,
+              f"{len(losses)} train steps")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        tag = trainer.lpips_tag
+        for log in logs:
+            for k in ("loss", "loss_D_fake", "loss_D_real", "loss_G",
+                      "accuracy_D_fake", "accuracy_D_real", tag, "val_loss",
+                      "val_" + tag):
+                check(math.isfinite(log[k]), f"epoch log {k} {log[k]}")
+        for k in ("train_fid_random_features", "val_fid_random_features"):
+            check(math.isfinite(logs[-1].get(k, math.nan)),
+                  f"epoch {INP2D_EPOCHS} {k}: {logs[-1].get(k)}")
+        run = trainer.checkpoint_dir
+        names = [f"checkpoint-epoch{e}.ckpt"
+                 for e in range(1, INP2D_EPOCHS + 1)] + ["model_best.ckpt"]
+        from stinet_tpu_torch.core.checkpoint import load_checkpoint
+        for name in names:
+            for f in (run / name, run / (name + ".meta.json")):
+                check(f.exists(), f"{f} was not written")
+            sds, opts, _, _ = load_checkpoint(run / name)
+            check(sorted(sds) == sorted(opts) == ["2d", "discriminator"],
+                  f"{name} holds {sorted(sds)}")
+        say(phase, f"CLI run: {len(losses)} GAN steps, losses "
+            f"{[round(x, 6) for x in losses]}; graph kernel launches in the "
+            f"run (train, FID and validation) {launches}; "
+            f"{', '.join(names)} written, each with 2d and discriminator; "
+            "epoch logs " + "; ".join(
+                ", ".join(f"{k} {log[k]:.6g}" for k in log if k != "lr")
+                for log in logs))
+        for t in trainer.fid_timings:
+            say(phase, f"FID epoch {t['epoch']} {t['split']}: "
+                f"{t['features_s']:.3f} s eval steps and InceptionV3 "
+                f"forwards to the host copy, {t['distance_s']:.3f} s host "
+                f"statistics and sqrtm (scipy, 2048 x 2048); on {card}")
+
+        graph, _ = next(iter(trainer.data_loader.train_loader))
+        say(phase, resnet_card_against_cpu(torch, trainer, graph))
+        graph = graph.to("cuda")
+        gan_ms = bare_gan_step(torch, trainer, graph, card)
+        from stinet_tpu_torch.trainers.inpainting2d import (
+            make_resnet2d_steps)
+        plain, _ = make_resnet2d_steps(trainer.model, trainer.optimizer,
+                                       trainer.img_size)
+        step_ms = bare_step(torch, phase, types.SimpleNamespace(
+            _train_step=plain, model=trainer.model,
+            optimizer=trainer.optimizer, _eval_step=trainer._eval_step),
+            graph, card, unit="image (a batch of 4)", per=graph.num_graphs)
+        vgraph = next(iter(trainer.data_loader.val_loader))[0].to("cuda")
+        eval_ms = median_ms(torch, lambda: trainer._eval_step(vgraph),
+                            reps=SEG_STEP_REPS, inner=1, warmup=1)
+        say(phase, f"GAN step {gan_ms:.2f} ms against the plain 2d step's "
+            f"{step_ms:.2f} ms; eval {eval_ms:.2f} ms/image (a val batch of "
+            f"1, LPIPS included); on {card}")
+        del trainer, probes, plain
+
+        last = run / f"checkpoint-epoch{INP2D_EPOCHS}.ckpt"
+        cfg["trainer"]["epochs"] = INP2D_EPOCHS + 1
+        (tmp / "2d_more.json").write_text(json.dumps(cfg))
+        with probed_resnet2d(torch, expect=last) as (probes, _):
+            resumed = cli.main(["-c", str(tmp / "2d_more.json"), "-r",
+                                str(last), "-d", "cuda", "-n", "resume"])
+        epochs = [t["epoch"] for t in resumed.epoch_timings]
+        check(epochs == [INP2D_EPOCHS + 1], f"resumed epochs {epochs}")
+        check(all(math.isfinite(float(x)) for x in probes[0].losses),
+              "non-finite resumed loss")
+        say(phase, f"resume from {last.name}: epoch {epochs[0]} ran; both "
+            "models and both Adam states bitwise the file's before its "
+            f"first step; losses "
+            f"{[round(float(x), 6) for x in probes[0].losses]}")
+        del resumed, probes
+
+        t0 = time.perf_counter()
+        evaluator = cli.main(["-r", str(run / "model_best.ckpt"), "-e",
+                              "valid", "-d", "cuda", "-n", "eval"])
+        eval_s = time.perf_counter() - t0
+        result = evaluator.valid_metrics.result()
+        check(all(math.isfinite(v) for v in result.values()),
+              f"eval metrics {result}")
+        say(phase, f"-e valid -r model_best.ckpt: {result}; {eval_s:.2f} s "
+            f"for {len(evaluator.data_loader.val_dataset)} images, the "
+            "trainer's construction included")
+        del evaluator
+        say(phase, fid_cli_on_card(torch, tmp, card))
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s; on "
+        f"{card}")
 
 
 # --- windowed f32 and batched serving ----------------------------------------
@@ -2899,6 +3286,7 @@ def main(argv=None):
     trainer_phase(torch, card)
     segmentation_phase(torch, card)
     inpainting2d_phase(torch, card)
+    inpainting2d_resnet_phase(torch, card)
 
     # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,

@@ -1,10 +1,13 @@
-"""Generator factory with the config surface of the reference define_G
-(and of `stinet_tpu/models/factory.py`). Only the STINet branch is ported.
-Knobs of the reference's torch setup that the JAX model also ignores (init
-type and gain, GPU ids, dropout) are accepted so a config's archs section
+"""Generator and discriminator factories with the config surface of the
+reference's define_G / define_D (and of `stinet_tpu/models/factory.py`):
+`filter_type="conv2d"` builds the 2D workload's Resnet2D, any other the
+STINet; `define_D` builds the PatchGAN zoo's discriminators. Knobs of the
+reference's torch setup that the JAX models also ignore (init type and
+gain, GPU ids; dropout on STINet) are accepted so a config's archs section
 passes unchanged. `dtype` ("bfloat16" / "float32" as JSON configs spell
-them) is the compute dtype, and the checkpointing knobs place
-`torch.utils.checkpoint` as the JAX model places `nn.remat`."""
+them) is STINet's compute dtype (the conv2d models are f32), and the
+checkpointing knobs place `torch.utils.checkpoint` as the JAX model places
+`nn.remat`."""
 from typing import Optional
 
 import torch
@@ -29,7 +32,18 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
     """Build the generator named by `filter_type`; its weights are drawn
     from `generator` (torch.Generator() when None)."""
     if filter_type == "conv2d":
-        raise NotImplementedError("the 2D Resnet generator is not ported yet")
+        if resolve_dtype(dtype) is not None:
+            raise NotImplementedError(f"dtype {dtype!r}: the conv2d "
+                                      "generator is ported in float32")
+        from stinet_tpu_torch.models.resnet2d import Resnet2D
+        return Resnet2D(
+            input_nc=input_nc, output_nc=output_nc, ngf=ngf, norm=norm,
+            use_dropout=use_dropout, n_blocks=n_blocks, n_levels=n_levels,
+            dilation_order=dilation_order,
+            n_repeated_io_convs=n_repeated_io_convs,
+            pooling_type=pooling_type,
+            io_receptive_field_type=io_receptive_field_type,
+            generator=generator)
     if use_label_embedding:
         raise NotImplementedError("label embedding is not ported yet")
     from stinet_tpu_torch.models.stinet import SurfaceTextureInpaintingNet
@@ -43,6 +57,33 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
             num_blocks_per_uncheckpointed_block),
         remat_io_blocks=remat_io_blocks, dtype=resolve_dtype(dtype),
         generator=generator)
+
+
+def define_D(input_nc, ndf, netD, n_layers_D=3, norm="batch",
+             init_type="normal", init_gain=0.02, gpu_ids=(), dtype=None,
+             generator: Optional[torch.Generator] = None):
+    """The discriminator named by `netD`: "basic" (a 3-layer PatchGAN),
+    "n_layers" (`n_layers_D` layers) or "pixel"; weights from
+    `generator`."""
+    from stinet_tpu_torch.models.gan_networks import (
+        NLayerDiscriminator, PixelDiscriminator)
+    if resolve_dtype(dtype) is not None:
+        raise NotImplementedError(f"dtype {dtype!r}: the discriminators are "
+                                  "ported in float32")
+    if netD in ("basic", "n_layers"):
+        return NLayerDiscriminator(
+            input_nc=input_nc, ndf=ndf,
+            n_layers=3 if netD == "basic" else n_layers_D, norm=norm,
+            generator=generator)
+    if netD == "pixel":
+        return PixelDiscriminator(input_nc=input_nc, ndf=ndf, norm=norm,
+                                  generator=generator)
+    raise NotImplementedError(
+        f"Discriminator model name {netD!r} is not recognized")
+
+
+def count_parameters(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
 
 
 def resolve_dtype(dtype) -> Optional[torch.dtype]:

@@ -124,17 +124,24 @@ class SingleModelTrainer(BaseTrainer):
     under MODEL_KEY, the model's state dict and the optimizer's state, and
     the accumulation state in `extra` (with an empty `batch_stats`, the
     JAX package's layout; the running statistics are the state dict's
-    buffers). A resume restores all three."""
+    buffers). A resume restores all three. A trainer with more models
+    (a GAN's discriminator) names them in `_checkpointed`; a resume loads
+    each that the file holds."""
     MODEL_KEY = "model"
 
+    def _checkpointed(self):
+        """{checkpoint key: (model, its optimizer)}."""
+        return {self.MODEL_KEY: (self.model, self.optimizer)}
+
     def _state_save(self, epoch, path):
+        parts = self._checkpointed()
         save_checkpoint(
             path,
-            models={self.MODEL_KEY: self.model.state_dict()},
-            opt_states={self.MODEL_KEY: self.optimizer.state_dict()},
+            models={k: m.state_dict() for k, (m, _) in parts.items()},
+            opt_states={k: o.state_dict() for k, (_, o) in parts.items()},
             epoch=epoch, monitor_best=self.mnt_best,
             config=self.config.config,
-            archs={self.MODEL_KEY: type(self.model).__name__},
+            archs={k: type(m).__name__ for k, (m, _) in parts.items()},
             extra={"batch_stats": {},
                    "accumulation": self._train_step.state()})
 
@@ -151,8 +158,10 @@ class SingleModelTrainer(BaseTrainer):
     def _resume_checkpoint(self, resume_path):
         self.logger.info("Loading checkpoint: %s ...", resume_path)
         models, opts, extra, meta = load_checkpoint(resume_path)
-        self.model.load_state_dict(models[self.MODEL_KEY])
-        self.optimizer.load_state_dict(opts[self.MODEL_KEY])
+        for k, (model, optimizer) in self._checkpointed().items():
+            if k in models or k == self.MODEL_KEY:
+                model.load_state_dict(models[k])
+                optimizer.load_state_dict(opts[k])
         if "accumulation" in extra:
             self._train_step.load_state(extra["accumulation"])
         self.start_epoch = meta["epoch"] + 1

@@ -184,6 +184,11 @@ def inpainting_metrics(composite, graph: HierarchicalGraph, loss):
     }
 
 
+def set_lr(optimizer, lr) -> None:
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
 class _TrainStep:
     """train_step(graph, lr) -> what `metrics_of` returns, with gradient
     accumulation over `accumulate` calls. `loss_of(graph)` gives (loss,
@@ -206,16 +211,20 @@ class _TrainStep:
         with full_f32_matmuls():
             if self.mini_step == 0:
                 self.optimizer.zero_grad(set_to_none=True)
-            loss, aux = self.loss_of(graph)
+            loss, aux = self._loss(graph, lr)
             (loss / self.accumulate if self.accumulate > 1
              else loss).backward()
             self.mini_step = (self.mini_step + 1) % self.accumulate
             if self.mini_step == 0:
-                for group in self.optimizer.param_groups:
-                    group["lr"] = float(lr)
+                set_lr(self.optimizer, lr)
                 self.optimizer.step()
             with torch.no_grad():
                 return self.metrics_of(graph, loss.detach(), aux)
+
+    def _loss(self, graph, lr):
+        """(loss, aux) of one call at learning rate `lr`: `loss_of(graph)`
+        (a subclass may step other models here first)."""
+        return self.loss_of(graph)
 
     def state(self):
         """{"mini_step": calls since the last optimizer step, "grads":

@@ -1,39 +1,54 @@
-"""Inpainting2DTrainer: 2D texture-image inpainting over image-as-grid
-graphs, the counterpart of the graph branch and concatenated layout of
-`stinet_tpu/trainers/inpainting2d.py` (the reference's
-inpainting2d_trainer.py).
+"""Inpainting2DTrainer: 2D texture-image inpainting, the counterpart of
+the concatenated layout of `stinet_tpu/trainers/inpainting2d.py` (the
+reference's inpainting2d_trainer.py), with its two branches: STINet over
+the loader's image grid graphs ("graph"), and the conv2d baseline Resnet2D
+on the same batches as images ("2d"), with an optional conditional
+PatchGAN (`use_gan`). The enabled arch picks the branch.
 
-STINet over the loader's grid graphs (`data/imagegraph.py`), trained on the
-masked-composite L1, mean(|where(mask > 0, out, color) - color|) over the
-batch's num_graphs * img_size^2 pixel rows, plus total variation with
-`use_total_variation`. Per-batch metrics: loss, l1, mse, psnr (data range
-2), graph_tv, graph_lap_var, and LPIPS(alex) with `use_lpips`. Every
-`epochs_per_fid` epochs, FID of predictions against the ground truth over
-the fixed train samples and over the validation set, on InceptionV3 pool3
-features of `images / 2 + 0.5`. With `use_vgg`, the loss adds the VGG16
-content and style terms (`models/vgg.py`). As in JAX, the train ground
-truth's statistics are meant to freeze after the first pass, but freezing
-drops the buffers `num_samples` counts, so each FID epoch takes a new
-ground-truth pass (ROADMAP.md, Queue 3). Gradient accumulation and Adam go
-through `graph_common._TrainStep`; checkpoints hold the model's state dict
-under "graph", the optimizer state and the accumulation state, and
-resume.
+Both train on the masked-composite L1, mean(|where(mask > 0, out, color) -
+color|) over the batch's num_graphs * img_size^2 pixels, plus total
+variation with `use_total_variation`, and with `use_vgg` the VGG16 content
+and style terms (`models/vgg.py`). Per-batch metrics: loss, l1, mse, psnr
+(data range 2), graph_tv and graph_lap_var (0 on the 2d branch, as in JAX),
+and LPIPS(alex) with `use_lpips`. Every `epochs_per_fid` epochs, FID of
+predictions against the ground truth over the fixed train samples and over
+the validation set, on InceptionV3 pool3 features of `images / 2 + 0.5`.
+As in JAX, the train ground truth's statistics are meant to freeze after
+the first pass, but freezing drops the buffers `num_samples` counts, so
+each FID epoch takes a new ground-truth pass (ROADMAP.md, Queue 3).
+Gradient accumulation and Adam go through `graph_common._TrainStep`;
+checkpoints hold the model's state dict under "graph" or "2d" (and the
+discriminator's under "discriminator"), the optimizer states and the
+accumulation state, and resume.
+
+The GAN step (`GanStep`, JAX's `_make_gan_step`): the discriminator
+`define_D(7, ndf, "n_layers", n_layers_D, "instance")` scores the prior
+cat(color * (1 - (mask > 0)), mask) beside the detached fake composite and
+beside the real image and steps on (lf + lr) / 2 with its own Adam (no
+accumulation); then the generator's loss against the UPDATED discriminator,
+L1 + total variation + gan_loss_weight * gan_loss(D(prior, fake), real),
+with no VGG term. Its metrics add loss_D_fake, loss_D_real, loss_G and the
+discriminator's sigmoid accuracies. Validation runs the plain 2d eval step.
+
+JAX's 2d step applies Resnet2D without a `batch_stats` collection and
+without a dropout RNG, so it cannot train norm="batch" or use_dropout; the
+port's trainer refuses both (the modules have them).
 
 Perceptual nets fail closed, as the JAX trainer's do: `use_lpips`, FID or
 `use_vgg` need a weights file (`lpips_weights`, `inception_weights`,
 `vgg_weights`: torch state-dict files) or `allow_random_features`, and
 random-feature scalars are tagged `*_random_features`.
 
-The model runs on an explicit `torch.device`, the card unless the caller
-asks for the CPU; weights are drawn from a `torch.Generator` seeded from
-the config's `seed`. Batches reach the device through `iter_placed`, and
-every step, LPIPS, VGG and Inception forwards included, runs inside
-`full_f32_matmuls`. The JAX trainer's parameter-template probe reads the
-validation loader, which draws nothing, so the port does not probe.
+The models run on an explicit `torch.device`, the card unless the caller
+asks for the CPU; weights are drawn from `torch.Generator`s seeded from the
+config's `seed` (the discriminator's from seed + 1). Batches reach the
+device through `iter_placed`, and every step, LPIPS, VGG and Inception
+forwards included, runs inside `full_f32_matmuls`. The JAX trainer's
+parameter-template probe reads the validation loader, which draws nothing,
+so the port does not probe.
 
-Not ported here (ROADMAP.md, Queue 1 item 3): the `Resnet2D` branch with
-its PatchGAN (`use_gan`), and the stacked layout (Queue 1 item 5).
-`use_gan` is ignored on the graph branch, as in JAX.
+Not ported here: the stacked layout and its 2d and GAN steps (ROADMAP.md,
+Queue 1 item 5). `use_gan` is ignored on the graph branch, as in JAX.
 """
 import time
 
@@ -45,27 +60,43 @@ from stinet_tpu_torch.core.registry import DATALOADERS, TRAINERS
 from stinet_tpu_torch.metrics import MetricTracker
 from stinet_tpu_torch.metrics import graph_metrics as gm
 from stinet_tpu_torch.metrics.fid import FIDScoreCumulative
-from stinet_tpu_torch.models.factory import define_G
+from stinet_tpu_torch.models.factory import (
+    count_parameters, define_D, define_G)
+from stinet_tpu_torch.models.gan_networks import gan_loss
 from stinet_tpu_torch.models.losses import total_variation_loss
 from stinet_tpu_torch.serving import full_f32_matmuls, resolve_device
 from stinet_tpu_torch.trainers.base import SingleModelTrainer
 from stinet_tpu_torch.trainers.graph_common import (
-    _TrainStep, build_optimizer, host_metrics, iter_placed, step_lr,
-    vertex_mask)
+    _TrainStep, build_optimizer, host_metrics, iter_placed, set_lr,
+    step_lr, vertex_mask)
 from stinet_tpu_torch.trainers.inpainting3d import (
     _timed, check_nan_in_params)
+
+
+def _perceptual_terms(composite, color, vgg, vgg_weights, tv_weight):
+    """The loss's VGG content and style terms (`vgg_weights` times a
+    VGGLoss `vgg`'s) and total variation weighted `tv_weight`, on
+    [B, s, s, 3] images; each term only where its module or weight is
+    given."""
+    extra = 0.0
+    if vgg is not None:
+        content, style = vgg(composite, color)
+        extra = extra + vgg_weights[0] * content + vgg_weights[1] * style
+    if tv_weight is not None:
+        extra = extra + total_variation_loss(composite, tv_weight)
+    return extra
+
 
 def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
                             lpips_tag="lpips", tv_weight=None, vgg=None,
                             vgg_weights=(0.03, 3000.0), impl=None,
                             accumulate=1):
-    """(train_step, eval_step) over grid graphs already on the model's
-    device. train_step(graph, lr) -> metrics, one optimizer step at `lr`
-    every `accumulate` calls (`_TrainStep`); eval_step(graph) -> (metrics,
-    composite) without gradients. The loss adds, on the composite images,
-    `vgg_weights` (content, style) times a VGGLoss `vgg`'s terms and total
-    variation weighted `tv_weight`; `lpips` (an LPIPS module) adds its
-    batch mean to the metrics as `lpips_tag`."""
+    """(train_step, eval_step) of the graph branch over grid graphs
+    already on the model's device. train_step(graph, lr) -> metrics, one
+    optimizer step at `lr` every `accumulate` calls (`_TrainStep`);
+    eval_step(graph) -> (metrics, composite rows) without gradients. The
+    loss adds `_perceptual_terms` on the composite images; `lpips` (an
+    LPIPS module) adds its batch mean to the metrics as `lpips_tag`."""
     def images(flat):
         return flat.reshape(-1, img_size, img_size, flat.shape[-1])
 
@@ -74,13 +105,9 @@ def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
         composite = torch.where(graph.mask > 0, out, graph.color)
         n = graph.num_graphs * img_size * img_size
         loss = (composite[:n] - graph.color[:n]).abs().mean()
-        if vgg is not None:
-            content, style = vgg(images(composite[:n]),
-                                 images(graph.color[:n]))
-            loss = loss + vgg_weights[0] * content + vgg_weights[1] * style
-        if tv_weight is not None:
-            loss = loss + total_variation_loss(images(composite[:n]),
-                                               tv_weight)
+        loss = loss + _perceptual_terms(
+            images(composite[:n]), images(graph.color[:n]), vgg,
+            vgg_weights, tv_weight)
         return loss, composite
 
     def metrics_of(graph, loss, composite):
@@ -111,25 +138,178 @@ def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
             eval_step)
 
 
+# --- the 2d branch -----------------------------------------------------------
+
+def batch_images(graph, img_size):
+    """(x, color, mask) of a grid batch's first num_graphs * img_size^2
+    rows as [B, s, s, C] images."""
+    n = graph.num_graphs * img_size * img_size
+
+    def images(flat):
+        return flat[:n].reshape(-1, img_size, img_size, flat.shape[-1])
+    return images(graph.x), images(graph.color), images(graph.mask)
+
+
+def _nchw(images):
+    return images.permute(0, 3, 1, 2)
+
+
+def nhwc_forward(model, x):
+    """A conv2d model's [B, s, s, C] output on [B, s, s, C] inputs (the
+    models are NCHW)."""
+    return model(_nchw(x)).permute(0, 2, 3, 1)
+
+
+def image_metrics(composite, color, loss, lpips=None, lpips_tag="lpips"):
+    """The 2d branch's metric dict from [B, s, s, 3] images (JAX's
+    `_image_metrics_from`): psnr -10 log10(mse / 4 + 1e-8), graph_tv and
+    graph_lap_var 0."""
+    mse = ((composite - color) ** 2).mean()
+    zero = torch.zeros((), device=color.device)
+    out = {"loss": loss, "l1": (composite - color).abs().mean(), "mse": mse,
+           "psnr": -10.0 * torch.log10(mse / 4.0 + 1e-8),
+           "graph_tv": zero, "graph_lap_var": zero}
+    if lpips is not None:
+        out[lpips_tag] = lpips(composite, color).mean()
+    return out
+
+
+class GanStep(_TrainStep):
+    """gan_step(graph, lr) -> metrics: the conditional PatchGAN's step of
+    the 2d branch (module docstring). Each call steps the discriminator at
+    `lr`, then takes the generator's loss and backward, which steps every
+    `accumulate` calls as `_TrainStep`'s does. One generator forward
+    serves both halves (JAX runs it twice on the same weights)."""
+
+    def __init__(self, model, optimizer, disc, disc_optimizer, img_size,
+                 gan_mode, gan_loss_weight, tv_weight, accumulate,
+                 metrics_of):
+        super().__init__(model, optimizer, None, accumulate, metrics_of)
+        self.disc, self.disc_optimizer = disc, disc_optimizer
+        self.img_size, self.gan_mode = img_size, gan_mode
+        self.gan_loss_weight, self.tv_weight = gan_loss_weight, tv_weight
+
+    def generate(self, graph):
+        """(fake composite, color, prior) images of the batch."""
+        x, color, mask = batch_images(graph, self.img_size)
+        fake = torch.where(mask > 0, nhwc_forward(self.model, x), color)
+        prior = torch.cat([color * (mask <= 0).to(color.dtype), mask], -1)
+        return fake, color, prior
+
+    def score(self, prior, image):
+        return self.disc(_nchw(torch.cat([prior, image], -1)))
+
+    def disc_loss(self, fake, color, prior):
+        """(loss, {its terms and accuracies}) of the discriminator on the
+        detached fake and the real image."""
+        pf = self.score(prior, fake.detach())
+        pr = self.score(prior, color)
+        lf = gan_loss(pf, False, self.gan_mode)
+        lr_ = gan_loss(pr, True, self.gan_mode)
+        with torch.no_grad():
+            terms = {"loss_D_fake": lf.detach(), "loss_D_real": lr_.detach(),
+                     "accuracy_D_fake": (1.0 - torch.sigmoid(pf)).mean(),
+                     "accuracy_D_real": torch.sigmoid(pr).mean()}
+        return (lf + lr_) * 0.5, terms
+
+    def gen_loss(self, fake, color, prior):
+        """(loss, its GAN term) of the generator against the current
+        discriminator, whose parameters take no gradient."""
+        self.disc.requires_grad_(False)
+        lg = gan_loss(self.score(prior, fake), True, self.gan_mode)
+        loss = (fake - color).abs().mean()
+        if self.tv_weight is not None:
+            loss = loss + total_variation_loss(fake, self.tv_weight)
+        return loss + self.gan_loss_weight * lg, lg
+
+    def _loss(self, graph, lr):
+        fake, color, prior = self.generate(graph)
+        self.disc.train()
+        self.disc.requires_grad_(True)
+        self.disc_optimizer.zero_grad(set_to_none=True)
+        d_loss, terms = self.disc_loss(fake, color, prior)
+        d_loss.backward()
+        set_lr(self.disc_optimizer, lr)
+        self.disc_optimizer.step()
+        loss, lg = self.gen_loss(fake, color, prior)
+        terms["loss_G"] = lg.detach()
+        return loss, (fake, color, terms)
+
+
+def make_resnet2d_steps(model, optimizer, img_size, lpips=None,
+                        lpips_tag="lpips", tv_weight=None, vgg=None,
+                        vgg_weights=(0.03, 3000.0), accumulate=1, disc=None,
+                        disc_optimizer=None, gan_mode="lsgan",
+                        gan_loss_weight=1e-3):
+    """(train_step, eval_step) of the 2d branch over grid batches already
+    on the model's device, as `make_inpainting2d_steps` but on the
+    batch's images; eval_step's composite is [B, s, s, 3]. With `disc`
+    (and its `disc_optimizer`), train_step is the `GanStep`."""
+    def loss_of(graph):
+        x, color, mask = batch_images(graph, img_size)
+        composite = torch.where(mask > 0, nhwc_forward(model, x), color)
+        loss = (composite - color).abs().mean() + _perceptual_terms(
+            composite, color, vgg, vgg_weights, tv_weight)
+        return loss, composite
+
+    def metrics_of(graph, loss, composite):
+        _, color, _ = batch_images(graph, img_size)
+        return image_metrics(composite.detach(), color, loss, lpips,
+                             lpips_tag)
+
+    def gan_metrics_of(graph, loss, aux):
+        fake, color, terms = aux
+        out = image_metrics(fake.detach(), color, loss, lpips, lpips_tag)
+        out.update(terms)
+        return out
+
+    def eval_step(graph):
+        model.eval()
+        with full_f32_matmuls(), torch.no_grad():
+            loss, composite = loss_of(graph)
+            return metrics_of(graph, loss, composite), composite
+
+    if disc is None:
+        return (_TrainStep(model, optimizer, loss_of, accumulate,
+                           metrics_of), eval_step)
+    return (GanStep(model, optimizer, disc, disc_optimizer, img_size,
+                    gan_mode, gan_loss_weight, tv_weight, accumulate,
+                    gan_metrics_of), eval_step)
+
+
+def _refuse_what_jax_cannot_train(arch_args):
+    """JAX's 2d step applies Resnet2D without a `batch_stats` collection or
+    a dropout RNG, so it raises for norm="batch" and use_dropout (module
+    docstring); the port adds neither to the trainer."""
+    if arch_args.get("norm", "batch") == "batch":
+        raise NotImplementedError(
+            'the 2d branch trains no norm="batch" Resnet2D: the JAX '
+            "trainer's 2d step has no batch_stats collection to update")
+    if arch_args.get("use_dropout", False):
+        raise NotImplementedError(
+            "the 2d branch trains no Resnet2D with use_dropout: the JAX "
+            "trainer's 2d step has no dropout RNG")
+
+
 @TRAINERS.register("Inpainting2DTrainer")
 class Inpainting2DTrainer(SingleModelTrainer):
-    ARCH_KEY = "SurfaceTextureInpaintingNet"
-    MODEL_KEY = "graph"     # the checkpoint's dict key, as the JAX trainer's
+    ARCHS = {"graph": "SurfaceTextureInpaintingNet", "2d": "Resnet2D"}
 
     def __init__(self, config, device=None, impl=None):
         super().__init__(config)
         logger = config.get_logger("train")
         archs = config["archs"]
-        graph_enabled = archs.get(self.ARCH_KEY, {}).get("enabled", False)
-        conv_enabled = archs.get("Resnet2D", {}).get("enabled", False)
+        graph_enabled = archs.get(self.ARCHS["graph"], {}).get("enabled",
+                                                               False)
+        conv_enabled = archs.get(self.ARCHS["2d"], {}).get("enabled", False)
         if graph_enabled == conv_enabled:
             raise ValueError("Exactly one of SurfaceTextureInpaintingNet/"
                              "Resnet2D must be enabled")
-        if conv_enabled:
-            raise NotImplementedError(
-                "the Resnet2D branch is not ported yet (ROADMAP.md, Queue 1 "
-                "item 3 (b): the 2D workload's Resnet2D PR)")
-        self.branch = "graph"
+        self.branch = "graph" if graph_enabled else "2d"
+        self.MODEL_KEY = self.branch   # the checkpoint's key, as in JAX
+        arch_args = archs[self.ARCHS[self.branch]]["args"]
+        if self.branch == "2d":
+            _refuse_what_jax_cannot_train(arch_args)
         self.device = resolve_device(
             device or getattr(config, "device", None) or "cuda")
 
@@ -138,6 +318,9 @@ class Inpainting2DTrainer(SingleModelTrainer):
         self.img_size = config["data_loader"]["args"]["img_size"]
 
         tcfg = config["trainer"]
+        self.use_gan = tcfg.get("use_gan", False) and self.branch == "2d"
+        self.gan_mode = tcfg.get("gan_mode", "lsgan")
+        self.gan_loss_weight = tcfg.get("gan_loss_weight", 1e-3)
         self.use_total_variation = tcfg.get("use_total_variation", False)
         self.total_variation_weight = tcfg.get("total_variation_weight", 1e-4)
         self.do_validation = tcfg.get("do_validation", True)
@@ -163,21 +346,39 @@ class Inpainting2DTrainer(SingleModelTrainer):
         self.num_accum = int(dl_args.get("num_cumulated_train_batches", 1))
         seed = config.get("seed", 123) or 123
         self.model = define_G(
-            **archs[self.ARCH_KEY]["args"],
+            **arch_args,
             generator=torch.Generator().manual_seed(seed)).to(self.device)
-        logger.info("Number of parameters in graph: %d",
-                    sum(p.numel() for p in self.model.parameters()))
+        logger.info("Number of parameters in %s: %d", self.branch,
+                    count_parameters(self.model))
         self.optimizer, self.base_lr = build_optimizer(
             self.model.parameters(), config["optimizer"])
         self.lr_fn = step_lr(self.base_lr, config.get("lr_scheduler", {}))
-        self._train_step, self._eval_step = make_inpainting2d_steps(
-            self.model, self.optimizer, self.img_size, lpips=self.lpips,
-            lpips_tag=self.lpips_tag,
-            tv_weight=(self.total_variation_weight
-                       if self.use_total_variation else None),
+        tv_weight = (self.total_variation_weight
+                     if self.use_total_variation else None)
+        common = dict(
+            lpips=self.lpips, lpips_tag=self.lpips_tag, tv_weight=tv_weight,
             vgg=self.vgg_loss,
             vgg_weights=(self.vgg_content_weight, self.vgg_style_weight),
-            impl=impl, accumulate=self.num_accum)
+            accumulate=self.num_accum)
+        self.disc = self.disc_optimizer = None
+        if self.branch == "graph":
+            self._train_step, self._eval_step = make_inpainting2d_steps(
+                self.model, self.optimizer, self.img_size, impl=impl,
+                **common)
+        else:
+            if self.use_gan:
+                self.disc = define_D(
+                    input_nc=1 + 3 + 3, ndf=tcfg.get("ndf", 64),
+                    netD="n_layers", n_layers_D=tcfg.get("n_layers_D", 5),
+                    norm="instance",
+                    generator=torch.Generator().manual_seed(seed + 1)
+                ).to(self.device)
+                self.disc_optimizer, _ = build_optimizer(
+                    self.disc.parameters(), config["optimizer"])
+            self._train_step, self._eval_step = make_resnet2d_steps(
+                self.model, self.optimizer, self.img_size, disc=self.disc,
+                disc_optimizer=self.disc_optimizer, gan_mode=self.gan_mode,
+                gan_loss_weight=self.gan_loss_weight, **common)
 
         if config.resume is not None:
             self._resume_checkpoint(config.resume)
@@ -185,6 +386,8 @@ class Inpainting2DTrainer(SingleModelTrainer):
         metrics = ["loss", "l1", "mse", "psnr", "graph_tv", "graph_lap_var"]
         if self.lpips is not None:
             metrics.append(self.lpips_tag)
+        if self.use_gan:
+            metrics += ["loss_D_fake", "loss_D_real", "loss_G"]
         self.train_metrics = MetricTracker(*metrics, writer=self.writer)
         self.valid_metrics = MetricTracker(*metrics, writer=self.writer)
         # per train epoch: {"epoch", "steps", "train_s", "wait_ms": the ms
@@ -194,6 +397,12 @@ class Inpainting2DTrainer(SingleModelTrainer):
         # Inception forwards up to the host copy, "distance_s": the host
         # statistics and Frechet distance}
         self.fid_timings = []
+
+    def _checkpointed(self):
+        parts = super()._checkpointed()
+        if self.disc is not None:
+            parts["discriminator"] = (self.disc, self.disc_optimizer)
+        return parts
 
     # ------------------------------------------------------------------
     def _require_random_optin(self, what, key):
@@ -249,10 +458,13 @@ class Inpainting2DTrainer(SingleModelTrainer):
         self.lpips_tag = "lpips_random_features"
         return random_lpips(torch.Generator().manual_seed(0)).to(self.device)
 
-    def _images(self, flat, n_images):
-        """[n_images, s, s, C] from the first rows of a [V_pad, C] leaf."""
+    def _images(self, t, n_images):
+        """[n_images, s, s, C] from the first rows of a [V_pad, C] leaf, or
+        of the 2d branch's [B, s, s, C] images."""
+        if t.dim() == 4:
+            return t[:n_images]
         s = self.img_size
-        return flat[:n_images * s * s].reshape(n_images, s, s, -1)
+        return t[:n_images * s * s].reshape(n_images, s, s, -1)
 
     # ------------------------------------------------------------------
     def _train_epoch(self, epoch):

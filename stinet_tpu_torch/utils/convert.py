@@ -1,7 +1,8 @@
 """Carry model weights from the JAX package to the port: STINet's
 (`state_dict_from_jax_params`), SingleConvMeshNet's
-(`seg_state_dict_from_jax_params`), and the 2D trainer's perceptual nets'
-(`inception_state_dict_from_jax_variables`,
+(`seg_state_dict_from_jax_params`), Resnet2D's and the GAN zoo's
+(`resnet2d_state_dict_from_jax_params`), and the 2D trainer's perceptual
+nets' (`inception_state_dict_from_jax_variables`,
 `lpips_state_dict_from_jax_variables`), so the port runs the random
 features a JAX trainer drew under `allow_random_features`.
 
@@ -246,4 +247,91 @@ def lpips_state_dict_from_jax_variables(variables, lins=None
         out[f"alex.features.{ti}.bias"] = _tensor(leaves["bias"], False)
     for i, w in enumerate(lins or ()):
         out[f"lin{i}"] = _tensor(np.asarray(w).reshape(-1), False)
+    return out
+
+
+# flax's auto-name prefix -> the port's list of that kind of layer
+# (models/resnet2d.py)
+_CONV2D_LISTS = {"Conv": "convs", "ConvTranspose": "tconvs",
+                 "ForwardConv": "fconvs", "Norm2D": "norms",
+                 "ResnetBlock2D": "blocks"}
+
+
+def resnet2d_state_dict_from_jax_params(params, batch_stats=None
+                                        ) -> Dict[str, torch.Tensor]:
+    """Flax params (and, for norm="batch", the `batch_stats` collection)
+    of a `stinet_tpu` Resnet2D, ResnetGenerator, UnetGenerator,
+    NLayerDiscriminator or PixelDiscriminator -> the port's state dict
+    (models/resnet2d.py, models/gan_networks.py), CPU f32 tensors. Module
+    paths map by kind and index (`Conv_k` -> `convs.k`, ...), and the
+    leaves as
+
+      Conv_k/kernel           -> convs.k.weight (HWIO -> OIHW)
+      ConvTranspose_k/kernel  -> tconvs.k.weight (flipped in space, HWIO ->
+                                 IOHW: flax's transposed convolution does
+                                 not flip its kernel, torch's does)
+      */bias                  -> *.bias
+      Norm2D_k/BatchNorm_0/{scale,bias}
+                              -> norms.k.{weight,bias}
+      batch_stats Norm2D_k/BatchNorm_0/{mean,var}
+                              -> norms.k.running_{mean,var}
+
+    Every leaf, batch statistics included, is taken exactly once;
+    anything else raises rather than being dropped."""
+    batch_stats = batch_stats or {}
+    out, stats_used = {}, set()
+
+    def conv(path, leaves, transposed):
+        for leaf, val in leaves.items():
+            if leaf == "bias":
+                out[f"{path}.bias"] = _tensor(val, False)
+            elif leaf == "kernel" and transposed:
+                k = np.asarray(val, dtype=np.float32)[::-1, ::-1]
+                out[f"{path}.weight"] = torch.tensor(
+                    np.ascontiguousarray(k.transpose(2, 3, 0, 1)))
+            elif leaf == "kernel":
+                out[f"{path}.weight"] = _hwio_to_oihw(val)
+            else:
+                raise ValueError(f"unexpected conv leaf {path}/{leaf}")
+
+    def walk(tree, stats, names, path):
+        for name, sub in tree.items():
+            kind, _, i = name.rpartition("_")
+            if kind not in _CONV2D_LISTS or not i.isdigit():
+                raise ValueError(
+                    f"no port layer for {'/'.join(names + [name])}")
+            port = f"{path}{_CONV2D_LISTS[kind]}.{i}"
+            st = stats.get(name, {})
+            if kind in ("Conv", "ConvTranspose"):
+                conv(port, sub, kind == "ConvTranspose")
+            elif kind == "Norm2D":
+                bn, bn_st = sub.get("BatchNorm_0", {}), st.get(
+                    "BatchNorm_0", {})
+                if set(sub) != {"BatchNorm_0"} or set(bn) != {
+                        "scale", "bias"} or set(bn_st) != {"mean", "var"}:
+                    raise ValueError(f"batch norm {port}: params "
+                                     f"{sorted(sub)} {sorted(bn)}, stats "
+                                     f"{sorted(bn_st)}")
+                out[f"{port}.weight"] = _tensor(bn["scale"], False)
+                out[f"{port}.bias"] = _tensor(bn["bias"], False)
+                out[f"{port}.running_mean"] = _tensor(bn_st["mean"], False)
+                out[f"{port}.running_var"] = _tensor(bn_st["var"], False)
+                stats_used.add(tuple(names + [name]))
+            else:
+                walk(sub, st, names + [name], port + ".")
+
+    walk(params, batch_stats, [], "")
+
+    def norm_paths(tree, names):
+        for name, sub in tree.items():
+            if name == "BatchNorm_0":
+                yield tuple(names)
+            elif hasattr(sub, "items"):
+                yield from norm_paths(sub, names + [name])
+            else:
+                yield tuple(names + [name])
+
+    extra = set(norm_paths(batch_stats, [])) - stats_used
+    if extra:
+        raise ValueError(f"batch_stats without a port layer: {sorted(extra)}")
     return out

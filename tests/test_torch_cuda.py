@@ -1120,3 +1120,112 @@ def test_vgg_loss_on_the_card_matches_the_cpu(dev):
     (c0, s0, g0), (c1, s1, g1) = out
     assert abs(c1 - c0) <= 1e-9 * abs(c0) and abs(s1 - s0) <= 1e-9 * abs(s0)
     assert float((g1 - g0).abs().max()) <= 1e-9 * float(g0.abs().max())
+
+
+# --- the 2D workload's Resnet2D branch and PatchGAN ---------------------------
+
+def _f64_card_against_cpu(dev, make, x, r):
+    """`make()`'s module in float64 and train mode, forward and the backward
+    of sum(out * r), on the CPU and on the card from the same weights:
+    (outputs, {parameter: gradient}, state dicts), each a (cpu, card)
+    pair on the host."""
+    outs, grads, states = [], [], []
+    for device in ("cpu", dev):
+        model = make().double().to(device).train()
+        out = model(torch.from_numpy(x).to(device))
+        (out * torch.from_numpy(r).to(device)).sum().backward()
+        assert all(p.is_cuda == (device != "cpu") for p in model.parameters())
+        outs.append(out.detach().cpu())
+        grads.append({k: p.grad.cpu() for k, p in model.named_parameters()})
+        states.append({k: v.cpu() for k, v in model.state_dict().items()})
+    return outs, grads, states
+
+
+@pytest.mark.parametrize("norm", ["instance", "batch"])
+def test_resnet2d_on_the_card_matches_the_cpu(dev, norm):
+    """Resnet2D (cuDNN convolutions; no kernel of the port's own) in float64
+    on the card against the CPU: the output and every parameter gradient
+    within 1e-9 of their largest, batch norm's running statistics within
+    1e-12 (in f32 a max pool's near tie may route a gradient element
+    otherwise on the other device; in f64 none does)."""
+    from stinet_tpu_torch.models.resnet2d import Resnet2D
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 4, 32, 32))
+    r = rng.normal(size=(2, 3, 32, 32))
+    outs, grads, states = _f64_card_against_cpu(dev, lambda: Resnet2D(
+        4, ngf=8, n_blocks=3, norm=norm, dilation_order=1,
+        pooling_type="max", io_receptive_field_type="normal",
+        generator=torch.Generator().manual_seed(2)), x, r)
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-9 * float(
+        outs[0].abs().max())
+    g_max = max(float(g.abs().max()) for g in grads[0].values())
+    for k, g in grads[0].items():
+        assert float((grads[1][k] - g).abs().max()) <= 1e-9 * g_max, k
+    running = [k for k in states[0] if "running" in k]
+    assert bool(running) == (norm == "batch")
+    for k in running:
+        assert float((states[1][k] - states[0][k]).abs().max()) <= 1e-12, k
+
+
+def test_nlayer_discriminator_on_the_card_matches_the_cpu(dev):
+    """The PatchGAN discriminator (5 layers, instance norm) in float64 on
+    the card against the CPU: output and gradients within 1e-9 of their
+    largest."""
+    from stinet_tpu_torch.models.gan_networks import NLayerDiscriminator
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(2, 7, 96, 96))
+    r = rng.normal(size=(2, 1, 1, 1))
+    outs, grads, _ = _f64_card_against_cpu(dev, lambda: NLayerDiscriminator(
+        7, ndf=8, n_layers=5, norm="instance",
+        generator=torch.Generator().manual_seed(3)), x, r)
+    assert outs[0].shape == (2, 1, 1, 1)
+    assert float((outs[1] - outs[0]).abs().max()) <= 1e-9 * float(
+        outs[0].abs().max())
+    g_max = max(float(g.abs().max()) for g in grads[0].values())
+    for k, g in grads[0].items():
+        assert float((grads[1][k] - g).abs().max()) <= 1e-9 * g_max, k
+
+
+def test_gan_step_on_the_card_matches_the_cpu(dev):
+    """One GAN step of the 2d branch (Resnet2D and the PatchGAN, LPIPS and
+    total variation in it) on the card and on the CPU from the same
+    weights, f32 with TF32 off: every metric within 1e-4 relative; G's and
+    D's gradients, each taken as one vector, within 1e-4 of its L2 norm."""
+    from stinet_tpu_torch.data.imagegraph import ImageGraphTextureDataLoader
+    from stinet_tpu_torch.metrics.lpips import random_lpips
+    from stinet_tpu_torch.models.factory import define_D
+    from stinet_tpu_torch.trainers.inpainting2d import make_resnet2d_steps
+    loader = ImageGraphTextureDataLoader(dict(
+        root_dir="", img_size=32, end_level=3, train_batch_size=2,
+        test_batch_size=1, crop_half_width=4, circle_radius=5,
+        random_mask=True, random_augmentation=True))
+    graph, _ = next(iter(loader.train_loader))
+    args = dict(input_nc=4, output_nc=3, ngf=16, filter_type="conv2d",
+                norm="instance", n_blocks=2, dilation_order=1,
+                pooling_type="max", io_receptive_field_type="normal")
+    opt_cfg = {"type": "Adam", "args": {"lr": 1.4e-4, "amsgrad": True}}
+    results, grads = [], []
+    for device in (dev, torch.device("cpu")):
+        model = define_G(**args, generator=torch.Generator().manual_seed(0))
+        disc = define_D(7, 8, "n_layers", n_layers_D=2, norm="instance",
+                        generator=torch.Generator().manual_seed(1))
+        model, disc = model.to(device), disc.to(device)
+        opt, lr = gc.build_optimizer(model.parameters(), opt_cfg)
+        dopt, _ = gc.build_optimizer(disc.parameters(), opt_cfg)
+        lpips = random_lpips(torch.Generator().manual_seed(1)).to(device)
+        step, _ = make_resnet2d_steps(model, opt, 32, lpips=lpips,
+                                      tv_weight=1e-4, disc=disc,
+                                      disc_optimizer=dopt)
+        results.append(gc.host_metrics(step(graph.to(device), lr)))
+        grads.append({net: {n: p.grad.detach().cpu().double()
+                            for n, p in m.named_parameters()}
+                      for net, m in (("G", model), ("D", disc))})
+    got, want = results
+    assert sorted(got) == sorted(want) and "loss_D_fake" in got
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * abs(want[k]), k
+    for net in ("G", "D"):
+        a, b = grads[0][net], grads[1][net]
+        diff = sum(float((a[k] - g).norm()) ** 2 for k, g in b.items()) ** .5
+        norm = sum(float(g.norm()) ** 2 for g in b.values()) ** 0.5
+        assert norm > 0 and diff <= 1e-4 * norm, (net, diff, norm)

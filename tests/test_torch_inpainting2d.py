@@ -407,10 +407,21 @@ def test_random_features_fail_closed(tmp_path, flag):
 
 
 def test_trainer_refuses_other_archs(tmp_path):
+    """Exactly one arch enabled; on the Resnet2D branch neither norm="batch"
+    nor use_dropout, which JAX's 2d step cannot train (it applies the model
+    without a batch_stats collection or a dropout RNG)."""
     cfg = make_2d_config(tmp_path, arch="Resnet2D")
-    with pytest.raises(NotImplementedError, match="Resnet2D.*Queue 1 item 3"):
-        Inpainting2DTrainer(ConfigParser(copy.deepcopy(cfg), dry_run=True),
-                            device="cpu")
+    args = cfg["archs"]["Resnet2D"]["args"]
+    for change, match in ((dict(norm="batch"), "batch_stats"),
+                          (dict(use_dropout=True), "dropout RNG")):
+        bad = copy.deepcopy(cfg)
+        bad["archs"]["Resnet2D"]["args"] = dict(args, **change)
+        with pytest.raises(NotImplementedError, match=match):
+            Inpainting2DTrainer(ConfigParser(bad, dry_run=True),
+                                device="cpu")
+    trainer = Inpainting2DTrainer(ConfigParser(copy.deepcopy(cfg),
+                                               dry_run=True), device="cpu")
+    assert trainer.branch == "2d" and trainer.disc is None
     cfg["archs"]["SurfaceTextureInpaintingNet"]["enabled"] = True
     with pytest.raises(ValueError, match="Exactly one"):
         Inpainting2DTrainer(ConfigParser(cfg, dry_run=True), device="cpu")
