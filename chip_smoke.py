@@ -176,11 +176,47 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    and each within PATH_TOL of its own forward, with its ms/scene over the
    whole stream and after the first result, and `stream_stats()`.
 
+11. reference-checkpoint: the flagship's weights (seed 0) saved in the
+   reference's two checkpoint layouts (`{"state_dicts": {"graph": sd}}`
+   and `{"state_dict": sd}`) and read back by `load_reference_state_dict`
+   into a fresh model served on the card: the served weights bitwise the
+   source's, each predict within REF_TOL of the source model's (the
+   forward's scatter adds are atomic on the card, so two predicts of one
+   server differ in the last bits; that difference is printed) and within
+   SMALL_TOL of the CPU on the small scene, K1 and K2 launched as often
+   as in the flagship's predict;
+12. sageconv: the flagship with `filter_type="sageconvtransinv"`, f32:
+   `predict` through the server (the served graph keeps the COO lists
+   the filters read), K1 and K3 not launched and K2 as in the flagship's
+   predict; the small scene against the CPU (SMALL_TOL); VARIANT_STEPS
+   bare steps of `make_inpainting_steps` on the kernel and on the plain
+   path, each step's launches equal to the calls a plain-path step
+   records, losses within TRAIN_TOL; one forward and backward on the small
+   scene, card against CPU, in f64 (the card's plain path; the kernels
+   take f32 and bf16) within GRAD64_TOL and in f32 (distance printed);
+   device forward ms, step ms and peak memory;
+13. label-embedding: the same for the flagship with `use_label_embedding`
+   (21 classes, 12 dims, the shipped configs' values) on the scenes with
+   seeded labels (a quarter of them 0): the served graph keeps the labels,
+   and K1 and K2 launch as in the flagship's predict;
+14. trainer-stacked: the CLI trains the bf16 config with
+   `stacked_batching` at `train_batch_size` 2 on phase 8's scenes
+   (TRAINER_EPOCHS steps of two stacked scenes): each kernel of the bf16
+   path launched, each step's launches equal to the calls of a plain-path
+   stacked step on its batch, the first loss within TRAIN_TOL of that
+   step's; the trainer's clock, the loader's ms, the wait, the step by
+   CUDA events and peak memory.
+
 The last two lines are the kernel record (K3 rows also carry
 `k1_same_inputs_ms`, K1's time on the same inputs; K1 and K3 rows
 `device_ms`, the card-alone time, and `host_us`, the host's time a call)
 and the result, one JSON object each. Without a CUDA card the script exits
 nonzero and prints no result.
+
+    python3 chip_smoke.py --only reference-checkpoint,sageconv,...
+
+runs the named phases of 11-14 alone, after the build and one counted
+flagship predict, and prints no kernel record.
 
     python3 chip_smoke.py --k1-only [--tree DIR]
 
@@ -1444,29 +1480,35 @@ class StepProbe:
 @contextlib.contextmanager
 def probed_trainer(torch, expect=None):
     """While open, every Inpainting3DTrainer built takes a StepProbe for
-    its train step (yielded, in order of construction) and keeps a copy of
-    its weights at each `model_best` save (`best_weights`)."""
+    its train step, concatenated or stacked (yielded, in order of
+    construction) and keeps a copy of its weights at each `model_best`
+    save (`best_weights`)."""
     from stinet_tpu_torch.trainers import inpainting3d
     probes, best = [], {}
-    make, save_best = (inpainting3d.make_inpainting_steps,
-                       inpainting3d.Inpainting3DTrainer._save_best)
+    makers = {name: getattr(inpainting3d, name) for name in (
+        "make_inpainting_steps", "make_stacked_inpainting_steps")}
+    save_best = inpainting3d.Inpainting3DTrainer._save_best
 
-    def make_probed(model, optimizer, *args, **kw):
-        step, eval_step = make(model, optimizer, *args, **kw)
-        probes.append(StepProbe(torch, step, model, optimizer, expect))
-        return probes[-1], eval_step
+    def probed(make):
+        def make_probed(model, optimizer, *args, **kw):
+            step, eval_step = make(model, optimizer, *args, **kw)
+            probes.append(StepProbe(torch, step, model, optimizer, expect))
+            return probes[-1], eval_step
+        return make_probed
 
     def save_best_kept(self, epoch):
         save_best(self, epoch)
         best.update(epoch=epoch, weights={
             k: v.detach().clone() for k, v in self.model.state_dict().items()})
 
-    inpainting3d.make_inpainting_steps = make_probed
+    for name, make in makers.items():
+        setattr(inpainting3d, name, probed(make))
     inpainting3d.Inpainting3DTrainer._save_best = save_best_kept
     try:
         yield probes, best
     finally:
-        inpainting3d.make_inpainting_steps = make
+        for name, make in makers.items():
+            setattr(inpainting3d, name, make)
         inpainting3d.Inpainting3DTrainer._save_best = save_best
 
 
@@ -2794,6 +2836,346 @@ def inpainting2d_resnet_phase(torch, card):
         f"{card}")
 
 
+# --- the rest of the STINet model: reference checkpoints, SageConv, labels --
+
+VARIANT_STEPS = 3           # bare train steps of a model variant per path
+VARIANT_REPS = 5            # timed steps and forwards of a variant
+GRAD64_TOL = 1e-10          # f64 gradients card vs CPU, of their L2 norm
+REF_TOL = 1e-5              # a loaded checkpoint's predict vs its source's
+NUM_CLASSES, NUM_EMBEDDING = 21, 12   # the shipped 3D configs' values
+
+
+def ev_ms(torch, fn):
+    """CUDA-event ms of one call of fn()."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def labelled_scene(scene, seed=0):
+    """`scene` with seeded labels over 0..NUM_CLASSES-1, a quarter of them
+    0 (the padding label)."""
+    import dataclasses
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = scene.num_vertices[0]
+    labels = rng.integers(1, NUM_CLASSES, size=n)
+    labels[rng.permutation(n)[:n // 4]] = 0
+    return dataclasses.replace(scene, labels=labels)
+
+
+def serve_counted(torch, server, scene):
+    """server.predict(scene) with every kernel's launch count zeroed just
+    before and read just after: (output, {key: launches})."""
+    counters = dict(_train_counters(), **_counters())
+    _zero(counters)
+    out = server.predict(scene)
+    return out, _read(counters)
+
+
+def check_output(out, n, what):
+    import numpy as np
+    check(out.shape == (n, 3), f"{what}: shape {out.shape}")
+    check(bool(np.isfinite(out).all()), f"{what}: non-finite output")
+    check(float(abs(out).max()) <= 1.0, f"{what}: output outside the tanh "
+          "range")
+
+
+def reference_checkpoint_phase(torch, card, scene, flagship):
+    """Phase 11: the flagship's weights saved in the reference's two
+    checkpoint layouts, read by `load_reference_state_dict`, served: the
+    served weights bitwise the source model's, each output within REF_TOL
+    of the source model's predict (the forward's scatter adds are atomic
+    on the card, so two predicts of one server differ in the last bits;
+    that difference is printed), within SMALL_TOL of the CPU on the small
+    scene; the launches of one predict the flagship's."""
+    import tempfile
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.convert_reference_checkpoint import (
+        load_reference_state_dict)
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    phase = "reference-checkpoint"
+    t0 = time.perf_counter()
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    source = SceneInpainter(model, sd, device="cuda")
+    want = source.predict(scene)
+    again = float(abs(source.predict(scene) - want).max())
+    small = synthetic_scene(**dict(FLAGSHIP_SCENE,
+                                   num_vertices=SMALL_VERTICES))
+    cpu_small = SceneInpainter(define_G(**FLAGSHIP), sd,
+                               device="cpu").predict(small)
+    with tempfile.TemporaryDirectory(prefix="stinet_ref_") as tmp:
+        for layout, ckpt in (
+                ("state_dicts", {"archs": {"graph": "SurfaceTexture"
+                                           "InpaintingNet"},
+                                 "state_dicts": {"graph": sd}}),
+                ("state_dict", {"state_dict": sd})):
+            path = pathlib.Path(tmp) / f"{layout}.pth"
+            torch.save(ckpt, path)
+            loaded = load_reference_state_dict(path)
+            check(sorted(loaded) == sorted(sd), f"{layout}: keys differ")
+            server = SceneInpainter(define_G(**FLAGSHIP), loaded,
+                                    device="cuda")
+            out, launches = serve_counted(torch, server, scene)
+            check(launches["k1"] == flagship["k1"] and
+                  launches["k2"] == flagship["k2"],
+                  f"{layout}: launches {launches}, the flagship's forward "
+                  f"{flagship}")
+            check_output(out, scene.num_vertices[0], layout)
+            served = server.model.state_dict()
+            check(all(torch.equal(served[k].cpu(), v) for k, v in sd.items()),
+                  f"{layout}: served weights differ from the source's")
+            src_err = float(abs(out - want).max())
+            check(src_err <= REF_TOL, f"{layout}: predict vs the source "
+                  f"model's max |diff| {src_err:.3e} > {REF_TOL}")
+            err = float(abs(server.predict(small) - cpu_small).max())
+            check(err <= SMALL_TOL, f"{layout}: small scene card vs CPU "
+                  f"max |diff| {err:.3e} > {SMALL_TOL}")
+            say(phase, f"{layout} layout, {path.stat().st_size / 2**20:.1f} "
+                f"MiB, {len(loaded)} tensors loaded strict, bitwise the "
+                f"source's: predict {list(out.shape)} against the source "
+                f"model's max |diff| {src_err:.3e} (the source's two "
+                f"predicts {again:.3e}); small scene "
+                f"V={SMALL_VERTICES} card vs CPU max |diff| {err:.3e}; "
+                f"launches K1 {launches['k1']}, K2 {launches['k2']}")
+    say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on {card}")
+
+
+def variant_grads(torch, model, graph, device, dtype, impl):
+    """(loss, {name: f64 host gradient}) of one forward and backward of the
+    inpainting loss, from a copy of `model` on `device` in `dtype`."""
+    from stinet_tpu_torch.graph.hierarchy import map_tensors
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    from stinet_tpu_torch.trainers import graph_common as gc
+    m = copy.deepcopy(model).to(device, dtype).train()
+    g = map_tensors(graph.to(device), lambda t: t.to(dtype)
+                    if t.is_floating_point() else t)
+    with full_f32_matmuls():
+        loss, _ = gc.inpainting_loss(m(g, impl=impl), g.color, g.mask,
+                                     gc.vertex_mask(g), True)
+        loss.backward()
+    return loss.item(), {k: p.grad.detach().cpu().double()
+                         for k, p in m.named_parameters()}
+
+
+def variant_card_against_cpu(torch, model, small):
+    """One forward and backward on the small scene, card against CPU: in
+    f64 (the plain path on the card: the kernels take f32 and bf16) the
+    loss within GRAD64_TOL relative and the gradients, as one vector,
+    within GRAD64_TOL of their L2 norm; in f32 on the kernel path the
+    distances are printed (a relu argument within rounding of 0 may route
+    a gradient otherwise on the other device, PERF.md §6)."""
+    parts = []
+    for dtype, impl in ((torch.float64, "plain"), (torch.float32, None)):
+        (lc, gc_), (lh, gh) = (
+            variant_grads(torch, model, small, d, dtype, i)
+            for d, i in (("cuda", impl), ("cpu", None)))
+        diff = math.sqrt(sum(float((gc_[k] - g).norm()) ** 2
+                             for k, g in gh.items()))
+        norm = math.sqrt(sum(float(g.norm()) ** 2 for g in gh.values()))
+        rel = abs(lc - lh) / abs(lh)
+        if dtype == torch.float64:
+            check(rel <= GRAD64_TOL and diff <= GRAD64_TOL * norm,
+                  f"f64 card vs CPU: loss {lc} vs {lh}, gradients "
+                  f"{diff:.3e} apart, norm {norm:.3e}")
+        parts.append(f"{str(dtype)[6:]}: loss relative {rel:.2e}, "
+                     f"{len(gh)} gradients {diff / norm:.3e} of their L2 "
+                     "norm apart")
+    return "; ".join(parts)
+
+
+def variant_phase(torch, card, phase, args, scene, small, flagship):
+    """Phases 12 and 13: a model variant of the flagship (`args`), served
+    through `SceneInpainter` (the launches of one predict against the
+    flagship's, `flagship`, or against none of K1 and K3 for SageConv) and
+    trained by bare steps of `make_inpainting_steps` (each step's launches
+    equal to the calls a plain-path step records; losses within TRAIN_TOL
+    of the plain path's); card against CPU on the small scene (forward
+    within SMALL_TOL; f64 gradients, `variant_card_against_cpu`); device
+    forward ms, step ms and peak memory."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.models.factory import define_G
+    from stinet_tpu_torch.serving import PackedPlacer, SceneInpainter
+    from stinet_tpu_torch.trainers import graph_common as gc
+    t0 = time.perf_counter()
+    cfg = json.loads(pathlib.Path(REF_CONFIG).read_text())
+    model = define_G(**args, generator=torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    server = SceneInpainter(model, sd, device="cuda")
+    placed = server.place(server.build(scene))
+    # the COO lists of the edge sets with ELL tables, and the labels
+    kept = [e.src is not None for lv in placed.levels
+            for e in (lv.edges, *lv.dilated.values()) if e.nbr is not None]
+    check(kept and all(k == model.reads_coo for k in kept) and
+          (placed.labels is not None) == model.reads_labels,
+          f"served graph: COO lists of ELL edge sets kept {kept}, labels "
+          f"{placed.labels is not None}; the model reads COO "
+          f"{model.reads_coo}, labels {model.reads_labels}")
+    out, launches = serve_counted(torch, server, scene)
+    check_output(out, scene.num_vertices[0], phase)
+    if model.reads_coo:
+        want = dict(k1=0, k3a=0, k3b=0, k3c=0, k2=flagship["k2"])
+    else:
+        want = dict(k1=flagship["k1"], k2=flagship["k2"])
+    got = {k: launches[k] for k in want}
+    check(got == want, f"launches of one predict {got}, expected {want}")
+    cpu_out = SceneInpainter(define_G(**args), sd, device="cpu").predict(
+        small)
+    small_err = float(abs(server.predict(small) - cpu_out).max())
+    check(small_err <= SMALL_TOL, f"small scene card vs CPU max |diff| "
+          f"{small_err:.3e} > {SMALL_TOL}")
+    fwd_ms = median_ms(torch, lambda: server.forward(placed),
+                       reps=VARIANT_REPS, inner=1)
+    say(phase, f"predict {list(out.shape)} finite in [-1, 1]; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; served graph keeps "
+        f"COO {model.reads_coo}, labels {model.reads_labels}; small scene "
+        f"V={SMALL_VERTICES} card vs CPU max |diff| {small_err:.3e}; device "
+        f"forward {fwd_ms:.3f} ms; on {card}")
+    del server, placed
+
+    # bare train steps, kernel path against plain path
+    dev = torch.device("cuda")
+    graph = PackedPlacer(dev)(build_hierarchical_graph([scene],
+                                                       geometric=True))
+    weighted = cfg["trainer"]["use_mask_weighted_loss"]
+    calls = capture_train_calls(torch, model.to(dev), graph, cfg)
+    want = {k: len(v) for k, v in calls.items()}
+
+    def stepper(impl=None):
+        m = copy.deepcopy(model).to(dev)
+        m.load_state_dict(sd)
+        opt, lr = gc.build_optimizer(m.parameters(), cfg["optimizer"])
+        step, _ = gc.make_inpainting_steps(m, opt, weighted, impl=impl)
+        return step, lr
+
+    kstep, lr = stepper()
+    counters = _train_counters()
+    _zero(counters)
+    losses = [float(kstep(graph, lr)["loss"])]
+    one = _read(counters)
+    one["k2"] += one.pop("k2mg")
+    check(one == want, f"launches of one step {one}, the plain path "
+          f"records {want}")
+    losses += [float(kstep(graph, lr)["loss"])
+               for _ in range(VARIANT_STEPS - 1)]
+    pstep, _ = stepper("plain")
+    plain = [float(pstep(graph, lr)["loss"]) for _ in range(VARIANT_STEPS)]
+    check(all(math.isfinite(x) for x in losses + plain),
+          f"losses {losses} / {plain}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+    check(rel <= TRAIN_TOL, f"losses {losses} vs plain path {plain}: "
+          f"relative {rel:.3e} > {TRAIN_TOL}")
+    step_ms = statistics.median(ev_ms(torch, lambda: kstep(graph, lr))
+                                for _ in range(VARIANT_REPS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kstep(graph, lr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(phase, f"{VARIANT_STEPS} bare steps, losses "
+        f"{[round(x, 6) for x in losses]}, plain path "
+        f"{[round(x, 6) for x in plain]} (relative {rel:.2e}); launches a "
+        f"step {one}, equal to the plain path's recorded calls; step "
+        f"{step_ms:.2f} ms (median of {VARIANT_REPS}, CUDA events); peak "
+        f"{peak:.2f} GiB; on {card}")
+    small_graph = build_hierarchical_graph([small], geometric=True)
+    say(phase, "small scene card vs CPU, one forward and backward: "
+        + variant_card_against_cpu(torch, model.cpu(), small_graph))
+    say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on {card}")
+
+
+def rest_of_the_model(torch, card, scene, flagship, only=None):
+    """Phases 11-14 (those named in `only`, or all): the reference's
+    checkpoints, the SageConv and label-embedded flagships, and stacked
+    training. `flagship`: the K1 and K2 launches of one flagship
+    forward."""
+    from stinet_tpu_torch.models.factory import FLAGSHIP
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    small = synthetic_scene(**dict(FLAGSHIP_SCENE,
+                                   num_vertices=SMALL_VERTICES))
+    phases = {
+        "reference-checkpoint": lambda: reference_checkpoint_phase(
+            torch, card, scene, flagship),
+        "sageconv": lambda: variant_phase(
+            torch, card, "sageconv", dict(FLAGSHIP,
+                                          filter_type="sageconvtransinv"),
+            scene, small, flagship),
+        "label-embedding": lambda: variant_phase(
+            torch, card, "label-embedding", dict(
+                FLAGSHIP, use_label_embedding=True,
+                num_classes=NUM_CLASSES, num_embedding=NUM_EMBEDDING),
+            labelled_scene(scene), labelled_scene(small), flagship),
+        "trainer-stacked": lambda: trainer_stacked_phase(torch, card)}
+    check(only is None or set(only) <= set(phases),
+          f"unknown phases {only}; the phases are {list(phases)}")
+    for name, run in phases.items():
+        if only is None or name in only:
+            run()
+
+
+def trainer_stacked_phase(torch, card):
+    """Phase 14: the CLI trains the bf16 config with `stacked_batching` at
+    `train_batch_size` 2 on the trainer phase's scenes (2 train scenes, so
+    one stacked step an epoch, TRAINER_EPOCHS epochs): each kernel of the
+    bf16 path launched, each step's launches equal to the calls of a
+    plain-path stacked step on the same batch (two scenes' worth), the
+    first loss within TRAIN_TOL of that step's; the trainer's clock and
+    readings."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    phase = "trainer-stacked"
+    counters = _train_counters()
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="stinet_stacked_") as tmp:
+        tmp = pathlib.Path(tmp)
+        roots, _ = write_trainer_scenes(tmp)
+        cfg = trainer_config(tmp / "stacked.json", roots, tmp / "saved",
+                             BF16_CONFIG, TRAINER_EPOCHS,
+                             stacked_batching=True, train_batch_size=2)
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_trainer(torch) as (probes, _):
+            trainer = cli.main(["-c", str(tmp / "stacked.json"), "-d",
+                                "cuda", "-n", "stacked"])
+        launches = _read(counters)
+        probe = probes[0]
+        check(trainer._stacked, "the trainer did not take the stacked "
+              "layout")
+        check(all(launches[k] > 0 for k in ("k3a", "k3c", "k1", "k1dp",
+                                            "k1dq", "k2")),
+              f"a kernel of the bf16 train path never launched: {launches}")
+        losses = [float(x) for x in probe.losses]
+        check(len(losses) == TRAINER_EPOCHS and all(
+            math.isfinite(x) for x in losses), f"losses {losses}")
+        check(all(g.x.shape[0] == 2 for g in probe.graphs),
+              "a train batch is not two stacked scenes")
+        plain_first = check_trainer_launches(torch, cfg, probe, "cuda")
+        rel = abs(losses[0] - plain_first) / abs(plain_first)
+        check(rel <= TRAIN_TOL, f"first loss {losses[0]} vs the plain-path "
+              f"trainer's {plain_first}: relative {rel:.3e} > {TRAIN_TOL}")
+        val = trainer.valid_metrics.result()
+        check(math.isfinite(val["loss"]), f"val loss {val['loss']}")
+        say(phase, f"bf16 config, stacked_batching, train_batch_size 2: "
+            f"{len(losses)} steps, losses {[round(x, 6) for x in losses]}; "
+            f"first loss against the plain-path trainer's {plain_first:.6f} "
+            f"(relative {rel:.2e}); launches in the run {launches}; per "
+            f"step {probe.launches[0]} (two scenes), equal to the plain "
+            f"path's recorded calls; val loss {val['loss']:.6f}")
+        trainer_readings(phase, trainer, probe, card)
+    say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on {card}")
+
+
 # --- windowed f32 and batched serving ----------------------------------------
 
 def _counters():
@@ -3156,6 +3538,26 @@ def k1_only(torch, card):
     return 0
 
 
+def only_phases(torch, card, names):
+    """--only: the named phases of 11-14 alone, with the flagship's K1 and
+    K2 launches of one predict counted first."""
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    t0 = time.perf_counter()
+    scene = synthetic_scene(**FLAGSHIP_SCENE)
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    _, launches = serve_counted(torch, SceneInpainter(
+        model, model.state_dict(), device="cuda"), scene)
+    flagship = {k: launches[k] for k in ("k1", "k2")}
+    say("only", f"flagship predict launches {flagship}")
+    rest_of_the_model(torch, card, scene, flagship, only=names)
+    say("done", f"phases {names} passed in {time.perf_counter() - t0:.1f} "
+        f"s; on {card}")
+    return 0
+
+
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3164,6 +3566,10 @@ def main(argv=None):
                     "and 6 only")
     ap.add_argument("--tree", help="with --k1-only: the checkout whose "
                     "stinet_tpu_torch package to time (default: this one)")
+    ap.add_argument("--only", help="comma-separated phases of 11-14 "
+                    "(reference-checkpoint, sageconv, label-embedding, "
+                    "trainer-stacked) to run alone, after the build and one "
+                    "counted flagship predict; prints no kernel record")
     args = ap.parse_args(argv)
     if args.tree and not args.k1_only:
         ap.error("--tree goes with --k1-only")
@@ -3179,6 +3585,8 @@ def main(argv=None):
     build_kernels()
     if args.k1_only:
         return k1_only(torch, card)
+    if args.only:
+        return only_phases(torch, card, args.only.split(","))
     host_build_phase(torch, card)
 
     from stinet_tpu_torch.graph.build import windowed_layout
@@ -3294,6 +3702,13 @@ def main(argv=None):
     k2mg, b_launches = serving_batched(
         torch, card, wserver, scene,
         (wserver._normalize_widths(whost), windowed_layout(scene)[1]))
+    del wserver
+
+    # --- the rest of the model: reference checkpoints, SageConv, labels,
+    # stacked training
+    rest_of_the_model(torch, card, scene, {
+        "k1": launches["ell_edge_conv_sum"],
+        "k2": launches["masked_instance_norm"]})
 
     cu = "stinet_tpu_torch/ops/cuda/"
     kernels = [

@@ -18,8 +18,10 @@ Reference-produced torch `.pt` graph dicts are also accepted.
 Masks live in `masks/<mask_name>/<scene>/<i>.npz{vertex_mask}` as the
 reference writes them.
 
-One process: stacked batching (`stacked_batching`) is not ported yet, and
-there is no multi-host split of the data.
+With `stacked_batching`, every batch is a stacked graph (graph/build.py
+`build_stacked_graph`: each scene its own padded graph, every tensor with a
+leading scene axis) at one layout frozen for the run. One process: there is
+no multi-host split of the data.
 """
 import glob
 import hashlib
@@ -34,7 +36,8 @@ from stinet_tpu_torch.core.registry import DATALOADERS
 from stinet_tpu_torch.data.prefetch import PrefetchIterator
 from stinet_tpu_torch.data.transforms import compose
 from stinet_tpu_torch.graph.build import (
-    RawHierarchy, build_hierarchical_graph)
+    RawHierarchy, build_hierarchical_graph, build_stacked_graph,
+    freeze_stacked_signature)
 
 _META = os.path.join(os.path.dirname(__file__), "meta", "scannet")
 SCANNET_TRAIN_FILE = os.path.join(_META, "scannetv2_train.txt")
@@ -252,10 +255,18 @@ class _SceneLoader:
     """Yields (HierarchicalGraph, names) built on a prefetch thread; buckets
     vertex/edge counts geometrically so arbitrary scene sizes land on a
     short ladder of shapes. `build_ms` holds the host time of each batch
-    (sample loads, transforms and the graph build), in order."""
+    (sample loads, transforms and the graph build), in order.
+
+    With `stacked`, every batch is a stacked graph at the layout
+    (`signature`: vertex buckets and table widths) that
+    `freeze_stacked_signature` takes from `signature_samples` evenly spaced
+    scenes at construction; a short last batch repeats its first scenes to
+    keep [B, ...]. The construction's reads draw from the per-sample
+    generators, which are stateless, so the batches are unchanged."""
 
     def __init__(self, dataset, batch_size, shuffle, seed=0,
-                 pad_multiple=512, windowed=False):
+                 pad_multiple=512, windowed=False, stacked=False,
+                 signature_samples=8):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -264,8 +275,16 @@ class _SceneLoader:
         # RCM bandwidth ordering + banded ELL tables, which the windowed
         # kernels take (config key "windowed_graphs")
         self.windowed = windowed
+        self.stacked = stacked
         self._epoch = 0
         self.build_ms: List[float] = []
+        self.signature = None
+        if stacked and len(dataset):
+            k = min(signature_samples, len(dataset))
+            sel = np.linspace(0, len(dataset) - 1, k).astype(int)
+            self.signature = freeze_stacked_signature(
+                [dataset[int(i)] for i in sel], pad_multiple=pad_multiple,
+                geometric=True, windowed=windowed)
 
     def __len__(self):
         return max(len(self.dataset) // self.batch_size, 1) \
@@ -283,10 +302,18 @@ class _SceneLoader:
         for b in range(len(self)):
             t0 = time.perf_counter()
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            samples = [self.dataset[i] for i in sel]
-            graph = build_hierarchical_graph(
-                samples, pad_multiple=self.pad_multiple, geometric=True,
-                windowed=self.windowed)
+            if self.stacked and len(sel) < self.batch_size:
+                sel = np.concatenate([sel, sel[:self.batch_size - len(sel)]])
+            samples = [self.dataset[int(i)] for i in sel]
+            if self.stacked:
+                graph, _ = build_stacked_graph(
+                    samples, v_buckets=self.signature[0],
+                    widths=self.signature[1], pad_multiple=self.pad_multiple,
+                    geometric=True, windowed=self.windowed)
+            else:
+                graph = build_hierarchical_graph(
+                    samples, pad_multiple=self.pad_multiple, geometric=True,
+                    windowed=self.windowed)
             self.build_ms.append((time.perf_counter() - t0) * 1e3)
             yield graph, [s.name for s in samples]
 
@@ -336,16 +363,13 @@ class ScanNetGraphColorDataLoader:
                           train_cropped=not c.get("no_train_cropped", True))
 
         windowed = bool(c.get("windowed_graphs", False))
-        if c.get("stacked_batching", False):
-            raise NotImplementedError(
-                "stacked_batching is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5: stacked training)")
+        self.stacked = bool(c.get("stacked_batching", False))
         self.train_loader = _SceneLoader(
             self.train_dataset, c["train_batch_size"], shuffle=True,
-            seed=seed, windowed=windowed)
+            seed=seed, windowed=windowed, stacked=self.stacked)
         self.val_loader = _SceneLoader(
             self.val_dataset, c["test_batch_size"], shuffle=False,
-            windowed=windowed)
+            windowed=windowed, stacked=self.stacked)
 
     def get_mesh(self, scene_name):
         """Original full-resolution scan mesh for visualization (reference

@@ -483,6 +483,11 @@ def build_hierarchical_graph(
         child_counts=tuple(_t(c[1]) for c in children))
 
 
+
+def batch_hierarchies(samples: Sequence[RawHierarchy], **kw):
+    """`build_hierarchical_graph` under the JAX package's other name."""
+    return build_hierarchical_graph(samples, **kw)
+
 # ---------------------------------------------------------------------------
 # The grid-graph hierarchy of the 2D image-inpainting workload: 4-connected
 # grid edges per level and 2x2 nearest-upsample traces with decimation 2
@@ -728,3 +733,35 @@ def pad_and_stack(graphs: Sequence[HierarchicalGraph],
         batch_w = dict(widths)
     graphs = [pad_tables_to_widths(g, batch_w) for g in graphs]
     return stack_graphs(graphs), batch_w
+
+
+def freeze_stacked_signature(samples: Sequence[RawHierarchy],
+                             pad_multiple: int = 128,
+                             geometric: bool = False,
+                             windowed: bool = False,
+                             margin: float = 1.25):
+    """One stacked layout for a whole run, (v_buckets, widths), from
+    representative samples (stinet_tpu/graph/build.py:770-800): each
+    level's vertex bucket from the largest sample's count times `margin`,
+    the samples built at those buckets, and their table widths times
+    `margin` (ELL, reverse and children widths rounded up; edge and spill
+    lengths to multiples of 128; halos as built). A later scene that needs
+    more raises ValueError in `build_stacked_graph`."""
+    num_levels = len(samples[0].num_vertices)
+    v_buckets = [
+        bucket_size(
+            int(max(s.num_vertices[l] for s in samples) * margin) + 1,
+            pad_multiple, geometric)
+        for l in range(num_levels)]
+    _, widths = build_stacked_graph(
+        samples, v_buckets=v_buckets, pad_multiple=pad_multiple,
+        geometric=geometric, windowed=windowed)
+    out = {}
+    for k, w in widths.items():
+        if k[2] == "halo":
+            out[k] = w
+        elif k[2] in ("nbr", "rev_dst", "children"):
+            out[k] = int(np.ceil(w * margin))
+        else:
+            out[k] = bucket_size(int(w * margin), 128)
+    return v_buckets, out

@@ -44,8 +44,6 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
             pooling_type=pooling_type,
             io_receptive_field_type=io_receptive_field_type,
             generator=generator)
-    if use_label_embedding:
-        raise NotImplementedError("label embedding is not ported yet")
     from stinet_tpu_torch.models.stinet import SurfaceTextureInpaintingNet
     return SurfaceTextureInpaintingNet(
         input_nc=input_nc, output_nc=output_nc, ngf=ngf,
@@ -55,7 +53,9 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
         checkpoint_bottleneck=checkpoint_bottleneck,
         num_blocks_per_uncheckpointed_block=(
             num_blocks_per_uncheckpointed_block),
-        remat_io_blocks=remat_io_blocks, dtype=resolve_dtype(dtype),
+        remat_io_blocks=remat_io_blocks,
+        use_label_embedding=use_label_embedding, num_classes=num_classes,
+        num_embedding=num_embedding, dtype=resolve_dtype(dtype),
         generator=generator)
 
 

@@ -4,7 +4,10 @@ Counterpart of `stinet_tpu/models/stinet.py`: input blocks, trace-map
 pooling encoder, dilated-edge bottleneck, gather-unpooling decoder, and the
 Linear -> norm -> ELU -> Linear -> Tanh head. Every EdgeConv is two dense
 per-vertex matmuls (P, Q) plus the per-edge pass of
-`ops/message_passing.py`.
+`ops/message_passing.py`; a SageConv filter is a neighbour aggregation of
+the features and two dense matmuls. With `use_label_embedding`, the
+vertices' semantic labels are embedded and concatenated to the features
+after the input blocks.
 
 Parameter names follow the reference's state dict
 (`input_blocks.0.first_filter.nn.0.weight`, `bottleneck_blocks.3.shortcut
@@ -39,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph)
 from stinet_tpu_torch.ops.ell import ell_pool_max, ell_pool_mean, ell_unpool
-from stinet_tpu_torch.ops.message_passing import edge_conv_aggregate
+from stinet_tpu_torch.ops.message_passing import (
+    edge_conv_aggregate, neighbor_aggregate)
 from stinet_tpu_torch.ops.norms import (
     _valid_weight, masked_batch_norm_stats, masked_graph_norm,
     masked_instance_norm)
@@ -55,13 +59,19 @@ def _linear(in_features: int, out_features: int) -> nn.Linear:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """torch.nn.Linear's default weight law, U(-1/sqrt(fan_in),
     1/sqrt(fan_in)), drawn from `generator`; zero biases (the reference's
-    init pass zeroes them, as the JAX model's initializers do)."""
+    init pass zeroes them, as the JAX model's initializers do). An
+    embedding table takes torch.nn.Embedding's N(0, 1), its padding row
+    zero."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(generator=generator)
+            if m.padding_idx is not None:
+                m.weight[m.padding_idx].zero_()
 
 
 _recompute = threading.local()
@@ -170,20 +180,27 @@ class EdgeConvFilter(nn.Module):
 
         EdgeConv:         P = x (W_i - W_d) + b1, Q = x W_d
         EdgeConvTransInv: P = -x W + b1,          Q = x W
-        out = Lin2( mean_e relu(P[dst_e] + Q[src_e]) )
+        out = Lin2( aggr_e relu(P[dst_e] + Q[src_e]) )
 
-    `nn` keeps the reference's Sequential layout (so its keys are nn.0 and
-    nn.2); the ReLU in it is applied inside the aggregation."""
+    with `aggr` "mean" (the model's), "max" or "sum" / "add". `nn` keeps
+    the reference's Sequential layout (so its keys are nn.0 and nn.2); the
+    ReLU in it is applied inside the aggregation."""
 
     def __init__(self, in_features: int, out_features: int,
-                 trans_inv: bool = False, dtype=None):
+                 trans_inv: bool = False, aggr: str = "mean", dtype=None):
         super().__init__()
         hidden = 2 * out_features
         self.in_features, self.out_features = in_features, out_features
-        self.trans_inv, self.dtype = trans_inv, dtype
+        self.trans_inv, self.aggr, self.dtype = trans_inv, aggr, dtype
         fan_in = in_features if trans_inv else 2 * in_features
         self.nn = nn.Sequential(_linear(fan_in, hidden), nn.ReLU(),
                                 _linear(hidden, out_features))
+
+    @property
+    def reads_coo(self) -> bool:
+        """"max" and "sum" take the COO lists, whatever tables the edge
+        set has (ops/message_passing.py)."""
+        return self.aggr != "mean"
 
     def projections(self, x):
         """The per-vertex projections (P, Q), each [V, 2*out_features], in
@@ -200,27 +217,68 @@ class EdgeConvFilter(nn.Module):
 
     def forward(self, x, edges: EdgeSet, impl=None):
         p, q = self.projections(x)
-        agg = edge_conv_aggregate(p, q, edges, impl=impl)
+        agg = edge_conv_aggregate(p, q, edges, impl=impl, aggr=self.aggr)
         return _dense(self.nn[2], agg, self.dtype)
+
+
+class SageConvFilter(nn.Module):
+    """The GraphSAGE filter (stinet_tpu/models/stinet.py:155-182):
+
+        out = lin_l( aggr_{j in N(i)} x_j ) + lin_r( x_i )
+
+    `lin_l` with a bias, `lin_r` without. The trans-inv variant subtracts
+    the receiver's channels 3:9 (normals and positions of the 10-channel
+    input) from the aggregate when in_features >= 9; a receiver with no
+    in-edge aggregates 0 and still has its channels subtracted, as in JAX.
+    The aggregation runs in the dtype `x` arrives in (with the degree in
+    the compute dtype), the matmuls in the compute dtype. It reads the COO
+    lists, never the ELL tables, so no kernel of the port's own."""
+    reads_coo = True
+
+    def __init__(self, in_features: int, out_features: int,
+                 trans_inv: bool = False, aggr: str = "mean", dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        self.trans_inv, self.aggr, self.dtype = trans_inv, aggr, dtype
+        self.lin_l = _linear(in_features, out_features)
+        self.lin_r = nn.utils.skip_init(nn.Linear, in_features, out_features,
+                                        bias=False)
+
+    def forward(self, x, edges: EdgeSet, impl=None):
+        dt = self.dtype or x.dtype
+        agg = neighbor_aggregate(
+            x, edges.src, edges.dst, edges.degree.shape[0], aggr=self.aggr,
+            degree=edges.degree.to(dt) if self.aggr == "mean" else None)
+        if self.trans_inv and self.in_features >= 9:
+            shift = torch.zeros_like(x)
+            shift[:, 3:9] = x[:, 3:9]
+            agg = agg - shift
+        return (_dense(self.lin_l, agg, self.dtype)
+                + _dense(self.lin_r, x, self.dtype))
 
 
 def _dense(linear: nn.Linear, x, dtype):
     """`linear(x)` in the compute dtype, as flax's Dense(dtype=...) casts
     the input, kernel and bias (f32 when dtype is None)."""
     dt = dtype or x.dtype
-    return F.linear(x.to(dt), linear.weight.to(dt), linear.bias.to(dt))
+    bias = None if linear.bias is None else linear.bias.to(dt)
+    return F.linear(x.to(dt), linear.weight.to(dt), bias)
 
 
 def make_filter(filter_type: str, dim_in: int, dim_out: int, first: bool,
-                dtype=None):
+                aggr: str = "mean", dtype=None):
     """The trans-inv variant is used only for the very first conv."""
     if filter_type in ("edgeconv", "edgeconvtransinv"):
         return EdgeConvFilter(
             dim_in, dim_out,
             trans_inv=(filter_type == "edgeconvtransinv" and first),
-            dtype=dtype)
-    raise NotImplementedError(f"filter type {filter_type!r} is not ported "
-                              "yet")
+            aggr=aggr, dtype=dtype)
+    if filter_type in ("sageconv", "sageconvtransinv"):
+        return SageConvFilter(
+            dim_in, dim_out,
+            trans_inv=(filter_type == "sageconvtransinv" and first),
+            aggr=aggr, dtype=dtype)
+    raise NotImplementedError(f"filter type {filter_type!r}")
 
 
 class GraphResnetBlock(nn.Module):
@@ -228,10 +286,10 @@ class GraphResnetBlock(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, filter_type: str,
                  norm_type: str = "instance", first: bool = False,
-                 dtype=None):
+                 aggr: str = "mean", dtype=None):
         super().__init__()
         self.first_filter = make_filter(filter_type, dim_in, dim_out, first,
-                                        dtype)
+                                        aggr, dtype)
         self.first_norm = GraphNormLayer(dim_out, norm_type)
         self.shortcut = (_linear(dim_in, dim_out) if dim_in != dim_out
                          else None)
@@ -269,7 +327,15 @@ def _pool(x, trace, coarse_size, pooling_type, children=None, counts=None):
 
 class SurfaceTextureInpaintingNet(nn.Module):
     """See the module docstring. Arguments match the reference define_G's
-    (the archs section of experiments/3d_inpainting/config/*.json)."""
+    (the archs section of experiments/3d_inpainting/config/*.json).
+
+    `use_label_embedding` embeds `g.labels` in `num_embedding` dims
+    (`num_classes` rows) after the input blocks and concatenates them to
+    the features, so encoder block 0 is `num_embedding` wider
+    (stinet_tpu/models/stinet.py:292-302). Label 0 is padding, as
+    torch.nn.Embedding's padding_idx=0: its rows are multiplied by 0, so
+    it embeds to zeros whatever row 0 of the table holds, and row 0 gets
+    no gradient. The lookup runs in the compute dtype."""
 
     def __init__(self, input_nc: int, output_nc: int = 3, ngf: int = 64,
                  filter_type: str = "edgeconvtransinv",
@@ -280,6 +346,9 @@ class SurfaceTextureInpaintingNet(nn.Module):
                  checkpoint_bottleneck: bool = False,
                  num_blocks_per_uncheckpointed_block: int = 1,
                  remat_io_blocks: bool = True,
+                 use_label_embedding: bool = False,
+                 num_classes: Optional[int] = None,
+                 num_embedding: Optional[int] = None,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -301,8 +370,14 @@ class SurfaceTextureInpaintingNet(nn.Module):
             block(input_nc, ngf if i == n_repeated_io_convs - 1 else input_nc,
                   first=(i == 0))
             for i in range(n_repeated_io_convs))
+        self.use_label_embedding = use_label_embedding
+        if use_label_embedding:
+            self.label_embedding = nn.Embedding(num_classes, num_embedding,
+                                                padding_idx=0)
+        widen = num_embedding if use_label_embedding else 0
         self.encoder_blocks = nn.ModuleList(
-            block(ngf * 2 ** i, ngf * 2 ** (i + 1)) for i in range(L))
+            block(ngf * 2 ** i + (widen if i == 0 else 0),
+                  ngf * 2 ** (i + 1)) for i in range(L))
         self.bottleneck_blocks = nn.ModuleList(
             block(ngf * 2 ** L, ngf * 2 ** L) for _ in range(n_blocks))
         self.decoder_blocks = nn.ModuleList(
@@ -324,11 +399,35 @@ class SurfaceTextureInpaintingNet(nn.Module):
         init_weights(self, generator if generator is not None
                      else torch.Generator())
 
+    @property
+    def reads_coo(self) -> bool:
+        """Whether a filter reads the edge sets' COO lists where they also
+        have ELL tables (a SageConv filter, an EdgeConv of aggr "max" or
+        "sum"): the server keeps them then."""
+        return any(getattr(m, "reads_coo", False) for m in self.modules()
+                   if m is not self)
+
+    @property
+    def reads_labels(self) -> bool:
+        """Whether the forward reads `g.labels`."""
+        return self.use_label_embedding
+
+    def _embed_labels(self, out, labels):
+        if labels is None:
+            raise ValueError("use_label_embedding requires graph.labels")
+        weight = self.label_embedding.weight
+        emb = F.embedding(labels, weight.to(self.dtype or weight.dtype),
+                          padding_idx=0)
+        emb = emb * (labels != 0).to(emb.dtype)[:, None]
+        return torch.cat([out, emb.to(out.dtype)], dim=-1)
+
     def forward(self, g: HierarchicalGraph, impl=None):
         L, ng = self.n_levels, g.num_graphs
         out = g.x
         for block in self.input_blocks:
             out = block(out, g.levels[0].edges, g.levels[0], ng, impl=impl)
+        if self.use_label_embedding:
+            out = self._embed_labels(out, g.labels)
 
         for i, block in enumerate(self.encoder_blocks):
             lvl = g.levels[i + 1]

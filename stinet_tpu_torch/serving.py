@@ -89,23 +89,27 @@ def full_f32_matmuls():
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _inference_edges(e: EdgeSet) -> EdgeSet:
-    ell = e.nbr is not None
+def _inference_edges(e: EdgeSet, reads_coo: bool) -> EdgeSet:
+    drop_coo = e.nbr is not None and not reads_coo
     return dataclasses.replace(
         e, rev_dst=None, out_degree=None,   # backward only
-        src=None if ell else e.src, dst=None if ell else e.dst)
+        src=None if drop_coo else e.src, dst=None if drop_coo else e.dst)
 
 
-def inference_graph(graph: HierarchicalGraph) -> HierarchicalGraph:
+def inference_graph(graph: HierarchicalGraph, reads_coo: bool = False,
+                    reads_labels: bool = False) -> HierarchicalGraph:
     """`graph` without the leaves the inference forward never reads: the
-    target colors, mask and labels, the backward-only reverse tables, and
-    the COO lists of edge sets that have ELL tables."""
+    target colors and mask, the backward-only reverse tables, the labels
+    unless `reads_labels`, and the COO lists of edge sets that have ELL
+    tables unless `reads_coo` (a model's `reads_labels` / `reads_coo`)."""
     levels = tuple(dataclasses.replace(
-        lv, edges=_inference_edges(lv.edges),
-        dilated={d: _inference_edges(e) for d, e in lv.dilated.items()})
+        lv, edges=_inference_edges(lv.edges, reads_coo),
+        dilated={d: _inference_edges(e, reads_coo)
+                 for d, e in lv.dilated.items()})
         for lv in graph.levels)
-    return dataclasses.replace(graph, color=None, mask=None, labels=None,
-                               levels=levels)
+    return dataclasses.replace(
+        graph, color=None, mask=None,
+        labels=graph.labels if reads_labels else None, levels=levels)
 
 
 # the bucket ladder's step (geometric buckets, as the JAX server's)
@@ -347,7 +351,13 @@ class SceneInpainter:
     def place(self, graph: HierarchicalGraph) -> HierarchicalGraph:
         """Move the leaves of a host graph (one scene, concatenated or
         stacked) that the forward reads to the device, in one copy."""
-        return self._placer(inference_graph(graph))
+        return self._placer(self._inference_graph(graph))
+
+    def _inference_graph(self, graph: HierarchicalGraph):
+        """`inference_graph` with what this server's model reads."""
+        return inference_graph(
+            graph, reads_coo=getattr(self.model, "reads_coo", False),
+            reads_labels=getattr(self.model, "reads_labels", False))
 
     # -- inference -----------------------------------------------------
     @torch.inference_mode()
@@ -432,7 +442,7 @@ class SceneInpainter:
         def host_prepare(s):
             t0 = time.perf_counter()
             graph, order = self._build_scene(s)
-            graph = inference_graph(graph)
+            graph = self._inference_graph(graph)
             stats["build_ms"].append((time.perf_counter() - t0) * 1e3)
             return graph, order
 

@@ -1,7 +1,8 @@
 """Training machinery of the graph models: the optimizer from a config's
 `optimizer` block, the epoch -> learning-rate schedules, the inpainting
-loss and metrics, the train / eval step factory with gradient
-accumulation, and the placement of a loader's batches on the device.
+loss and metrics, the train / eval step factories with gradient
+accumulation (over concatenated batches, and over stacked ones scene by
+scene), and the placement of a loader's batches on the device.
 
 PyTorch counterpart of `stinet_tpu/trainers/graph_common.py`. The JAX
 package writes torch's Adam(amsgrad=True) out by hand
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from stinet_tpu_torch.data.prefetch import PrefetchIterator
-from stinet_tpu_torch.graph.hierarchy import HierarchicalGraph
+from stinet_tpu_torch.graph.hierarchy import HierarchicalGraph, scene_of
 from stinet_tpu_torch.metrics import graph_metrics as gm
 from stinet_tpu_torch.serving import PackedPlacer, full_f32_matmuls
 
@@ -150,18 +151,26 @@ def vertex_mask(graph: HierarchicalGraph):
                           graph.x.device)
 
 
-def inpainting_loss(output, color, mask, vmask, use_mask_weighted):
-    """Masked-composite L1: predictions replace colors only inside the mask
-    (the reference's inpainting3d_trainer.py:127-137), with the optional
-    0.99^mask distance weighting; mean over valid vertices x channels.
-    Returns (loss, composite), both f32."""
+def inpainting_loss_terms(output, color, mask, vmask, use_mask_weighted):
+    """(wsum, n, composite) of the masked-composite L1: predictions replace
+    colors only inside the mask (the reference's
+    inpainting3d_trainer.py:127-137), |composite - color| with the optional
+    0.99^mask distance weighting summed over the valid vertices (wsum),
+    and their count times the channels (n)."""
     composite = torch.where(mask > 0, output, color).to(color.dtype)
     per = (composite - color).abs()
     if use_mask_weighted:
         per = per * torch.pow(0.99, mask)
     per = per * vmask[:, None]
-    n = torch.clamp(vmask.sum() * color.shape[-1], min=1.0)
-    return per.sum() / n, composite
+    return per.sum(), vmask.sum() * color.shape[-1], composite
+
+
+def inpainting_loss(output, color, mask, vmask, use_mask_weighted):
+    """The masked-composite L1, a mean over valid vertices x channels.
+    Returns (loss, composite), both f32."""
+    wsum, n, composite = inpainting_loss_terms(output, color, mask, vmask,
+                                               use_mask_weighted)
+    return wsum / torch.clamp(n, min=1.0), composite
 
 
 def inpainting_metrics(composite, graph: HierarchicalGraph, loss):
@@ -211,9 +220,7 @@ class _TrainStep:
         with full_f32_matmuls():
             if self.mini_step == 0:
                 self.optimizer.zero_grad(set_to_none=True)
-            loss, aux = self._loss(graph, lr)
-            (loss / self.accumulate if self.accumulate > 1
-             else loss).backward()
+            loss, aux = self._backward(graph, lr)
             self.mini_step = (self.mini_step + 1) % self.accumulate
             if self.mini_step == 0:
                 set_lr(self.optimizer, lr)
@@ -225,6 +232,13 @@ class _TrainStep:
         """(loss, aux) of one call at learning rate `lr`: `loss_of(graph)`
         (a subclass may step other models here first)."""
         return self.loss_of(graph)
+
+    def _backward(self, graph, lr):
+        """The call's loss / accumulate backpropagated into the gradients;
+        returns (loss, aux)."""
+        loss, aux = self._loss(graph, lr)
+        (loss / self.accumulate if self.accumulate > 1 else loss).backward()
+        return loss, aux
 
     def state(self):
         """{"mini_step": calls since the last optimizer step, "grads":
@@ -273,6 +287,80 @@ def make_inpainting_steps(model, optimizer, use_mask_weighted, impl=None,
 
     return (_TrainStep(model, optimizer, loss_of, accumulate, metrics_of),
             eval_step)
+
+
+class _StackedTrainStep(_TrainStep):
+    """The train step over a stacked batch: each scene's forward and
+    backward in turn, so one scene's activations are alive at a time.
+    `loss_of(scene)` gives (wsum, n, composite); the gradient that reaches
+    the parameters is sum_b grad(wsum_b) / sum_b n_b / accumulate, the
+    concatenated batch's up to summation order (n does not depend on the
+    parameters, so sum_b n_b is taken from the vertex counts first)."""
+
+    def _backward(self, graph, lr):
+        scenes = [scene_of(graph, i) for i in range(graph.x.shape[0])]
+        n = torch.clamp(sum(vertex_mask(g).sum() for g in scenes)
+                        * graph.color.shape[-1], min=1.0)
+        wsum, composites = 0.0, []
+        for g in scenes:
+            w, _, composite = self.loss_of(g)
+            (w / (n * self.accumulate)).backward()
+            wsum = wsum + w.detach()
+            composites.append(composite.detach())
+        return wsum / n, torch.stack(composites)
+
+
+def _stacked_metrics(graph, loss, composite):
+    """Per-scene metrics averaged with the scenes' valid-vertex counts as
+    weights; "loss" is the batch's exact loss. PSNRs are per scene before
+    the average, as in JAX's stacked step (a monitoring difference from
+    the concatenated layout's)."""
+    sums, total = {}, 0.0
+    for i in range(composite.shape[0]):
+        g = scene_of(graph, i)
+        w = vertex_mask(g).sum()
+        for k, v in inpainting_metrics(composite[i], g, loss).items():
+            sums[k] = sums.get(k, 0.0) + v * w
+        total = total + w
+    out = {k: v / torch.clamp(total, min=1.0) for k, v in sums.items()}
+    out["loss"] = loss
+    return out
+
+
+def make_stacked_inpainting_steps(model, optimizer, use_mask_weighted,
+                                  impl=None, accumulate=1):
+    """(train_step, eval_step) over stacked graphs (graph/build.py
+    `build_stacked_graph`) already on the model's device, the counterpart
+    of stinet_tpu/trainers/graph_common.py:make_stacked_inpainting_steps
+    without a mesh: a loop over the scenes, each scene's gradient of its
+    weighted sum accumulated, one optimizer step on their sum over the
+    batch's valid-vertex count (`_StackedTrainStep`); loss
+    sum wsum / sum n; metrics per scene, averaged with valid-vertex
+    weights. eval_step(graph) -> (metrics, [B, V_pad, 3] composites).
+    Batch-norm models are refused, as in JAX: per-scene batch statistics
+    would differ from the batch's."""
+    if any(getattr(m, "norm_type", None) == "batch" for m in model.modules()):
+        raise ValueError("stacked batching does not support batch-norm "
+                         "models (per-scene batch statistics would diverge);"
+                         " use the concatenated layout")
+
+    def loss_of(graph):
+        out = model(graph, impl=impl)
+        return inpainting_loss_terms(out, graph.color, graph.mask,
+                                     vertex_mask(graph), use_mask_weighted)
+
+    def eval_step(graph):
+        model.eval()
+        with full_f32_matmuls(), torch.no_grad():
+            terms = [loss_of(scene_of(graph, i))
+                     for i in range(graph.x.shape[0])]
+            loss = (sum(w for w, _, _ in terms)
+                    / torch.clamp(sum(n for _, n, _ in terms), min=1.0))
+            composite = torch.stack([c for _, _, c in terms])
+            return _stacked_metrics(graph, loss, composite), composite
+
+    return (_StackedTrainStep(model, optimizer, loss_of, accumulate,
+                              _stacked_metrics), eval_step)
 
 
 def skip_probe(data_loader):

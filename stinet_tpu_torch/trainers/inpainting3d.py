@@ -2,7 +2,9 @@
 workload, the counterpart of `stinet_tpu/trainers/inpainting3d.py`.
 
 Masked-composite forward with the optional 0.99^mask-weighted L1, gradient
-accumulation (`num_cumulated_train_batches`), per-batch metrics (loss, l1,
+accumulation (`num_cumulated_train_batches`), the stacked layout when the
+loader's `stacked_batching` is set (the scenes of a batch run one by one,
+`make_stacked_inpainting_steps`), per-batch metrics (loss, l1,
 mse, graph_tv, graph_lap_var, psnr, psnr_mask_only, and the device memory
 counters), full-scene validation, an eval mode, checkpoints in the JAX
 package's dict layout with resume, and an epoch-stepped learning rate.
@@ -26,13 +28,14 @@ import torch
 
 import stinet_tpu_torch.data.scannet  # noqa: F401  (registers the loader)
 from stinet_tpu_torch.core.registry import DATALOADERS, TRAINERS
+from stinet_tpu_torch.graph.hierarchy import scene_of
 from stinet_tpu_torch.metrics import MetricTracker
 from stinet_tpu_torch.models.factory import define_G
 from stinet_tpu_torch.serving import resolve_device
 from stinet_tpu_torch.trainers.base import SingleModelTrainer
 from stinet_tpu_torch.trainers.graph_common import (
     build_optimizer, host_metrics, iter_placed, make_inpainting_steps,
-    skip_probe, step_lr)
+    make_stacked_inpainting_steps, skip_probe, step_lr)
 from stinet_tpu_torch.utils.profiling import device_memory_stats
 
 METRICS = ("loss", "l1", "mse", "graph_tv", "graph_lap_var", "psnr",
@@ -101,7 +104,11 @@ class Inpainting3DTrainer(SingleModelTrainer):
         self.do_validation = tcfg.get("do_validation", True)
         self.batches_per_log = tcfg.get("batches_per_log", 1)
 
-        self._train_step, self._eval_step = make_inpainting_steps(
+        # the loader decides the layout, the trainer follows
+        self._stacked = bool(getattr(self.data_loader, "stacked", False))
+        make_steps = (make_stacked_inpainting_steps if self._stacked
+                      else make_inpainting_steps)
+        self._train_step, self._eval_step = make_steps(
             self.model, self.optimizer, self.use_mask_weighted_loss,
             impl=impl, accumulate=self.num_accum)
 
@@ -179,11 +186,15 @@ class Inpainting3DTrainer(SingleModelTrainer):
                 self.valid_metrics.update(k, v, write=False)
             self.logger.info("    %s %-15s: %s", names[0], "loss", m["loss"])
             if visualizer is not None:
-                n = int(graph.levels[0].num_vertices)
-                comp = composite[:n].float().cpu().numpy()
-                color = graph.color[:n].cpu().numpy()
-                mask = graph.mask[:n].cpu().numpy()
-                visualizer.visualize_result(
-                    names[0], comp / 2.0 + 0.5, color / 2.0 + 0.5, mask > 0)
+                # a stacked batch holds one scene a row
+                rows = ([scene_of(graph, i) for i in range(len(names))]
+                        if self._stacked else [graph])
+                comps = composite if self._stacked else [composite]
+                for name, g, comp in zip(names, rows, comps):
+                    n = int(g.levels[0].num_vertices)
+                    visualizer.visualize_result(
+                        name, comp[:n].float().cpu().numpy() / 2.0 + 0.5,
+                        g.color[:n].cpu().numpy() / 2.0 + 0.5,
+                        g.mask[:n].cpu().numpy() > 0)
         for key, value in self.valid_metrics.result(write=False).items():
             self.logger.info("    %-15s: %s", str(key), value)

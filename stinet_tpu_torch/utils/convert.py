@@ -20,7 +20,20 @@ dict, whose keys are the reference checkpoint's. Flax Dense kernels are
   final_linear{1,2}/{kernel,bias}    -> final_linear{1,2}.{weight,bias}
 
 with <b> one of input_block, encoder_block, bottleneck_block, decoder_block,
-output_block. The norms (`<n>` = <b>s.{i}.first_norm or final_norm1; the
+output_block. A SageConv filter's leaves and the label embedding's table
+keep the JAX module's names:
+
+  <b>_{i}/first_filter/lin_l/{kernel,bias} -> <b>s.{i}.first_filter.lin_l
+                                              .{weight,bias}
+  <b>_{i}/first_filter/lin_r/kernel        -> <b>s.{i}.first_filter.lin_r
+                                              .weight
+  label_embedding/embedding [classes, dims] -> label_embedding.weight
+                                              (no transpose)
+
+The reference's own source is not in this repository, so its key layout
+for the SAGE filter (PyG SAGEConv's lin_l / lin_r, as assumed here) and
+for the label embedding could not be checked against a reference
+checkpoint. The norms (`<n>` = <b>s.{i}.first_norm or final_norm1; the
 JAX model's own names, stinet_tpu/models/stinet.py:71-86):
 
   graph: <N>/{weight,bias,mean_scale} -> <n>.{weight,bias,mean_scale}
@@ -85,6 +98,12 @@ def state_dict_from_jax_params(params, batch_stats=None
         if top in ("final_linear1", "final_linear2"):
             _dense(top, sub, out)
             continue
+        if top == "label_embedding":
+            if set(sub) != {"embedding"}:
+                raise ValueError(f"unexpected label embedding leaves "
+                                 f"{sorted(sub)}")
+            out["label_embedding.weight"] = _tensor(sub["embedding"], False)
+            continue
         if top == "final_norm1":
             _norm(top, sub, batch_stats.get(top, {}), out)
             continue
@@ -107,6 +126,8 @@ def state_dict_from_jax_params(params, batch_stats=None
                         out[f"{ff}.0.bias"] = _tensor(val, False)
                     elif leaf == "lin2":
                         _dense(f"{ff}.2", val, out)
+                    elif leaf in ("lin_l", "lin_r"):
+                        _dense(f"{prefix}.first_filter.{leaf}", val, out)
                     else:
                         raise ValueError(f"unexpected filter leaf "
                                          f"{top}/first_filter/{leaf}")

@@ -6,6 +6,7 @@ tests/test_torch_ops.py and tests/test_torch_model.py). Run on a card with
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -1229,3 +1230,112 @@ def test_gan_step_on_the_card_matches_the_cpu(dev):
         diff = sum(float((a[k] - g).norm()) ** 2 for k, g in b.items()) ** .5
         norm = sum(float(g.norm()) ** 2 for g in b.values()) ** 0.5
         assert norm > 0 and diff <= 1e-4 * norm, (net, diff, norm)
+
+
+# --- the rest of the STINet model: SageConv, labels, reference checkpoints ---
+
+VARIANTS = {
+    "sageconv": dict(filter_type="sageconvtransinv"),
+    "labels": dict(filter_type="edgeconvtransinv", use_label_embedding=True,
+                   num_classes=21, num_embedding=12)}
+
+
+def _variant_case(variant):
+    args = dict(input_nc=10, output_nc=3, ngf=16, norm="instance",
+                n_blocks=2, dilations=[1, 2], pooling_type="max",
+                **VARIANTS[variant])
+    scene = synthetic_scene(num_vertices=4096, levels=3, seed=4,
+                            dilation_dists=(2,))
+    labels = np.random.default_rng(4).integers(0, 21, size=4096)
+    scene = dataclasses.replace(scene, labels=labels)
+    return args, build_hierarchical_graph([scene], geometric=True)
+
+
+def _variant_grads(args, graph, device, dtype, impl):
+    from stinet_tpu_torch.graph.hierarchy import map_tensors
+    model = define_G(**args, generator=torch.Generator().manual_seed(1))
+    model = model.to(device, dtype).train()
+    g = map_tensors(graph.to(device), lambda t: t.to(dtype)
+                    if t.is_floating_point() else t)
+    out = model(g, impl=impl)
+    loss, _ = gc.inpainting_loss(out, g.color, g.mask, gc.vertex_mask(g),
+                                 True)
+    loss.backward()
+    return (out.detach().cpu().double(), loss.item(),
+            {k: p.grad.cpu().double() for k, p in model.named_parameters()})
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_model_variant_on_the_card_matches_the_cpu(dev, variant):
+    """The SageConv and the label-embedded STINet in a train forward and
+    its backward, on the card (kernel path, f32) and on the CPU from the
+    same weights: outputs within 1e-4; in f64 (the card's plain path: the
+    kernels take f32 and bf16) the loss within 1e-10 relative and the
+    gradients, as one vector, within 1e-10 of their L2 norm. SageConv
+    launches no K1, the label-embedded model does; both launch K2."""
+    args, graph = _variant_case(variant)
+    before = (ell.ell_edge_conv_sum_kernel.launches,
+              norms.masked_instance_norm_kernel.launches)
+    card, _, _ = _variant_grads(args, graph, dev, torch.float32, None)
+    k1 = ell.ell_edge_conv_sum_kernel.launches - before[0]
+    k2 = norms.masked_instance_norm_kernel.launches - before[1]
+    assert (k1 > 0) == (variant == "labels") and k2 > 0
+    cpu, _, _ = _variant_grads(args, graph, "cpu", torch.float32, None)
+    assert float((card - cpu).abs().max()) <= 1e-4
+    (_, l_card, g_card), (_, l_cpu, g_cpu) = (
+        _variant_grads(args, graph, d, torch.float64, "plain")
+        for d in (dev, "cpu"))
+    assert abs(l_card - l_cpu) <= 1e-10 * abs(l_cpu)
+    diff = sum(float((g_card[k] - g).norm()) ** 2 for k, g in g_cpu.items())
+    norm = sum(float(g.norm()) ** 2 for g in g_cpu.values())
+    assert diff ** 0.5 <= 1e-10 * norm ** 0.5
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_model_variant_step_kernel_path_matches_plain_path(dev, variant):
+    """One Adam step of each variant on the card: the kernel path's loss
+    within 1e-3 of the plain path's, the served prediction of its weights
+    finite."""
+    from stinet_tpu_torch.serving import SceneInpainter
+    args, graph = _variant_case(variant)
+    g = PackedPlacer(dev)(graph)
+    losses = []
+    for impl in (None, "plain"):
+        model = define_G(**args, generator=torch.Generator().manual_seed(0))
+        model = model.to(dev)
+        opt, lr = gc.build_optimizer(model.parameters(), {
+            "type": "Adam", "args": {"lr": 7e-5, "amsgrad": True}})
+        step, _ = gc.make_inpainting_steps(model, opt, True, impl=impl)
+        losses.append(float(step(g, lr)["loss"]))
+    assert np.isfinite(losses).all()
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1])
+    scene = synthetic_scene(num_vertices=4096, levels=3, seed=4,
+                            dilation_dists=(2,))
+    scene = dataclasses.replace(scene, labels=np.zeros(4096, np.int64))
+    out = SceneInpainter(model, model.state_dict(), device=dev).predict(
+        scene)
+    assert out.shape == (4096, 3) and np.isfinite(out).all()
+
+
+def test_reference_checkpoint_serves_as_its_source(dev, tmp_path):
+    """The flagship's weights saved in the reference's layout, read back by
+    `load_reference_state_dict` and served on the card: the served weights
+    bit for bit the source model's, the prediction within 1e-5 of the
+    source server's (the forward's scatter adds are atomic on the card,
+    so two predicts of one server differ in the last bits)."""
+    from stinet_tpu_torch.models.factory import FLAGSHIP
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.convert_reference_checkpoint import (
+        load_reference_state_dict)
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    path = tmp_path / "model_best.pth"
+    torch.save({"state_dicts": {"graph": model.state_dict()}}, path)
+    scene = synthetic_scene(num_vertices=4096, levels=3, seed=0,
+                            dilation_dists=(2, 4, 8, 16))
+    want = SceneInpainter(model, model.state_dict(), device=dev).predict(
+        scene)
+    server = SceneInpainter(define_G(**FLAGSHIP), load_reference_state_dict(
+        path), device=dev)
+    for k, v in model.state_dict().items():
+        assert torch.equal(server.model.state_dict()[k].cpu(), v), k
+    assert float(np.abs(server.predict(scene) - want).max()) <= 1e-5

@@ -328,11 +328,36 @@ def test_loader_skip_epoch_advances_as_an_iteration(tmp_path, scene_roots):
         assert_same_tree(ga, gb)
 
 
-def test_loader_refuses_stacked_batching(tmp_path, scene_roots):
-    args = _loader_config(tmp_path, scene_roots, "random", 1, False)
+@pytest.mark.parametrize("kind", ["random", "grid"])
+def test_stacked_loader_matches_jax(tmp_path, scene_roots, monkeypatch,
+                                    kind):
+    """`stacked_batching` at B=2 on the random scenes (spill lists, ragged
+    children tables) and the grid scenes: the run's frozen layout (vertex
+    buckets and table widths) equal to JAX's, and two epochs of stacked
+    train and val batches equal leaf for leaf, with the same names. Both
+    builders take their numpy paths. (Windowed stacked batches of these
+    grid scenes have different halos, which JAX's `stack_graphs` refuses.)
+    """
+    monkeypatch.setattr(jax_build._native, "available", lambda: False)
+    monkeypatch.setattr(port_build._native, "available", lambda: False)
+    args = _loader_config(tmp_path, scene_roots, kind, 2, False)
     args["stacked_batching"] = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        port_scannet.ScanNetGraphColorDataLoader(args)
+    want = jax_scannet.ScanNetGraphColorDataLoader(copy.deepcopy(args),
+                                                   seed=5)
+    got = port_scannet.ScanNetGraphColorDataLoader(copy.deepcopy(args),
+                                                   seed=5)
+    assert got.stacked and want.stacked
+    for name in ("train_loader", "val_loader"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.signature == b.signature, name
+    for _ in range(2):
+        for name in ("train_loader", "val_loader"):
+            pairs = list(zip(getattr(got, name), getattr(want, name)))
+            assert len(pairs) == (2 if name == "train_loader" else 1)
+            for (pg, pnames), (jg, jnames) in pairs:
+                assert pnames == jnames and len(pnames) == 2
+                assert pg.x.shape[0] == 2
+                assert_same_tree(pg, jg)
 
 
 def test_load_scene_npz_matches_jax(scene_roots):

@@ -188,10 +188,8 @@ def test_init_is_drawn_from_the_generator():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        define_G(**{**CFG, "filter_type": "sageconv"})
-    with pytest.raises(NotImplementedError):
-        define_G(**CFG, use_label_embedding=True)
-    with pytest.raises(NotImplementedError):
         define_G(**CFG, dtype="float16")
+    with pytest.raises(NotImplementedError):
+        define_G(**{**CFG, "filter_type": "gcnconv"})
     with pytest.raises(ValueError):
-        state_dict_from_jax_params({"label_embedding": {"embedding": 0}})
+        state_dict_from_jax_params({"label_embedding": {"table": 0}})
