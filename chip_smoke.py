@@ -213,11 +213,6 @@ The last two lines are the kernel record (K3 rows also carry
 and the result, one JSON object each. Without a CUDA card the script exits
 nonzero and prints no result.
 
-    python3 chip_smoke.py --only reference-checkpoint,sageconv,...
-
-runs the named phases of 11-14 alone, after the build and one counted
-flagship predict, and prints no kernel record.
-
     python3 chip_smoke.py --k1-only [--tree DIR]
 
 builds the kernels and runs only phase 3's K1 forward calls and phase 6's
@@ -3091,34 +3086,24 @@ def variant_phase(torch, card, phase, args, scene, small, flagship):
     say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on {card}")
 
 
-def rest_of_the_model(torch, card, scene, flagship, only=None):
-    """Phases 11-14 (those named in `only`, or all): the reference's
-    checkpoints, the SageConv and label-embedded flagships, and stacked
-    training. `flagship`: the K1 and K2 launches of one flagship
-    forward."""
+def rest_of_the_model(torch, card, scene, flagship):
+    """Phases 11-14: the reference's checkpoints, the SageConv and
+    label-embedded flagships, and stacked training. `flagship`: the K1 and
+    K2 launches of one flagship forward."""
     from stinet_tpu_torch.models.factory import FLAGSHIP
     from stinet_tpu_torch.utils.synthetic import (
         FLAGSHIP_SCENE, synthetic_scene)
     small = synthetic_scene(**dict(FLAGSHIP_SCENE,
                                    num_vertices=SMALL_VERTICES))
-    phases = {
-        "reference-checkpoint": lambda: reference_checkpoint_phase(
-            torch, card, scene, flagship),
-        "sageconv": lambda: variant_phase(
-            torch, card, "sageconv", dict(FLAGSHIP,
-                                          filter_type="sageconvtransinv"),
-            scene, small, flagship),
-        "label-embedding": lambda: variant_phase(
-            torch, card, "label-embedding", dict(
-                FLAGSHIP, use_label_embedding=True,
-                num_classes=NUM_CLASSES, num_embedding=NUM_EMBEDDING),
-            labelled_scene(scene), labelled_scene(small), flagship),
-        "trainer-stacked": lambda: trainer_stacked_phase(torch, card)}
-    check(only is None or set(only) <= set(phases),
-          f"unknown phases {only}; the phases are {list(phases)}")
-    for name, run in phases.items():
-        if only is None or name in only:
-            run()
+    reference_checkpoint_phase(torch, card, scene, flagship)
+    variant_phase(torch, card, "sageconv",
+                  dict(FLAGSHIP, filter_type="sageconvtransinv"),
+                  scene, small, flagship)
+    variant_phase(torch, card, "label-embedding", dict(
+        FLAGSHIP, use_label_embedding=True, num_classes=NUM_CLASSES,
+        num_embedding=NUM_EMBEDDING),
+        labelled_scene(scene), labelled_scene(small), flagship)
+    trainer_stacked_phase(torch, card)
 
 
 def trainer_stacked_phase(torch, card):
@@ -3538,26 +3523,6 @@ def k1_only(torch, card):
     return 0
 
 
-def only_phases(torch, card, names):
-    """--only: the named phases of 11-14 alone, with the flagship's K1 and
-    K2 launches of one predict counted first."""
-    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
-    from stinet_tpu_torch.serving import SceneInpainter
-    from stinet_tpu_torch.utils.synthetic import (
-        FLAGSHIP_SCENE, synthetic_scene)
-    t0 = time.perf_counter()
-    scene = synthetic_scene(**FLAGSHIP_SCENE)
-    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    _, launches = serve_counted(torch, SceneInpainter(
-        model, model.state_dict(), device="cuda"), scene)
-    flagship = {k: launches[k] for k in ("k1", "k2")}
-    say("only", f"flagship predict launches {flagship}")
-    rest_of_the_model(torch, card, scene, flagship, only=names)
-    say("done", f"phases {names} passed in {time.perf_counter() - t0:.1f} "
-        f"s; on {card}")
-    return 0
-
-
 def main(argv=None):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3566,10 +3531,6 @@ def main(argv=None):
                     "and 6 only")
     ap.add_argument("--tree", help="with --k1-only: the checkout whose "
                     "stinet_tpu_torch package to time (default: this one)")
-    ap.add_argument("--only", help="comma-separated phases of 11-14 "
-                    "(reference-checkpoint, sageconv, label-embedding, "
-                    "trainer-stacked) to run alone, after the build and one "
-                    "counted flagship predict; prints no kernel record")
     args = ap.parse_args(argv)
     if args.tree and not args.k1_only:
         ap.error("--tree goes with --k1-only")
@@ -3585,8 +3546,6 @@ def main(argv=None):
     build_kernels()
     if args.k1_only:
         return k1_only(torch, card)
-    if args.only:
-        return only_phases(torch, card, args.only.split(","))
     host_build_phase(torch, card)
 
     from stinet_tpu_torch.graph.build import windowed_layout

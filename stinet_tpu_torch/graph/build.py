@@ -483,11 +483,6 @@ def build_hierarchical_graph(
         child_counts=tuple(_t(c[1]) for c in children))
 
 
-
-def batch_hierarchies(samples: Sequence[RawHierarchy], **kw):
-    """`build_hierarchical_graph` under the JAX package's other name."""
-    return build_hierarchical_graph(samples, **kw)
-
 # ---------------------------------------------------------------------------
 # The grid-graph hierarchy of the 2D image-inpainting workload: 4-connected
 # grid edges per level and 2x2 nearest-upsample traces with decimation 2

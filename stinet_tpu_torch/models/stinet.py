@@ -43,7 +43,7 @@ from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph)
 from stinet_tpu_torch.ops.ell import ell_pool_max, ell_pool_mean, ell_unpool
 from stinet_tpu_torch.ops.message_passing import (
-    edge_conv_aggregate, neighbor_aggregate)
+    edge_conv_aggregate, neighbor_mean)
 from stinet_tpu_torch.ops.norms import (
     _valid_weight, masked_batch_norm_stats, masked_graph_norm,
     masked_instance_norm)
@@ -180,27 +180,20 @@ class EdgeConvFilter(nn.Module):
 
         EdgeConv:         P = x (W_i - W_d) + b1, Q = x W_d
         EdgeConvTransInv: P = -x W + b1,          Q = x W
-        out = Lin2( aggr_e relu(P[dst_e] + Q[src_e]) )
+        out = Lin2( mean_e relu(P[dst_e] + Q[src_e]) )
 
-    with `aggr` "mean" (the model's), "max" or "sum" / "add". `nn` keeps
-    the reference's Sequential layout (so its keys are nn.0 and nn.2); the
-    ReLU in it is applied inside the aggregation."""
+    `nn` keeps the reference's Sequential layout (so its keys are nn.0 and
+    nn.2); the ReLU in it is applied inside the aggregation."""
 
     def __init__(self, in_features: int, out_features: int,
-                 trans_inv: bool = False, aggr: str = "mean", dtype=None):
+                 trans_inv: bool = False, dtype=None):
         super().__init__()
         hidden = 2 * out_features
         self.in_features, self.out_features = in_features, out_features
-        self.trans_inv, self.aggr, self.dtype = trans_inv, aggr, dtype
+        self.trans_inv, self.dtype = trans_inv, dtype
         fan_in = in_features if trans_inv else 2 * in_features
         self.nn = nn.Sequential(_linear(fan_in, hidden), nn.ReLU(),
                                 _linear(hidden, out_features))
-
-    @property
-    def reads_coo(self) -> bool:
-        """"max" and "sum" take the COO lists, whatever tables the edge
-        set has (ops/message_passing.py)."""
-        return self.aggr != "mean"
 
     def projections(self, x):
         """The per-vertex projections (P, Q), each [V, 2*out_features], in
@@ -217,14 +210,14 @@ class EdgeConvFilter(nn.Module):
 
     def forward(self, x, edges: EdgeSet, impl=None):
         p, q = self.projections(x)
-        agg = edge_conv_aggregate(p, q, edges, impl=impl, aggr=self.aggr)
+        agg = edge_conv_aggregate(p, q, edges, impl=impl)
         return _dense(self.nn[2], agg, self.dtype)
 
 
 class SageConvFilter(nn.Module):
     """The GraphSAGE filter (stinet_tpu/models/stinet.py:155-182):
 
-        out = lin_l( aggr_{j in N(i)} x_j ) + lin_r( x_i )
+        out = lin_l( mean_{j in N(i)} x_j ) + lin_r( x_i )
 
     `lin_l` with a bias, `lin_r` without. The trans-inv variant subtracts
     the receiver's channels 3:9 (normals and positions of the 10-channel
@@ -236,19 +229,17 @@ class SageConvFilter(nn.Module):
     reads_coo = True
 
     def __init__(self, in_features: int, out_features: int,
-                 trans_inv: bool = False, aggr: str = "mean", dtype=None):
+                 trans_inv: bool = False, dtype=None):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
-        self.trans_inv, self.aggr, self.dtype = trans_inv, aggr, dtype
+        self.trans_inv, self.dtype = trans_inv, dtype
         self.lin_l = _linear(in_features, out_features)
         self.lin_r = nn.utils.skip_init(nn.Linear, in_features, out_features,
                                         bias=False)
 
     def forward(self, x, edges: EdgeSet, impl=None):
         dt = self.dtype or x.dtype
-        agg = neighbor_aggregate(
-            x, edges.src, edges.dst, edges.degree.shape[0], aggr=self.aggr,
-            degree=edges.degree.to(dt) if self.aggr == "mean" else None)
+        agg = neighbor_mean(x, edges, edges.degree.to(dt))
         if self.trans_inv and self.in_features >= 9:
             shift = torch.zeros_like(x)
             shift[:, 3:9] = x[:, 3:9]
@@ -266,18 +257,18 @@ def _dense(linear: nn.Linear, x, dtype):
 
 
 def make_filter(filter_type: str, dim_in: int, dim_out: int, first: bool,
-                aggr: str = "mean", dtype=None):
+                dtype=None):
     """The trans-inv variant is used only for the very first conv."""
     if filter_type in ("edgeconv", "edgeconvtransinv"):
         return EdgeConvFilter(
             dim_in, dim_out,
             trans_inv=(filter_type == "edgeconvtransinv" and first),
-            aggr=aggr, dtype=dtype)
+            dtype=dtype)
     if filter_type in ("sageconv", "sageconvtransinv"):
         return SageConvFilter(
             dim_in, dim_out,
             trans_inv=(filter_type == "sageconvtransinv" and first),
-            aggr=aggr, dtype=dtype)
+            dtype=dtype)
     raise NotImplementedError(f"filter type {filter_type!r}")
 
 
@@ -286,10 +277,10 @@ class GraphResnetBlock(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, filter_type: str,
                  norm_type: str = "instance", first: bool = False,
-                 aggr: str = "mean", dtype=None):
+                 dtype=None):
         super().__init__()
         self.first_filter = make_filter(filter_type, dim_in, dim_out, first,
-                                        aggr, dtype)
+                                        dtype)
         self.first_norm = GraphNormLayer(dim_out, norm_type)
         self.shortcut = (_linear(dim_in, dim_out) if dim_in != dim_out
                          else None)
@@ -402,8 +393,7 @@ class SurfaceTextureInpaintingNet(nn.Module):
     @property
     def reads_coo(self) -> bool:
         """Whether a filter reads the edge sets' COO lists where they also
-        have ELL tables (a SageConv filter, an EdgeConv of aggr "max" or
-        "sum"): the server keeps them then."""
+        have ELL tables (a SageConv filter): the server keeps them then."""
         return any(getattr(m, "reads_coo", False) for m in self.modules()
                    if m is not self)
 

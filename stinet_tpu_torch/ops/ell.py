@@ -87,34 +87,6 @@ def _acc_dtype(t):
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def _inv_degree(deg, acc_dt):
-    return 1.0 / torch.clamp(deg.to(acc_dt), min=1.0)
-
-
-def ell_edge_conv_mean(p, q, nbr, deg, rev_dst=None, out_degree=None,
-                       impl=None):
-    """Mean aggregation of a spill-free edge set: `ell_edge_conv_sum` (a
-    kernel on a CUDA tensor) times 1/max(deg, 1) in >= f32
-    (stinet_tpu/ops/ell.py:58-64)."""
-    acc_dt = _acc_dtype(p)
-    s = ell_edge_conv_sum(p, q, nbr, deg, rev_dst, out_degree, impl=impl)
-    return (s.to(acc_dt) * _inv_degree(deg, acc_dt)[:, None]).to(p.dtype)
-
-
-def ell_neighbor_mean(x, nbr, deg):
-    """out[v] = mean_{d < deg[v]} x[nbr[v, d]], the plain masked neighbour
-    mean in ELL form (stinet_tpu/ops/ell.py:167-178): slots summed in
-    >= f32 in order, times 1/max(deg, 1). Differentiable by autograd."""
-    acc_dt = _acc_dtype(x)
-    deg_i = deg.to(torch.int32)
-    acc = torch.zeros(x.shape, dtype=acc_dt, device=x.device)
-    zero = torch.zeros((), dtype=acc_dt, device=x.device)
-    for d in range(nbr.shape[1]):
-        acc = acc + torch.where((d < deg_i)[:, None],
-                                x.index_select(0, nbr[:, d]).to(acc_dt), zero)
-    return (acc * _inv_degree(deg, acc_dt)[:, None]).to(x.dtype)
-
-
 def ell_edge_conv_sum_plain(p, q, nbr, deg):
     """Plain torch version: slots accumulated in f32 in order d=0..D-1, as
     stinet_tpu/ops/ell.py:_forward does, so the two agree bit for bit."""

@@ -10,16 +10,15 @@ and Lin2 commutes with the mean, so
     EdgeConv(x)_i = Lin2( mean_{j in N(i)} relu(P[i] + Q[j]) ).
 
 P and Q are dense per-vertex matmuls in the model; this module does the
-per-edge part: gather, add, relu and the mean (or max, or sum) over each
-receiver's edges. It also holds the plain neighbourhood aggregation of the
-SageConv filters (`neighbor_aggregate`) and the graph Laplacian.
+per-edge part: gather, add, relu and the mean over each receiver's edges.
+It also holds the plain neighbourhood mean of the SageConv filters
+(`neighbor_mean`).
 """
 import torch
 
 from stinet_tpu_torch.graph.hierarchy import EdgeSet
 from stinet_tpu_torch.ops.ell import ell_edge_conv_sum
-from stinet_tpu_torch.ops.segment import (
-    segment_count, segment_max, segment_mean, segment_sum)
+from stinet_tpu_torch.ops.segment import segment_mean, segment_sum
 from stinet_tpu_torch.ops.windowed import (
     WindowedEdgeConvSum, WindowedEdgeConvSumF32, default_tile)
 
@@ -43,29 +42,24 @@ def windowed_kernel_applies(p, halo) -> bool:
     return halo <= HALO_CAPS.get((key, h), 0)
 
 
-def edge_conv_aggregate(p, q, edges: EdgeSet, impl=None, aggr="mean"):
-    """out[i] = reduce_{e: dst[e] == i} relu(p[dst[e]] + q[src[e]]), the
-    reduction `aggr`: "mean", "max", or "sum" / "add".
+def edge_conv_aggregate(p, q, edges: EdgeSet, impl=None):
+    """out[i] = mean_{e: dst[e] == i} relu(p[dst[e]] + q[src[e]]).
 
-    The mean with ELL tables runs the slot sum through the windowed op of
-    the row dtype where `windowed_kernel_applies`, else through
-    `ell_edge_conv_sum` (each a kernel on a CUDA tensor); the spilled edges
-    are added by an f32 segment sum, and the total is multiplied by
-    1/max(degree, 1) as the JAX code does (a division would round
-    differently), with the degree rounded to the working dtype first as
-    the JAX model passes it. Edge sets with no ELL table take the COO
-    segment mean. "max" and "sum" always take the COO lists
-    (stinet_tpu/ops/message_passing.py:159-170): the max routes its whole
-    gradient to one achieving edge (`segment_max`), and a receiver with no
-    in-edge gets 0. Pad edges point at the trash row, so their messages
-    never reach a valid row."""
+    With ELL tables the slot sum runs through the windowed op of the row
+    dtype where `windowed_kernel_applies`, else through `ell_edge_conv_sum`
+    (each a kernel on a CUDA tensor); the spilled edges are added by an f32
+    segment sum, and the total is multiplied by 1/max(degree, 1) as the JAX
+    code does (a division would round differently), with the degree
+    rounded to the working dtype first as the JAX model passes it. Edge
+    sets with no ELL table take the COO segment mean. Pad edges point at
+    the trash row, so their messages never reach a valid row."""
     num_segments = edges.degree.shape[0]
     acc_dt = torch.promote_types(p.dtype, torch.float32)
     degree = edges.degree.to(p.dtype)
-    if edges.nbr is None or aggr != "mean":
+    if edges.nbr is None:
         m = torch.relu(p.index_select(0, edges.dst)
                        + q.index_select(0, edges.src))
-        return _coo_reduce(m, edges.dst, num_segments, aggr, degree)
+        return segment_mean(m, edges.dst, num_segments, counts=degree)
     ell_deg = edges.degree if edges.ell_degree is None else edges.ell_degree
     if windowed_kernel_applies(p, edges.halo):
         fn = (WindowedEdgeConvSum if p.dtype == torch.bfloat16
@@ -85,28 +79,9 @@ def edge_conv_aggregate(p, q, edges: EdgeSet, impl=None, aggr="mean"):
     return (out.to(acc_dt) * inv[:, None]).to(p.dtype)
 
 
-def _coo_reduce(m, dst, num_segments, aggr, degree=None):
-    if aggr == "mean":
-        return segment_mean(m, dst, num_segments, counts=degree)
-    if aggr == "max":
-        return segment_max(m, dst, num_segments)
-    if aggr in ("sum", "add"):
-        return segment_sum(m, dst, num_segments)
-    raise ValueError(f"Unknown aggregation {aggr!r}")
-
-
-def neighbor_aggregate(x, src, dst, num_segments, aggr="mean", degree=None):
-    """out[i] = reduce_{e: dst[e] == i} x[src[e]], the reduction `aggr` as
-    in `edge_conv_aggregate` (stinet_tpu/ops/message_passing.py:173-188),
-    in the dtype of `x`. The mean divides by max(degree, 1), `degree`
-    counted from `dst` when omitted."""
-    return _coo_reduce(x.index_select(0, src), dst, num_segments, aggr,
-                       degree)
-
-
-def graph_laplacian(x, src, dst, num_segments):
-    """L(x)_i = sum_{j in N(i)} x_j - deg(i) * x_i, the degree counted from
-    `dst` (stinet_tpu/ops/message_passing.py:191-202)."""
-    s = segment_sum(x.index_select(0, src), dst, num_segments)
-    deg = segment_count(dst, num_segments, dtype=x.dtype)
-    return s - deg[:, None] * x
+def neighbor_mean(x, edges: EdgeSet, degree):
+    """out[i] = mean_{e: dst[e] == i} x[src[e]] over the COO lists, in the
+    dtype of `x`, divided by max(degree, 1) (`neighbor_aggregate` with
+    aggr "mean", stinet_tpu/ops/message_passing.py:173-188)."""
+    return segment_mean(x.index_select(0, edges.src), edges.dst,
+                        degree.shape[0], counts=degree)

@@ -4,8 +4,7 @@ PyTorch counterpart of `stinet_tpu/ops/segment.py` (the reference's
 torch_scatter calls). Pad entries carry a segment id in the pad region (the
 trash vertex), so no masking is needed here. Empty segments give 0, as
 torch_scatter does. `segment_max` routes its whole gradient to one
-achieving row per (segment, feature), as torch_scatter's scatter_max does;
-`segment_max_int` is its integer twin, with no gradient.
+achieving row per (segment, feature), as torch_scatter's scatter_max does.
 """
 import torch
 
@@ -74,14 +73,3 @@ class _SegmentMax(torch.autograd.Function):
         routed = _row_index(idx) == arg.gather(0, idx)
         d = g.gather(0, idx) * routed.to(g.dtype)
         return d, None, None
-
-
-def segment_max_int(data, segment_ids, num_segments, empty_value=0):
-    """Integer max of `data` rows per segment; empty segments give
-    `empty_value` (stinet_tpu/ops/segment.py:127-137). No gradient."""
-    idx = segment_ids.to(torch.int64).reshape(
-        (-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out = torch.full((num_segments,) + tuple(data.shape[1:]), empty_value,
-                     dtype=data.dtype, device=data.device)
-    # include_self=False: a segment with no entries keeps `empty_value`
-    return out.scatter_reduce_(0, idx, data, "amax", include_self=False)

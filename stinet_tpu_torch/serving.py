@@ -279,6 +279,11 @@ class SceneInpainter:
         model = copy.deepcopy(model)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
+        # what the forward reads beside the flagship's leaves, fixed by
+        # the model's architecture
+        self._reads = dict(
+            reads_coo=getattr(model, "reads_coo", False),
+            reads_labels=getattr(model, "reads_labels", False))
         self._placer = PackedPlacer(self.device)
         # running-max table widths keyed (level, dist, field, vertex
         # bucket); the lock makes their growth atomic under
@@ -355,9 +360,7 @@ class SceneInpainter:
 
     def _inference_graph(self, graph: HierarchicalGraph):
         """`inference_graph` with what this server's model reads."""
-        return inference_graph(
-            graph, reads_coo=getattr(self.model, "reads_coo", False),
-            reads_labels=getattr(self.model, "reads_labels", False))
+        return inference_graph(graph, **self._reads)
 
     # -- inference -----------------------------------------------------
     @torch.inference_mode()

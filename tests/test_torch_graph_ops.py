@@ -1,19 +1,15 @@
-"""The port's remaining graph ops against the JAX package's, on the same
-numpy inputs (a seeded graph of V = 500 with one vertex that has no
-in-edge), and what the server keeps of a graph for the models that read
-more than the flagship does.
+"""The SageConv filter's neighbour mean and the max pooling's segment max
+against the JAX package's, on the same numpy inputs (a seeded graph of
+V = 500 with one vertex that has no in-edge), and what the server keeps of
+a graph for the models that read more than the flagship does.
 
-- `neighbor_aggregate` (mean, sum, max), `graph_laplacian`,
-  `ell_neighbor_mean`, `ell_edge_conv_mean`, and `edge_conv_aggregate`
-  with aggr "max" and "sum" (forward and gradients in p and q): sums and
-  means within 1e-6, since torch's `index_add_` and XLA's scatter add in
-  other orders;
-- maxima and `segment_max_int` bit for bit, and the max's gradient routed
-  to the same message as JAX's, bit for bit;
+- `neighbor_mean` within 1e-6, since torch's `index_add_` and XLA's
+  scatter add in other orders;
+- the max's gradient routed to the same row as JAX's, bit for bit;
 - the flagship's served graph leaf for leaf what it was (COO lists of ELL
   edge sets, labels, colours, masks and reverse tables dropped) and its
-  byte count that of those leaves; a SageConv or "max" EdgeConv model's
-  server keeps the COO lists, a label-embedded one's the labels.
+  byte count that of those leaves; a SageConv model's server keeps the
+  COO lists, a label-embedded one's the labels.
 """
 import dataclasses
 
@@ -24,13 +20,12 @@ import pytest
 import torch
 
 from stinet_tpu.graph import build as jax_build
-from stinet_tpu.ops import ell as jax_ell
 from stinet_tpu.ops import message_passing as jax_mp
 from stinet_tpu.ops import segment as jax_segment
 from stinet_tpu_torch.graph import build as port_build
 from stinet_tpu_torch.graph.hierarchy import tensor_leaves
 from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
-from stinet_tpu_torch.ops import ell, message_passing, segment
+from stinet_tpu_torch.ops import message_passing, segment
 from stinet_tpu_torch.serving import SceneInpainter, inference_graph
 from stinet_tpu_torch.utils.synthetic import synthetic_scene
 
@@ -61,118 +56,24 @@ def edge_sets():
     return port, ref, v_pad
 
 
-def _features(v_pad, h, seed, integer=False):
-    rng = np.random.default_rng(seed)
-    if integer:     # many ties for the max
-        return rng.integers(-3, 4, size=(v_pad, h)).astype(np.float32)
-    return rng.normal(size=(v_pad, h)).astype(np.float32)
+def _features(v_pad, h, seed):
+    return np.random.default_rng(seed).normal(
+        size=(v_pad, h)).astype(np.float32)
 
 
-@pytest.mark.parametrize("aggr", ["mean", "sum", "max"])
-@pytest.mark.parametrize("with_degree", [False, True])
-def test_neighbor_aggregate_matches_jax(edge_sets, aggr, with_degree):
+def test_neighbor_mean_matches_jax(edge_sets):
+    """The SageConv filter's aggregation, against JAX's
+    `neighbor_aggregate` with aggr "mean"; the ELL tables are there and
+    not taken."""
     port_es, ref_es, v_pad = edge_sets
-    x = _features(v_pad, 16, 1, integer=aggr == "max")
-    deg = ref_es.degree if with_degree and aggr == "mean" else None
+    x = _features(v_pad, 16, 1)
     want = np.asarray(jax_mp.neighbor_aggregate(
-        jnp.asarray(x), ref_es.src, ref_es.dst, v_pad, aggr=aggr,
-        degree=None if deg is None else jnp.asarray(deg)))
-    got = message_passing.neighbor_aggregate(
-        t(x), port_es.src, port_es.dst, v_pad, aggr=aggr,
-        degree=None if deg is None else port_es.degree).numpy()
+        jnp.asarray(x), ref_es.src, ref_es.dst, v_pad, aggr="mean",
+        degree=jnp.asarray(ref_es.degree)))
+    got = message_passing.neighbor_mean(t(x), port_es,
+                                        port_es.degree).numpy()
     assert np.all(got[ISOLATED] == 0)
-    if aggr == "max":
-        np.testing.assert_array_equal(got, want)
-    else:
-        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
-
-
-def test_unknown_aggregation_raises(edge_sets):
-    port_es, _, v_pad = edge_sets
-    x = t(_features(v_pad, 4, 2))
-    with pytest.raises(ValueError, match="median"):
-        message_passing.neighbor_aggregate(x, port_es.src, port_es.dst,
-                                           v_pad, aggr="median")
-    with pytest.raises(ValueError, match="median"):
-        message_passing.edge_conv_aggregate(x, x, port_es, aggr="median")
-
-
-def test_graph_laplacian_matches_jax(edge_sets):
-    port_es, ref_es, v_pad = edge_sets
-    x = _features(v_pad, 8, 3)
-    want = np.asarray(jax_mp.graph_laplacian(jnp.asarray(x), ref_es.src,
-                                             ref_es.dst, v_pad))
-    got = message_passing.graph_laplacian(t(x), port_es.src, port_es.dst,
-                                          v_pad).numpy()
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
-
-
-@pytest.mark.parametrize("empty_value", [0, -1])
-def test_segment_max_int_equals_jax(edge_sets, empty_value):
-    port_es, ref_es, v_pad = edge_sets
-    rng = np.random.default_rng(4)
-    data = rng.integers(-50, 50, size=ref_es.src.shape[0]).astype(np.int32)
-    want = np.asarray(jax_segment.segment_max_int(
-        jnp.asarray(data), ref_es.dst, v_pad, empty_value=empty_value))
-    got = segment.segment_max_int(t(data), port_es.dst, v_pad,
-                                  empty_value=empty_value).numpy()
-    assert got.dtype == want.dtype and got[ISOLATED] == empty_value
-    np.testing.assert_array_equal(got, want)
-
-
-def test_ell_neighbor_mean_matches_jax(edge_sets):
-    port_es, ref_es, v_pad = edge_sets
-    x = _features(v_pad, 16, 5)
-    want = np.asarray(jax_ell.ell_neighbor_mean(
-        jnp.asarray(x), ref_es.nbr, ref_es.ell_degree))
-    got = ell.ell_neighbor_mean(t(x), port_es.nbr,
-                                port_es.ell_degree).numpy()
-    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
-
-
-def test_ell_edge_conv_mean_matches_jax(edge_sets):
-    port_es, ref_es, v_pad = edge_sets
-    p, q = _features(v_pad, 16, 6), _features(v_pad, 16, 7)
-    want = np.asarray(jax_ell.ell_edge_conv_mean(
-        jnp.asarray(p), jnp.asarray(q), ref_es.nbr, ref_es.rev_dst,
-        ref_es.ell_degree, ref_es.out_degree))
-    got = ell.ell_edge_conv_mean(t(p), t(q), port_es.nbr,
-                                 port_es.ell_degree, port_es.rev_dst,
-                                 port_es.out_degree).numpy()
-    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
-
-
-@pytest.mark.parametrize("aggr", ["max", "sum", "add"])
-def test_edge_conv_aggregate_coo_reductions_match_jax(edge_sets, aggr):
-    """The ELL tables are there and not taken: forward and the gradients
-    in p and q for one cotangent."""
-    port_es, ref_es, v_pad = edge_sets
-    integer = aggr == "max"
-    p, q = (_features(v_pad, 16, 8, integer),
-            _features(v_pad, 16, 9, integer))
-    g = _features(v_pad, 16, 10)
-
-    def jax_fn(p, q):
-        return jax_mp.edge_conv_aggregate(
-            p, q, ref_es.src, ref_es.dst, v_pad, aggr=aggr,
-            nbr=ref_es.nbr, rev_dst=ref_es.rev_dst,
-            out_degree=ref_es.out_degree, ell_degree=ref_es.ell_degree,
-            spill_src=ref_es.spill_src, spill_dst=ref_es.spill_dst)
-
-    want, vjp = jax.vjp(jax_fn, jnp.asarray(p), jnp.asarray(q))
-    want_dp, want_dq = vjp(jnp.asarray(g))
-    tp, tq = t(p).requires_grad_(), t(q).requires_grad_()
-    got = message_passing.edge_conv_aggregate(tp, tq, port_es, aggr=aggr)
-    got.backward(t(g))
-    assert np.all(got.detach().numpy()[ISOLATED] == 0)
-    if integer:
-        np.testing.assert_array_equal(got.detach().numpy(), want)
-    else:
-        np.testing.assert_allclose(got.detach().numpy(), want, rtol=TOL,
-                                   atol=TOL)
-    for a, b in ((tp.grad, want_dp), (tq.grad, want_dq)):
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
-                                   atol=TOL)
 
 
 def test_segment_max_gradient_routed_as_jax(edge_sets):
@@ -237,19 +138,15 @@ def test_flagship_served_graph_and_bytes_unchanged():
 
 
 @pytest.mark.parametrize("kind", ["sageconv", "sageconvtransinv",
-                                  "edgeconv-max", "labels"])
+                                  "labels"])
 def test_server_keeps_what_the_model_reads(kind):
     args = dict(SMALL, filter_type="edgeconvtransinv")
     if kind.startswith("sage"):
         args["filter_type"] = kind
-    elif kind == "labels":
+    else:
         args.update(use_label_embedding=True, num_classes=5,
                     num_embedding=4)
     model = define_G(**args, generator=torch.Generator().manual_seed(0))
-    if kind == "edgeconv-max":
-        for m in model.modules():
-            if hasattr(m, "aggr"):
-                m.aggr = "max"
     assert model.reads_coo == (kind != "labels")
     assert model.reads_labels == (kind == "labels")
     server = SceneInpainter(model, model.state_dict(), device="cpu")
