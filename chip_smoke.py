@@ -205,7 +205,33 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    path launched, each step's launches equal to the calls of a plain-path
    stacked step on its batch, the first loss within TRAIN_TOL of that
    step's; the trainer's clock, the loader's ms, the wait, the step by
-   CUDA events and peak memory.
+   CUDA events and peak memory;
+15. preprocess: two rooms of PREP_VERTICES source vertices
+   (utils/synthetic_sensor.py:room_mesh, the terrain scaled to 8 m x 8 m,
+   seeds 0 and 1) written as the ScanNet scans of a train and a val scene,
+   then the port's preprocessing CLI in subprocesses at its defaults
+   (`graphs --jobs PREP_JOBS`, `crops`, `masks --crops`): each
+   subcommand's seconds, the crops and masks written, the decimator's
+   native calls in each `graphs` worker; the bf16 config trained on the
+   output for PREP_EPOCHS epochs through the trainer's CLI (K3a, K3c, K1
+   and K2 launched, each step's launches equal to a plain-path step's
+   calls; the trainer's readings as in phase 8); every crop of the train
+   scene read and built by the ScanNet loader with no_train_cropped false;
+   the flagship served on the val scene the loader reads (K1 and K2 as in
+   phase 4's predict; ms/scene by phase);
+16. texture-optimization: a TEX_VERTICES room and TEX_FRAMES frames of
+   640 x 480 z-buffered by the native rasterizer from seeded cameras above
+   it, colored by a smooth field, poses perturbed by 0.01 rad and 0.01 m on
+   frames 1..: `estimate_vertex_colors` on the card against the CPU on
+   TEX_CPU_FRAMES frames (visibility flips counted, colors within
+   TEX_TOL where the tests agree), `rigid_optimize` for TEX_ITERS
+   iterations at TEX_LR (the residual falls, frame 0 anchored, peak
+   memory), an iteration by CUDA events and a traced iteration (busy ms,
+   launches, idle share, top ops);
+17. serving-hostile: the flagship f32 `predict` on
+   `hostile_scene(HOSTILE_VERTICES, kind)` for the sphere and the terrain,
+   plain and windowed: ms/scene by phase, the host build's share, the K1,
+   K3b and K2 launches, windowed within PATH_TOL of plain.
 
 The last two lines are the kernel record (K3 rows also carry
 `k1_same_inputs_ms`, K1's time on the same inputs; K1 and K3 rows
@@ -3476,6 +3502,315 @@ def serving_batched(torch, card, server, scene, first):
     return row, concat_launches
 
 
+# --- the offline preprocessing, texture optimization, hostile scenes ---------
+
+PREP_VERTICES = 65536       # source vertices of each preprocessed room
+PREP_EPOCHS = 2             # epochs of the bf16 run on the preprocessed scenes
+PREP_JOBS = 2               # `graphs --jobs`: one process a scene
+TEX_VERTICES = 65536        # the texture-optimized room
+TEX_FRAMES = 100            # a 1000-frame sequence at --stride 10
+TEX_WIDTH, TEX_HEIGHT = 640, 480
+TEX_CPU_FRAMES = 8          # frames held against the CPU
+TEX_TOL = 1e-4              # estimated colors, card vs CPU (absolute)
+TEX_FLIP_SHARE = 1e-4       # visibility flips allowed, card vs CPU
+TEX_ITERS, TEX_LR = 50, 1e-4
+TEX_STEP_REPS = 10          # timed rigid iterations
+HOSTILE_VERTICES = 65536
+HOSTILE_REPS = 5            # timed predicts a scene and layout
+
+
+def run_cli(phase, *argv):
+    """`python -m stinet_tpu_torch.preprocessing.cli <argv>`, as a user
+    runs it, in its own process: (its standard output, seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "stinet_tpu_torch.preprocessing.cli",
+         *argv], capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    check(res.returncode == 0 and "FAILED" not in res.stdout,
+          f"{phase}: preprocessing {argv[0]} failed "
+          f"(rc {res.returncode}):\n{res.stdout}\n{res.stderr[-4000:]}")
+    return res.stdout, secs
+
+
+def preprocess_phase(torch, card, flagship):
+    """Phase 15: two rooms (terrain_mesh(PREP_VERTICES, 0 and 1) scaled to
+    8 m x 8 m, seeded colors) written as ScanNet scans of a train and a
+    val scene, through the port's CLI at its defaults (`graphs --jobs
+    PREP_JOBS`, `crops`, `masks --crops`); the bf16 config trained on the
+    result through the trainer's CLI, every crop read by the ScanNet loader
+    (no_train_cropped false), and the flagship served on the val scene the
+    loader reads. `flagship`: the K1 and K2 launches of one flagship
+    predict."""
+    import ast
+    import os
+    import tempfile
+    import numpy as np
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.data.scannet import (
+        SCANNET_TRAIN_FILE, SCANNET_VAL_FILE, ScanNetGraphColorDataLoader,
+        ScanNetGraphColorDataSet, read_split)
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.ops.message_passing import HALO_CAPS
+    from stinet_tpu_torch.preprocessing.plyio import write_ply
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.synthetic_sensor import room_mesh
+    phase = "preprocess"
+    t_phase = time.perf_counter()
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    with tempfile.TemporaryDirectory(prefix="stinet_preprocess_") as tmp:
+        tmp = pathlib.Path(tmp)
+        scans, out, crops = tmp / "scans", tmp / "graph_levels", tmp / "crops"
+        names = [read_split(SCANNET_TRAIN_FILE)[0],
+                 read_split(SCANNET_VAL_FILE)[0]]
+        t0 = time.perf_counter()
+        for seed, name in enumerate(names):
+            v, f, colors = room_mesh(PREP_VERTICES, seed)
+            (scans / name).mkdir(parents=True)
+            write_ply(str(scans / name / f"{name}_vh_clean_2.ply"), v, f,
+                      colors)
+        say(phase, f"2 rooms of {PREP_VERTICES} vertices, {len(f)} faces, "
+            f"8 m x 8 m ({', '.join(names)}) written as ScanNet plys in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        text, secs = run_cli(phase, "graphs", "--scans", str(scans),
+                             "--out", str(out), "--jobs", str(PREP_JOBS))
+        calls = [ast.literal_eval(m) for m in re.findall(
+            r"native calls: decimator (\{.*?\})", text)]
+        check(len(calls) == 2 and all(c.get("qem_decimate", 0) >= 2
+                                      for c in calls),
+              f"{phase}: graphs made no native decimation: {text}")
+        z = np.load(out / "graphs" / f"{names[1]}.npz")
+        sizes = [z[f"vertices_{l}"].shape[0] for l in range(3)]
+        say(phase, f"graphs --jobs {PREP_JOBS} (defaults: --level-params "
+            f"100 30 30, --dilations 2 4 6 8 16): {secs:.1f} s for 2 "
+            f"scenes; val level sizes {sizes}; per scene "
+            + "; ".join(line.split(" in ", 1)[1]
+                        for line in text.splitlines()
+                        if line.startswith("wrote")))
+        text, secs = run_cli(phase, "crops", "--graphs", str(out), "--out",
+                             str(crops))
+        n_crops = len(list((crops / "graphs").glob("*.npz")))
+        check(n_crops > 0, f"{phase}: no crop written: {text}")
+        say(phase, f"crops (block 3.0 m, stride 1.5 m): {secs:.1f} s, "
+            f"{n_crops} crops ({text.strip().replace(chr(10), '; ')})")
+        text, secs = run_cli(phase, "masks", "--graphs", str(out), "--out",
+                             str(out), "--crops", str(crops))
+        mask_root = out / "masks" / "rad_16"
+        n_scene = sum(len(list((mask_root / n).glob("*.npz")))
+                      for n in names)
+        n_crop = sum(len(list(d.glob("*.npz"))) for d in mask_root.iterdir()
+                     if d.name not in names)
+        check(n_scene == 32 and n_crop > 0,
+              f"{phase}: masks wrote {n_scene} scene and {n_crop} crop "
+              f"masks: {text}")
+        say(phase, f"masks (rad_16, radius 16, 16 a scene): {secs:.1f} s, "
+            f"{n_scene} scene masks and {n_crop} projected into crops")
+
+        # --- the bf16 config trained on the preprocessed scenes
+        roots = {"train": str(out), "val": str(out)}
+        cfg = trainer_config(tmp / "bf16.json", roots, tmp / "saved",
+                             BF16_CONFIG, PREP_EPOCHS)
+        counters = _train_counters()
+        _zero(counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with probed_trainer(torch) as (probes, _):
+            trainer = cli.main(["-c", str(tmp / "bf16.json"), "-d", "cuda",
+                                "-n", "preprocessed"])
+        launches = _read(counters)
+        probe = probes[0]
+        # K3a and K3c launch only where a level's band fits the windowed
+        # dispatch's caps (ops/message_passing.py:HALO_CAPS), which a room
+        # of this size need not do: read here, and held per step to the
+        # calls of a plain-path step below
+        check(all(launches[k] > 0 for k in ("k1", "k1dp", "k1dq", "k2")),
+              f"{phase}: a kernel of the bf16 train path never launched: "
+              f"{launches}")
+        losses = [float(x) for x in probe.losses]
+        check(len(losses) == PREP_EPOCHS and all(
+            math.isfinite(x) for x in losses), f"{phase}: losses {losses}")
+        check_trainer_launches(torch, cfg, probe, "cuda")
+        train_scene = ScanNetGraphColorDataSet(str(out), "rad_16", 3,
+                                               is_train=True)[0]
+        halos = [lv.edges.halo for lv in build_hierarchical_graph(
+            [train_scene], windowed=True).levels]
+        say(phase, f"bf16 config through the trainer's CLI on the "
+            f"preprocessed train scene, {PREP_EPOCHS} epochs: losses "
+            f"{[round(x, 6) for x in losses]}; launches {launches}, each "
+            "step equal to the calls a plain-path step records on its "
+            f"batch; the scene's windowed halos by level {halos} (caps "
+            f"{HALO_CAPS})")
+        trainer_readings(phase, trainer, probe, card)
+        del trainer, probes, probe
+
+        # --- every crop through the ScanNet loader
+        crop_root = tmp / "crop_root"
+        crop_root.mkdir()
+        (crop_root / "graphs").symlink_to(crops / "graphs")
+        (crop_root / "masks").symlink_to(out / "masks")
+        # every mask id the masks subcommand wrote (the config's
+        # num_train_masks 1 would skip the crops without mask 0)
+        args = copy.deepcopy(cfg["data_loader"]["args"])
+        args.update(train_root_dir=str(crop_root), no_train_cropped=False,
+                    num_train_masks=16)
+        t0 = time.perf_counter()
+        loader = ScanNetGraphColorDataLoader(args)
+        n_train = len(loader.train_loader.dataset)
+        batches = sum(1 for _ in loader.train_loader)
+        n_written = len(list((crops / "graphs").glob(f"{names[0]}_*")))
+        n_masked = len(list(mask_root.glob(f"{names[0]}_*")))
+        check(batches == n_train == n_masked - 1, f"{phase}: the crop "
+              f"loader gave {batches} batches of {n_train} crops, of "
+              f"{n_masked} with masks")
+        say(phase, f"the ScanNet loader (no_train_cropped false, 16 mask "
+            f"ids) read and built {n_train} crops of the train scene's "
+            f"{n_masked} with masks (of {n_written} written; the loader's "
+            "seeded subsample leaves one a scene out, as the reference's) in "
+            f"{time.perf_counter() - t0:.1f} s, windowed; build ms a crop "
+            f"median {statistics.median(loader.train_loader.build_ms):.2f}")
+        del loader
+
+        # --- the flagship served on the val scene the loader reads
+        scene = ScanNetGraphColorDataSet(str(out), "rad_16", 3,
+                                         is_train=False)[0]
+        model = define_G(**FLAGSHIP,
+                         generator=torch.Generator().manual_seed(0))
+        server = SceneInpainter(model, model.state_dict(), device="cuda")
+        pred, got = serve_counted(torch, server, scene)
+        n = scene.num_vertices[0]
+        check_output(pred, n, phase)
+        check(got["k1"] == flagship["k1"] and got["k2"] == flagship["k2"],
+              f"{phase}: predict launched K1 {got['k1']} and K2 "
+              f"{got['k2']} times, the flagship's predict {flagship}")
+        ms, split = time_predict(torch, server, scene, PREDICT_REPS)
+        say(phase, f"SceneInpainter.predict on the preprocessed val scene "
+            f"{scene.num_vertices}: finite in [-1, 1], K1 {got['k1']} and "
+            f"K2 {got['k2']} launches; {ms:.2f} ms/scene end to end, by "
+            f"phase: {split}; on {card}")
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def texture_phase(torch, card):
+    """Phase 16: texture-map optimization on the card: a TEX_VERTICES room,
+    TEX_FRAMES look-down frames of TEX_WIDTH x TEX_HEIGHT z-buffered by the
+    native rasterizer and colored by a smooth field, poses perturbed by
+    0.01 rad and 0.01 m on frames 1..; estimate_vertex_colors on the card
+    against the CPU on TEX_CPU_FRAMES frames, then rigid_optimize for
+    TEX_ITERS iterations, timed."""
+    import numpy as np
+    from stinet_tpu_torch.preprocessing import native as decimator
+    from stinet_tpu_torch.preprocessing import texture_optimization as tex
+    from stinet_tpu_torch.utils.synthetic_sensor import (
+        SCANNET_INTRINSICS, look_down_poses, perturb_poses, room_mesh,
+        sensor_frames)
+    phase = "texture-optimization"
+    t_phase = time.perf_counter()
+    intr, w, h = SCANNET_INTRINSICS, TEX_WIDTH, TEX_HEIGHT
+    t0 = time.perf_counter()
+    v, f, _ = room_mesh(TEX_VERTICES, seed=2)
+    poses = look_down_poses(TEX_FRAMES, seed=2)
+    before = decimator.calls.get("rasterize_depth", 0)
+    colors, depths = sensor_frames(v, f, poses, intr, w, h)
+    check(decimator.calls["rasterize_depth"] - before == TEX_FRAMES,
+          f"{phase}: the frames were not rasterized natively")
+    noisy = perturb_poses(poses, 0.01, 0.01, seed=3)
+    say(phase, f"{TEX_FRAMES} frames of {w} x {h} of a {len(v)}-vertex room "
+        f"rendered on the host in {time.perf_counter() - t0:.1f} s; "
+        f"{(depths > 0).mean():.1%} of pixels covered; colors "
+        f"{colors.nbytes / 1e6:.0f} MB, depths {depths.nbytes / 1e6:.0f} MB")
+
+    k = TEX_CPU_FRAMES
+    zero = np.zeros((k, 6), np.float32)
+    with torch.no_grad():
+        got_c, got_w = tex.estimate_vertex_colors(
+            *tex._tensors("cuda", v, noisy[:k], zero), intr,
+            *tex._tensors("cuda", colors[:k], depths[:k]), w, h)
+        want_c, want_w = tex.estimate_vertex_colors(
+            *tex._tensors("cpu", v, noisy[:k], zero), intr,
+            *tex._tensors("cpu", colors[:k], depths[:k]), w, h)
+    flips = int((got_w.cpu() != want_w).sum())
+    agree = (got_w.cpu() == want_w).all(0)
+    err = float((got_c.cpu()[agree] - want_c[agree]).abs().max())
+    check(flips <= TEX_FLIP_SHARE * want_w.numel(),
+          f"{phase}: {flips} visibility flips, card vs CPU")
+    check(err <= TEX_TOL, f"{phase}: colors, card vs CPU, max |diff| "
+          f"{err:.3e} > {TEX_TOL}")
+    say(phase, f"estimate_vertex_colors on {k} frames, card vs CPU: "
+        f"{flips} of {want_w.numel()} visibility tests flip; colors of the "
+        f"{int(agree.sum())} vertices whose tests agree max |diff| "
+        f"{err:.3e}; {int((want_w.sum(0) > 0).sum())} vertices seen")
+
+    tv, tp, tc, td = tex._tensors("cuda", v, noisy, colors, depths)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vcol, deltas, hist = tex.rigid_optimize(tv, tp, intr, tc, td, w, h,
+                                            iters=TEX_ITERS, lr=TEX_LR)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(x) for x in hist) and hist[-1] < hist[0],
+          f"{phase}: residual {hist[0]} -> {hist[-1]}")
+    check(bool(np.isfinite(vcol).all()) and not deltas[0].any(),
+          f"{phase}: colors finite and frame 0 anchored")
+    say(phase, f"rigid_optimize {TEX_ITERS} iterations at lr {TEX_LR}, "
+        f"F={TEX_FRAMES}, V={len(v)}: residual {hist[0]:.6e} -> "
+        f"{hist[-1]:.6e}; largest delta {np.abs(deltas).max():.3e}; "
+        f"{secs:.2f} s by the host clock (a sync each iteration); peak "
+        f"device memory {peak:.2f} GiB; on {card}")
+
+    step, _ = tex.make_rigid_step(tv, tp, intr, tc, td, w, h, lr=TEX_LR)
+    for _ in range(2):
+        step()
+    times = [ev_ms(torch, step) for _ in range(TEX_STEP_REPS)]
+    say(phase, f"a rigid iteration by CUDA events, median of "
+        f"{TEX_STEP_REPS}: {statistics.median(times):.3f} ms "
+        f"({', '.join(f'{x:.3f}' for x in times)}); on {card}")
+    traced_steps(torch, phase, step, card, "rigid iteration")
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def serving_hostile(torch, card, model, weights):
+    """Phase 17: the flagship f32 `predict` on hostile_scene(
+    HOSTILE_VERTICES, kind) for the sphere and the terrain, plain (K1) and
+    windowed (K3b): ms/scene, the host build's share, launches."""
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.hostile import hostile_scene
+    phase = "serving-hostile"
+    servers = {"plain": SceneInpainter(model, weights, device="cuda"),
+               "windowed": SceneInpainter(model, weights, device="cuda",
+                                          windowed=True)}
+    for kind in ("sphere", "terrain"):
+        t0 = time.perf_counter()
+        scene = hostile_scene(HOSTILE_VERTICES, kind)
+        halos = [lv.edges.halo
+                 for lv in servers["windowed"].build(scene).levels]
+        say(phase, f"hostile_scene({HOSTILE_VERTICES}, {kind!r}) built in "
+            f"{time.perf_counter() - t0:.1f} s: level sizes "
+            f"{scene.num_vertices}, windowed halos by level {halos}")
+        outs = {}
+        for layout, server in servers.items():
+            outs[layout], got = serve_counted(torch, server, scene)
+            check_output(outs[layout], scene.num_vertices[0],
+                         f"{phase} {kind} {layout}")
+            # the windowed dispatch may send every conv of a scene whose
+            # band it cannot hold to K1: read here, not required
+            check(got["k2"] > 0 and got["k1"] + got["k3b"] > 0 and (
+                layout == "windowed" or got["k3b"] == 0),
+                f"{phase} {kind} {layout}: launches {got}")
+            ms, split = time_predict(torch, server, scene, HOSTILE_REPS)
+            build = float(split.split(",")[0].split()[1])
+            say(phase, f"{kind} {layout}: {ms:.2f} ms/scene end to end, "
+                f"host build {build / ms:.1%} of it; by phase: {split}; "
+                f"launches K1 {got['k1']}, K3b {got['k3b']}, K2 "
+                f"{got['k2']}; on {card}")
+        err = float(abs(outs["plain"] - outs["windowed"]).max())
+        check(err <= PATH_TOL, f"{phase} {kind}: windowed vs plain max "
+              f"|diff| {err:.3e} > {PATH_TOL}")
+        say(phase, f"{kind}: windowed against plain max |diff| {err:.3e}")
+
+
 def capture_k1_calls(torch):
     """The K1 calls of one flagship f32 forward (phase 3's) and of one bf16
     train step (phase 6's), recorded on the plain path: (f32 forward calls,
@@ -3665,9 +4000,14 @@ def main(argv=None):
 
     # --- the rest of the model: reference checkpoints, SageConv, labels,
     # stacked training
-    rest_of_the_model(torch, card, scene, {
-        "k1": launches["ell_edge_conv_sum"],
-        "k2": launches["masked_instance_norm"]})
+    flagship = {"k1": launches["ell_edge_conv_sum"],
+                "k2": launches["masked_instance_norm"]}
+    rest_of_the_model(torch, card, scene, flagship)
+
+    # --- the offline preprocessing, texture optimization, hostile scenes
+    preprocess_phase(torch, card, flagship)
+    texture_phase(torch, card)
+    serving_hostile(torch, card, model, weights)
 
     cu = "stinet_tpu_torch/ops/cuda/"
     kernels = [

@@ -2,12 +2,15 @@
 
 A copy of `stinet_tpu/data/scannet.py` (which imports no JAX), building
 through the port's `graph/build.py`, so its batches equal the JAX
-package's leaf for leaf. As the reference's ScanNetGraphColorDataLoader:
-per-scene graph hierarchies plus per-scene mask sets on disk, a random mask
-id drawn per fetch, color normalized to [-1,1], 10-channel inputs
-[color*mask_bool | normals | positions | mask_bool], per-level edge sets,
-trace maps and dilated edge sets, a train/val scene-leak check, and the
-canonical scannetv2 split lists (`meta/scannet/*.txt`).
+package's leaf for leaf, but for one repair: a level's size is its vertex
+array's (`level_sizes`), where JAX counts a training crop's coarse level
+short and then cannot build it. As the reference's
+ScanNetGraphColorDataLoader: per-scene graph hierarchies plus per-scene
+mask sets on disk, a random mask id drawn per fetch, color normalized to
+[-1,1], 10-channel inputs [color*mask_bool | normals | positions |
+mask_bool], per-level edge sets, trace maps and dilated edge sets, a
+train/val scene-leak check, and the canonical scannetv2 split lists
+(`meta/scannet/*.txt`).
 
 On-disk format: one `<scene>.npz` per scene under `graphs/` containing
   vertices_{l} [V_l, 10] (pos 0:3 | color 3:6 | normals 6:9 | orig index 9),
@@ -58,6 +61,16 @@ def compare_train_val(train_names, val_names, train_cropped=False):
         train_scenes = set(map(str, train_names))
     overlap = train_scenes & set(map(str, val_names))
     assert not overlap, f"train/val scene leak: {sorted(overlap)[:5]}"
+
+
+def level_sizes(vertices, traces) -> List[int]:
+    """Each level's vertex count, from its vertex array, for the levels
+    the traces reach. The JAX loader counts a coarse level as its trace's
+    max + 1, which is the same for a full scene (the decimator's traces
+    reach every coarse vertex) but not for a crop: a crop keeps coarse
+    vertices whose fine vertices fell outside it, and where the one it
+    misses is the last, that count falls short and the build fails."""
+    return [len(vertices[l]) for l in range(len(traces) + 1)]
 
 
 def load_scene_npz(path: str, end_level: int):
@@ -236,13 +249,9 @@ class ScanNetGraphColorDataSet:
         else:
             use_traces = traces[1:self._end_level]
 
-        num_vertices = [v0.shape[0]]
-        for t in use_traces:
-            num_vertices.append(int(t.max()) + 1)
-
         sample = RawHierarchy(
             x=x.astype(np.float32), color=color.astype(np.float32),
-            mask=mask, num_vertices=num_vertices,
+            mask=mask, num_vertices=level_sizes(vertices, use_traces),
             level_edges=[e for e in edges],
             traces=[t for t in use_traces],
             dilated=dilated, name=scene, banded=banded)

@@ -2,7 +2,8 @@
 
 A copy of `stinet_tpu/data/scannetlabel.py` (which imports no JAX),
 building through the port's `_SceneLoader`, so its batches equal the JAX
-package's leaf for leaf. As the reference's ScanNetGraphDataLoader:
+package's leaf for leaf, but for the level sizes of a training crop
+(`scannet.level_sizes`). As the reference's ScanNetGraphDataLoader:
 9-channel inputs [color | normals | positions], level-0 labels
 (`labels_0` in the scene's npz; zeros where there are none), the class
 names, the precomputed -log-frequency class weights and the NYU40 colour
@@ -24,7 +25,7 @@ import numpy as np
 from stinet_tpu_torch.core.registry import DATALOADERS
 from stinet_tpu_torch.data.scannet import (
     SCANNET_TRAIN_FILE, SCANNET_VAL_FILE, _SceneLoader, compare_train_val,
-    load_scene_npz, load_scene_pt, read_split)
+    level_sizes, load_scene_npz, load_scene_pt, read_split)
 from stinet_tpu_torch.data.transforms import compose
 from stinet_tpu_torch.graph.build import RawHierarchy
 
@@ -120,15 +121,11 @@ class ScanNetLabelDataSet:
             use_traces = traces[1:self._end_level]
             original_trace = traces[0] if traces else None
 
-        num_vertices = [v0.shape[0]]
-        for t in use_traces:
-            num_vertices.append(int(t.max()) + 1)
-
         sample = RawHierarchy(
             x=x.astype(np.float32),
             color=color.astype(np.float32),
             mask=np.zeros((v0.shape[0], 1), np.float32),
-            num_vertices=num_vertices,
+            num_vertices=level_sizes(vertices, use_traces),
             level_edges=[e for e in edges],
             traces=[t for t in use_traces],
             dilated=dilated, labels=labels, name=scene, banded=banded)

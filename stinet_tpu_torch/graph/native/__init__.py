@@ -69,23 +69,30 @@ def available() -> bool:
     return os.environ.get("STINET_NATIVE_BUILD", "1") != "0"
 
 
+def hashed_path(src: Path, build_dir: Path, flags=GXX_FLAGS) -> Path:
+    """`<build_dir>/<source stem>-<hash of the source and flags>.so`."""
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(flags).encode()).hexdigest()
+    return build_dir / f"{src.stem}-{key[:16]}.so"
+
+
 def lib_path() -> Path:
-    key = hashlib.sha256(SRC.read_bytes()
-                         + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"graph_builder-{key[:16]}.so"
+    return hashed_path(SRC, BUILD_DIR)
 
 
-def _compile(out: Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(src: Path, out: Path, flags=GXX_FLAGS) -> None:
+    """g++ `src` into `out` by way of a private path that is then renamed;
+    raises RuntimeError with g++'s output where it fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(SRC), "-o", str(tmp)]
+    cmd = ["g++", *flags, str(src), "-o", str(tmp)]
     try:
         res = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
-        raise RuntimeError(f"cannot run g++ to build {SRC}: {e}") from e
+        raise RuntimeError(f"cannot run g++ to build {src}: {e}") from e
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed to build {SRC} "
+        raise RuntimeError(f"g++ failed to build {src} "
                            f"({' '.join(cmd)}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)
 
@@ -99,7 +106,7 @@ def get_lib() -> ctypes.CDLL:
             if _lib is None:
                 out = lib_path()
                 if not out.exists():
-                    _compile(out)
+                    compile_library(SRC, out)
                 lib = ctypes.CDLL(str(out))
                 for fn, (res, args) in _SIGNATURES.items():
                     getattr(lib, fn).restype = res
