@@ -231,9 +231,22 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
 17. serving-hostile: the flagship f32 `predict` on
    `hostile_scene(HOSTILE_VERTICES, kind)` for the sphere and the terrain,
    plain and windowed: ms/scene by phase, the host build's share, the K1,
-   K3b and K2 launches, windowed within PATH_TOL of plain.
+   K3b and K2 launches, windowed within PATH_TOL of plain;
+18. partitioned: `predict_partitioned` of the flagship on an in-process
+   mesh of PART_COUNTS partitions on the card, the terrain and the sphere
+   of phase 17 in f32 and the terrain in bf16 (the flagship's synthetic
+   scene is refused by the children cap, as in JAX): K1's launches
+   counted around one call, every K1 call of a plain-path call replayed
+   on the kernel bitwise (q of more rows than p), the output within
+   PART_RTOL / PART_ATOL of `predict` (bf16: PART_BF16_MEAN_TOL and
+   PART_BF16_MAX_TOL), ms end to end and by step with the host partition
+   build's share, the device forward and its K1 calls, beside `predict`;
+19. export: `SceneInpainter.export` of the flagship, plain and windowed,
+   reloaded by `utils/model_io.load_serving`: launches as the server's
+   forward, output bitwise its, export and load seconds, a call's time.
 
-The last two lines are the kernel record (K3 rows also carry
+The last two lines are the kernel record (a row for K1 on phase 18's
+halo layout at P = 4 besides phase 3's; K3 rows also carry
 `k1_same_inputs_ms`, K1's time on the same inputs; K1 and K3 rows
 `device_ms`, the card-alone time, and `host_us`, the host's time a call)
 and the result, one JSON object each. Without a CUDA card the script exits
@@ -604,9 +617,11 @@ def k1_plan_note(torch, kind, args, want):
 
 
 def k1_wrapper_costs(torch, p, q, nbr, deg):
-    """Host microseconds of one K1 wrapper call on these tensors and of its
-    steps, each the median of 5 loops of ENQUEUES repeats: the row and table
-    checks, the allocation, the stream lookup, the plan (`ell_plan`, cached
+    """Host microseconds of one K1 wrapper call on these tensors, of the
+    autograd Function's call that predict makes around it, and of the
+    wrapper's steps, each the median of 5 loops of ENQUEUES repeats: the
+    row and table checks, the allocation, the stream lookup, the plan
+    (`ell_plan`, cached
     per shape) and the launcher (cached per dtype), beside the per-call
     lookup the cache replaced (the library, then an f-string getattr); the
     rest of the call is the ctypes call with the launch. A package without
@@ -628,6 +643,8 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
         return statistics.median(loops)
 
     whole = us(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
+    with torch.inference_mode():
+        entry = us(lambda: ell.ell_edge_conv_sum(p, q, nbr, deg))
     costs = {}
     if hasattr(ell, "_launcher"):
         costs = {
@@ -645,8 +662,14 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
         costs["the per-call lookup it replaced"] = us(lambda: getattr(
             _cuda.library("ell_edge_conv"),
             f"ell_edge_conv_sum_fwd_{ell._DTYPES[p.dtype]}"))
+        # the Function's step that sends an export trace to the custom op
+        # (ops/library.py), paid by every eager call around the wrapper
+        costs["the Function's export check (torch.compiler.is_exporting)"] \
+            = us(torch.compiler.is_exporting)
     say("K1", f"host cost of a wrapper call on {tuple(p.shape)} "
-        f"{p.dtype}, us: whole call {whole:.2f}" + "".join(
+        f"{p.dtype}, us: whole call {whole:.2f}, through the autograd "
+        f"Function as predict calls it (ell_edge_conv_sum, inference mode) "
+        f"{entry:.2f}" + "".join(
             f", {k} {val:.2f}" for k, val in costs.items()))
     return whole
 
@@ -3781,9 +3804,10 @@ def serving_hostile(torch, card, model, weights):
     servers = {"plain": SceneInpainter(model, weights, device="cuda"),
                "windowed": SceneInpainter(model, weights, device="cuda",
                                           windowed=True)}
+    scenes = {}
     for kind in ("sphere", "terrain"):
         t0 = time.perf_counter()
-        scene = hostile_scene(HOSTILE_VERTICES, kind)
+        scene = scenes[kind] = hostile_scene(HOSTILE_VERTICES, kind)
         halos = [lv.edges.halo
                  for lv in servers["windowed"].build(scene).levels]
         say(phase, f"hostile_scene({HOSTILE_VERTICES}, {kind!r}) built in "
@@ -3809,6 +3833,267 @@ def serving_hostile(torch, card, model, weights):
         check(err <= PATH_TOL, f"{phase} {kind}: windowed vs plain max "
               f"|diff| {err:.3e} > {PATH_TOL}")
         say(phase, f"{kind}: windowed against plain max |diff| {err:.3e}")
+    return scenes
+
+
+# --- graph-partition serving on an in-process mesh --------------------------
+
+PART_COUNTS = (1, 2, 4)     # partitions of the in-process mesh
+PART_RTOL, PART_ATOL = 1e-4, 1e-5   # f32 partitioned vs predict (JAX's)
+# bf16 partitioned vs bf16 predict: both round every op to bf16, in other
+# orders (the norm's sums, the slots of a row), amplified through 15 blocks;
+# flagship width at 4096 vertices on the CPU: mean 0.012, max 0.091
+PART_BF16_MEAN_TOL, PART_BF16_MAX_TOL = 0.03, 0.25
+PART_REPS = 5               # timed predict_partitioned calls a P
+
+
+def k1_call_bound(torch, p, q, nbr, deg):
+    """(bytes, operations) one K1 forward call's data needs: deg and out
+    for every row, the live slots of nbr, p of each row with an edge, q of
+    each sender once."""
+    v, h = p.shape
+    es = p.element_size()
+    live = torch.arange(nbr.shape[1], device=deg.device) < deg[:, None]
+    slots = int(live.sum())
+    senders = int(torch.unique(nbr[live]).numel())
+    receivers = int(torch.count_nonzero(deg))
+    return (4 * (v + slots) + es * (v * h + h * (receivers + senders)),
+            3 * h * slots)
+
+
+def time_partitioned(torch, server, scene, reps):
+    """`server.predict_partitioned(scene)` end to end by the host clock
+    (median of `reps` after a warm call), then its steps one by one, each
+    run to its end: host partition build, place, forward (all partitions,
+    gathered), copy back and reorder. Returns (ms, {step: ms})."""
+    server.predict_partitioned(scene)
+    e2e = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        server.predict_partitioned(scene)
+        e2e.append((time.perf_counter() - t) * 1e3)
+    steps = {"partition build": [], "place": [], "forward": [],
+             "copy back": []}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pg, info = server.build_partitioned(scene)
+        t1 = time.perf_counter()
+        graphs = server.place_partitioned(pg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = server.forward_partitioned(graphs)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu().numpy()[info.new_id[0]]
+        t4 = time.perf_counter()
+        for k, a, b in (("partition build", t0, t1), ("place", t1, t2),
+                        ("forward", t2, t3), ("copy back", t3, t4)):
+            steps[k].append((b - a) * 1e3)
+    return statistics.median(e2e), {k: statistics.median(v)
+                                    for k, v in steps.items()}
+
+
+def partitioned_phase(torch, card, model, weights, scenes, flagship_scene):
+    """Phase 18: `SceneInpainter.predict_partitioned` of the flagship f32
+    model on an in-process mesh of 1, 2 and 4 partitions on the card (the
+    terrain, and the sphere, whose vertex order makes every hop's halo wide),
+    then the bf16 model on the terrain. For each P: the K1 calls of one
+    plain-path call recorded; the kernel path's launches counted around one
+    call (K1 = the recorded calls, q of more rows than p at P > 1; K2 and K3
+    none: the partitioned norm is summed across partitions); every recorded
+    call replayed on K1, bitwise its plain version, and timed; the output
+    within PART_RTOL / PART_ATOL of `predict`; ms end to end with the
+    host partition build's share, the device forward by CUDA events, beside
+    `predict`'s. The flagship's synthetic scene is refused (a level-0
+    cluster of more than 128 children), as the JAX package refuses it.
+    Returns the kernels-line row of K1 on the halo layout (P = 4, terrain)."""
+    import numpy as np
+    from stinet_tpu_torch.graph.partition import partition_hierarchy
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.ops import ell
+    from stinet_tpu_torch.parallel.mesh import make_mesh
+    from stinet_tpu_torch.serving import SceneInpainter
+    phase = "partitioned"
+    t_phase = time.perf_counter()
+    try:
+        partition_hierarchy(flagship_scene, 2)
+        raise RuntimeError("the flagship scene partitioned; expected the "
+                           "children cap to refuse it")
+    except ValueError as e:
+        say(phase, f"flagship synthetic scene refused, as JAX's: {e}")
+    counters = dict(_train_counters(), **_counters())
+    row = None
+    for dtype in (None, torch.bfloat16):
+        m = model if dtype is None else define_G(
+            **FLAGSHIP, dtype=dtype, generator=torch.Generator().manual_seed(0))
+        tag = "f32" if dtype is None else "bf16"
+        plain = SceneInpainter(m, weights, device="cuda")
+        kinds = ("terrain", "sphere") if dtype is None else ("terrain",)
+        for kind in kinds:
+            scene = scenes[kind]
+            ref = plain.predict(scene)
+            p_ms, p_split = time_predict(torch, plain, scene, PART_REPS)
+            say(phase, f"{kind} {tag}: predict {p_ms:.2f} ms/scene "
+                f"({p_split}); on {card}")
+            for n_parts in PART_COUNTS:
+                if kind == "sphere" and n_parts == 1:
+                    continue
+                mesh = make_mesh(n_parts, "cuda")
+                server = SceneInpainter(m, weights, device="cuda", mesh=mesh)
+                recorder = SceneInpainter(m, weights, device="cuda",
+                                          mesh=mesh, impl="plain")
+                with record_calls({"k1": (ell, "ell_edge_conv_sum_plain")}
+                                  ) as calls:
+                    recorder.predict_partitioned(scene)
+                    torch.cuda.synchronize()
+                k1_calls = calls["k1"]
+                _zero(counters)
+                out = server.predict_partitioned(scene)
+                got = _read(counters)
+                check(got["k1"] == len(k1_calls) > 0 and got["k1"] % n_parts
+                      == 0, f"{phase} {kind} {tag} P={n_parts}: K1 launched "
+                      f"{got['k1']} times, {len(k1_calls)} calls recorded")
+                check(all(v == 0 for k, v in got.items() if k != "k1"),
+                      f"{phase} {kind} {tag} P={n_parts}: launches {got}")
+                ragged = [c for c in k1_calls if c[1].shape[0] > c[0].shape[0]]
+                check(n_parts == 1 or len(ragged) == len(k1_calls),
+                      f"{phase}: {len(k1_calls) - len(ragged)} K1 calls at "
+                      f"P={n_parts} with q no longer than p")
+                err = 0.0
+                for i, (p, q, nbr, deg) in enumerate(k1_calls):
+                    a = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+                    b = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
+                    torch.cuda.synchronize()
+                    err = max(err, float((a.float() - b.float()).abs().max()))
+                    view = torch.int16 if a.dtype == torch.bfloat16 \
+                        else torch.int32
+                    check(torch.equal(a.view(view), b.view(view)),
+                          f"{phase} {kind} {tag} P={n_parts}: K1 call {i} "
+                          f"p {tuple(p.shape)} q {tuple(q.shape)} differs "
+                          "from its plain version")
+                check_output(out, scene.num_vertices[0],
+                             f"{phase} {kind} {tag} P={n_parts}")
+                diff = np.abs(out - ref)
+                if dtype is None:
+                    worst = float((diff / (PART_ATOL + PART_RTOL
+                                           * np.abs(ref))).max())
+                    check(worst <= 1.0, f"{phase} {kind} P={n_parts}: max "
+                          f"|diff| {diff.max():.3e} beyond rtol {PART_RTOL} "
+                          f"atol {PART_ATOL} of predict ({worst:.2f}x)")
+                    agree = (f"within rtol {PART_RTOL} atol {PART_ATOL} of "
+                             f"predict (max |diff| {diff.max():.3e}, "
+                             f"{worst:.2f} of the tolerance)")
+                else:
+                    check(diff.mean() <= PART_BF16_MEAN_TOL
+                          and diff.max() <= PART_BF16_MAX_TOL,
+                          f"{phase} {kind} bf16 P={n_parts}: |diff| mean "
+                          f"{diff.mean():.3e} max {diff.max():.3e} against "
+                          f"bf16 predict")
+                    agree = (f"against bf16 predict |diff| mean "
+                             f"{diff.mean():.3e} (<= {PART_BF16_MEAN_TOL}), "
+                             f"max {diff.max():.3e} (<= {PART_BF16_MAX_TOL})")
+                ms, split = time_partitioned(torch, server, scene, PART_REPS)
+                graphs = server.place_partitioned(
+                    server.build_partitioned(scene)[0])
+                fwd = median_ms(torch,
+                                lambda: server.forward_partitioned(graphs),
+                                reps=10, inner=1)
+                k1_ms = median_ms(torch, lambda: [
+                    ell.ell_edge_conv_sum_kernel(*c) for c in k1_calls],
+                    reps=10, inner=1)
+                halo = [c[1].shape[0] - c[0].shape[0] for c in k1_calls]
+                say(phase, f"{kind} {tag} P={n_parts}: K1 {got['k1']} "
+                    f"launches, each call bitwise its plain version, q rows "
+                    f"beyond p's {min(halo)}-{max(halo)}; {agree}; "
+                    f"{ms:.2f} ms/scene end to end (predict {p_ms:.2f}), "
+                    f"host partition build {split['partition build']:.2f} ms "
+                    f"= {split['partition build'] / ms:.1%}; by step: "
+                    + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+                    + f"; device forward {fwd:.3f} ms, its K1 calls "
+                    f"{k1_ms:.3f} ms; on {card}")
+                if dtype is None and kind == "terrain" and n_parts == 4:
+                    plain_ms = median_ms(torch, lambda: [
+                        ell.ell_edge_conv_sum_plain(*c) for c in k1_calls],
+                        reps=5, inner=1)
+                    nbytes = ops = 0
+                    for c in k1_calls:
+                        b_, o_ = k1_call_bound(torch, *c)
+                        nbytes, ops = nbytes + b_, ops + o_
+                    b_ms, b_by = bound(nbytes, ops)
+                    row = dict(launches=got["k1"], max_abs_err=err, ms=k1_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+                del server, recorder, graphs, k1_calls
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms for the block (the spill's
+    `index_add_` then sums in one order, so two forwards give the same
+    bits; an op without a deterministic version warns), then the process's
+    setting as it was."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def export_phase(torch, card, model, weights, scene):
+    """Phase 19: `SceneInpainter.export` of the flagship f32 server, plain
+    (K1 and K2 enter the program as the custom ops of ops/library.py) and
+    windowed (K3b too), reloaded by `utils/model_io.load_serving` and
+    called on the placed graph: the exported forward's launches counted
+    around one call (each kernel as often as in the server's forward), its
+    output bitwise the server's forward on the same graph (torch's
+    deterministic algorithms on for both), the export's and the load's
+    seconds, a call's device time beside the server's forward."""
+    import tempfile
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.model_io import load_serving
+    phase = "export"
+    counters = dict(_train_counters(), **_counters())
+    with tempfile.TemporaryDirectory() as tmp:
+        for layout in ("plain", "windowed"):
+            server = SceneInpainter(model, weights, device="cuda",
+                                    windowed=layout == "windowed")
+            t0 = time.perf_counter()
+            path = server.export(scene, f"{tmp}/{layout}.pt2")
+            t1 = time.perf_counter()
+            fn = load_serving(path)
+            t2 = time.perf_counter()
+            graph = server.place(server._build_scene(scene)[0])
+            with deterministic(torch):
+                _zero(counters)
+                want = server.forward(graph)
+                torch.cuda.synchronize()
+                expect = _read(counters)
+                _zero(counters)
+                got = fn(graph)
+                torch.cuda.synchronize()
+                launched = _read(counters)
+                again = server.forward(graph)
+            check(launched == expect and launched["k1"] + launched["k3b"]
+                  > 0 and launched["k2"] > 0,
+                  f"{phase} {layout}: the exported forward launched "
+                  f"{launched}, the server's forward {expect}")
+            check(torch.equal(want, again), f"{phase} {layout}: two "
+                  "forwards differ under deterministic algorithms")
+            err = float((got - want).abs().max())
+            check(torch.equal(got, want), f"{phase} {layout}: the exported "
+                  f"forward differs from the server's (max |diff| {err:.3e})")
+            ms = median_ms(torch, lambda: fn(graph), reps=10, inner=1)
+            fwd = median_ms(torch, lambda: server.forward(graph), reps=10,
+                            inner=1)
+            say(phase, f"flagship {layout}: exported in {t1 - t0:.1f} s, "
+                f"loaded in {t2 - t1:.1f} s; launches {launched}, as the "
+                f"server's forward; output bitwise the server's forward; a "
+                f"call {ms:.3f} ms, the server's forward {fwd:.3f} ms; on "
+                f"{card}")
 
 
 def capture_k1_calls(torch):
@@ -4007,7 +4292,12 @@ def main(argv=None):
     # --- the offline preprocessing, texture optimization, hostile scenes
     preprocess_phase(torch, card, flagship)
     texture_phase(torch, card)
-    serving_hostile(torch, card, model, weights)
+    hostile = serving_hostile(torch, card, model, weights)
+
+    # --- graph-partition serving: predict_partitioned on an in-process mesh
+    part_row = partitioned_phase(torch, card, model, weights, hostile, scene)
+    # --- the forward exported with torch.export and reloaded
+    export_phase(torch, card, model, weights, scene)
 
     cu = "stinet_tpu_torch/ops/cuda/"
     kernels = [
@@ -4051,7 +4341,11 @@ def main(argv=None):
         dict(name="masked_instance_norm_multigraph", route="cuda",
              source=cu + "instance_norm.cu",
              replaces="stinet_tpu/ops/pallas/instance_norm.py:77",
-             launches=b_launches["k2mg"], **k2mg)]
+             launches=b_launches["k2mg"], **k2mg),
+        dict(name="ell_edge_conv_sum_partitioned", route="cuda",
+             source=cu + "ell_edge_conv.cu",
+             replaces="stinet_tpu/ops/pallas/gather_pipeline.py:102",
+             **part_row)]
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -24,13 +24,16 @@ checked for a shared layout.
 import dataclasses
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 
 def map_tensors(obj, fn):
     """Rebuild `obj` (a graph dataclass, tuple or dict of them) with `fn`
-    applied to every tensor leaf. None and Python scalars pass through."""
-    if isinstance(obj, torch.Tensor):
+    applied to every tensor leaf (a torch tensor, or a numpy array of a
+    host-side layout such as graph/partition.py's). None and Python
+    scalars pass through."""
+    if isinstance(obj, (torch.Tensor, np.ndarray)):
         return fn(obj)
     if dataclasses.is_dataclass(obj):
         return dataclasses.replace(obj, **{

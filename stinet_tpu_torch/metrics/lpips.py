@@ -136,11 +136,15 @@ def lpips_from_state_dict(state_dict) -> LPIPS:
 
 
 def lpips_from_file(path: str) -> LPIPS:
-    """LPIPS with the weights of a torch state-dict file."""
+    """LPIPS with the weights of a torch state-dict file, or of the JAX
+    package's converted `.msgpack` ({"variables", "lins"})."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "msgpack perceptual weights are the JAX package's format; "
-            "utils/convert_perceptual_weights.py is not ported (ROADMAP.md, "
-            "Queue 1 item 3): pass the torch state-dict file instead")
+        from stinet_tpu_torch.utils.convert import (
+            lpips_state_dict_from_jax_variables)
+        from stinet_tpu_torch.utils.convert_perceptual_weights import (
+            load_msgpack)
+        tree = load_msgpack(path)
+        return lpips_from_state_dict(lpips_state_dict_from_jax_variables(
+            tree["variables"], tree.get("lins") or None))
     return lpips_from_state_dict(
         torch.load(path, map_location="cpu", weights_only=True))

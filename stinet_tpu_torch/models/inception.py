@@ -271,11 +271,15 @@ def load_inception_weights(model: InceptionV3, state_dict) -> InceptionV3:
 
 
 def inception_from_file(path: str, **kw) -> InceptionV3:
-    """InceptionV3 with the weights of a torch state-dict file."""
+    """InceptionV3 with the weights of a torch state-dict file, or of the
+    JAX package's converted `.msgpack` ({"params", "batch_stats"})."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "msgpack perceptual weights are the JAX package's format; "
-            "utils/convert_perceptual_weights.py is not ported (ROADMAP.md, "
-            "Queue 1 item 3): pass the torch state-dict file instead")
+        from stinet_tpu_torch.utils.convert import (
+            inception_state_dict_from_jax_variables)
+        from stinet_tpu_torch.utils.convert_perceptual_weights import (
+            load_msgpack)
+        return load_inception_weights(
+            InceptionV3(**kw),
+            inception_state_dict_from_jax_variables(load_msgpack(path)))
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return load_inception_weights(InceptionV3(**kw), sd)

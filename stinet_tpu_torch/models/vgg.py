@@ -119,11 +119,14 @@ def vgg_from_state_dict(state_dict) -> VGG16Features:
 
 
 def vgg_from_file(path: str) -> VGG16Features:
-    """The trunk with the weights of a torch state-dict file."""
+    """The trunk with the weights of a torch state-dict file, or of the JAX
+    package's converted `.msgpack` ({"params"})."""
     if str(path).endswith(".msgpack"):
-        raise NotImplementedError(
-            "msgpack perceptual weights are the JAX package's format; "
-            "utils/convert_perceptual_weights.py is not ported (ROADMAP.md, "
-            "Queue 1 item 3): pass the torch state-dict file instead")
+        from stinet_tpu_torch.utils.convert import (
+            vgg_state_dict_from_jax_params)
+        from stinet_tpu_torch.utils.convert_perceptual_weights import (
+            load_msgpack)
+        return vgg_from_state_dict(
+            vgg_state_dict_from_jax_params(load_msgpack(path)))
     return vgg_from_state_dict(
         torch.load(path, map_location="cpu", weights_only=True))

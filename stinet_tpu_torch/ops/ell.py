@@ -50,6 +50,9 @@ class _EllEdgeConvSum(torch.autograd.Function):
     def forward(ctx, p, q, nbr, deg, rev_dst, out_degree, impl):
         ctx.impl = impl
         ctx.save_for_backward(p, q, nbr, deg, rev_dst, out_degree)
+        if impl is None and torch.compiler.is_exporting():
+            from stinet_tpu_torch.ops import library
+            return library.ell_edge_conv_sum(p, q, nbr, deg)
         if _cuda.use_kernel(p, impl):
             return ell_edge_conv_sum_kernel(p, q, nbr, deg)
         return ell_edge_conv_sum_plain(p, q, nbr, deg)

@@ -61,6 +61,11 @@ class _InstanceNorm(torch.autograd.Function):
         ctx.eps, ctx.num_graphs = eps, num_graphs
         ctx.save_for_backward(x, torch.as_tensor(num_valid, device=x.device),
                               graph_id)
+        if impl is None and torch.compiler.is_exporting():
+            from stinet_tpu_torch.ops import library
+            return library.masked_instance_norm(
+                x, graph_id, num_graphs,
+                torch.as_tensor(num_valid, device=x.device), eps)
         if not _cuda.use_kernel(x, impl):
             return masked_instance_norm_plain(x, graph_id, num_graphs,
                                               num_valid, eps)

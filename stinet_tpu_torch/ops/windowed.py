@@ -411,6 +411,10 @@ class WindowedEdgeConvSum(torch.autograd.Function):
                 impl=None):
         ctx.halo, ctx.tile, ctx.impl = halo, tile, impl
         ctx.save_for_backward(p, q, nbr, rev_dst, deg_in, deg_out)
+        if impl is None and torch.compiler.is_exporting():
+            from stinet_tpu_torch.ops import library
+            return library.windowed_edge_conv_sum(
+                p, q, nbr, deg_in, halo, tile).to(p.dtype)
         return windowed_edge_conv_sum(p, q, nbr, deg_in, halo, tile, "relu",
                                       impl).to(p.dtype)
 
@@ -436,6 +440,10 @@ class WindowedEdgeConvSumF32(torch.autograd.Function):
                 impl=None):
         ctx.impl = impl
         ctx.save_for_backward(p, q, nbr, deg_in, rev_dst, deg_out)
+        if impl is None and torch.compiler.is_exporting():
+            from stinet_tpu_torch.ops import library
+            return library.windowed_edge_conv_sum_f32(p, q, nbr, deg_in,
+                                                      halo, tile)
         return windowed_edge_conv_sum_f32(p, q, nbr, deg_in, halo, tile, impl)
 
     @staticmethod

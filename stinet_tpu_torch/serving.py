@@ -20,7 +20,15 @@ device in ONE copy, runs the generator and returns the valid level-0 rows.
     scene and a delayed, non-blocking copy back, with `stream_stats`;
   * `warmup`, which serves each distinct signature of a set of
     representative scenes once (kernels built and loaded, allocator caches
-    filled, table widths settled), and `from_checkpoint`.
+    filled, table widths settled), and `from_checkpoint`;
+  * serving over a mesh of partitions (`mesh=`, parallel/mesh.py):
+    `predict_partitioned` serves ONE full, uncropped scene split across the
+    mesh's partitions (graph/partition.py; a ring halo exchange before each
+    conv, parallel/sharded_stinet.py), the scale-out path for scenes beyond
+    one device, where the reference crops offline; on a process mesh,
+    `predict_batch` serves each rank its round-robin share of the scenes
+    and gathers the results back in input order. `predict`,
+    `predict_stream` and `warmup` are the plain server's.
 
 Host to device: only the leaves the inference forward reads are copied,
 packed into one pinned buffer (`PackedPlacer`, which the trainer's placement
@@ -31,9 +39,12 @@ convolution) in full f32, with TF32 off (`full_f32_matmuls`), since TF32
 would move the numbers away from the JAX f32 model's. The process's own
 settings are restored after each forward.
 
-Not ported: serving over a mesh (`mesh=`, `predict_partitioned`),
-`export`, `num_compiles` (eager torch keeps no compile cache) and the wire
-encodings of `stinet_tpu/transfer.py`.
+`export` writes the forward at one scene's bucket signature with
+torch.export (utils/model_io.py), to be run later without model code.
+
+Not ported: `num_compiles` (eager torch keeps no compile cache; it comes
+with the capture per bucket of CUDA graphs) and the wire encodings of
+`stinet_tpu/transfer.py` (they wait until the copy shows in a benchmark).
 """
 import collections
 import concurrent.futures
@@ -203,7 +214,7 @@ class PackedPlacer:
         """One non-blocking copy of a packed buffer to the device; returns
         the graph as views of the copy."""
         if self.device.type != "cuda":
-            return packed.graph.to(self.device)
+            return map_tensors(packed.graph, lambda t: t.to(self.device))
         src = self._pinned[packed.slot][:packed.total]
         event = torch.cuda.Event()
         if self._stream is None:
@@ -259,6 +270,17 @@ def _signature(graph: HierarchicalGraph):
         for lv in graph.levels)
 
 
+class _ServedForward(torch.nn.Module):
+    """The server's forward as a module: the generator's f32 output."""
+
+    def __init__(self, model: torch.nn.Module, impl: Optional[str]):
+        super().__init__()
+        self.model, self.impl = model, impl
+
+    def forward(self, graph: HierarchicalGraph) -> torch.Tensor:
+        return self.model(graph, impl=self.impl).float()
+
+
 class SceneInpainter:
     """Serve `model(graph)` over preprocessed scene hierarchies.
 
@@ -267,13 +289,20 @@ class SceneInpainter:
     builds (the windowed kernels) and returns colors in the scene's order.
     impl=None runs the CUDA kernels on a CUDA device; impl="plain" runs the
     plain torch versions there. The server keeps its own copy of `model`;
-    the caller's is left as it is.
+    the caller's is left as it is. mesh: a mesh of partitions
+    (parallel/mesh.py:make_mesh) on the server's device, for
+    `predict_partitioned` and, on a process mesh, `predict_batch`.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict, *,
                  windowed: bool = False, device="cuda",
-                 impl: Optional[str] = None):
+                 impl: Optional[str] = None, mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh is on {mesh.device}, the server on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self._sharded_apply = None   # built at the first predict_partitioned
         self.impl = impl
         self.windowed = windowed
         model = copy.deepcopy(model)
@@ -392,9 +421,32 @@ class SceneInpainter:
         stacked=True or "auto" takes the stacked layout; "auto" falls back
         to the concatenated one when the scenes cannot share a stacked
         layout, stacked=True raises then, and stacked=False forces the
-        concatenated layout."""
+        concatenated layout. On a process mesh of more than one rank the
+        stacked layouts are served a share a rank (every rank gets every
+        result); the concatenated layout is served whole on every rank."""
         if not scenes:
             return []
+        mesh = self.mesh
+        if stacked and mesh is not None and mesh.processes \
+                and mesh.n_parts > 1:
+            return self._predict_batch_sharded(scenes, stacked)
+        return self._predict_batch_local(scenes, stacked)
+
+    def _predict_batch_sharded(self, scenes, stacked):
+        """A process mesh's `predict_batch`: rank r serves scenes r, r + n,
+        r + 2n, ... (JAX's `local_scene_shard`, round robin) in one stacked
+        request, and every rank gets every result back in input order."""
+        mesh = self.mesh
+        mine = list(range(mesh.rank, len(scenes), mesh.n_parts))
+        outs = (self._predict_batch_local([scenes[i] for i in mine], stacked)
+                if mine else [])
+        results = [None] * len(scenes)
+        for rank, got in enumerate(mesh.all_gather_object(outs)):
+            for i, out in zip(range(rank, len(scenes), mesh.n_parts), got):
+                results[i] = out
+        return results
+
+    def _predict_batch_local(self, scenes, stacked):
         if stacked:
             try:
                 host, orders = self._build_stacked(scenes)
@@ -415,6 +467,49 @@ class SceneInpainter:
             results.append(_scene_order(out[off:off + n], order))
             off += n
         return results
+
+    def predict_partitioned(self, scene: RawHierarchy) -> np.ndarray:
+        """Inpaint ONE full (uncropped) scene split across the mesh's
+        partitions: vertices owned by coarsest-level ranges
+        (graph/partition.py, built on the host), a ring halo exchange of Q
+        before each conv (parallel/sharded_stinet.py). Returns
+        [num_vertices, output_nc] colors in the scene's vertex order, on
+        every rank of a process mesh. Needs a mesh server and an
+        instance-norm EdgeConv model without label embedding."""
+        pg, info = self.build_partitioned(scene)
+        out = self.forward_partitioned(self.place_partitioned(pg))
+        return out.cpu().numpy()[info.new_id[0]]
+
+    def build_partitioned(self, scene: RawHierarchy):
+        """(partitioned host graph, PartitionInfo): the scene partitioned
+        over the mesh (`partition_hierarchy`), without the target colors
+        and mask, which the forward does not read."""
+        if self.mesh is None:
+            raise ValueError("predict_partitioned requires mesh=...")
+        from stinet_tpu_torch.graph.partition import partition_hierarchy
+        pg, info = partition_hierarchy(scene, self.mesh.n_parts)
+        return dataclasses.replace(pg, color=None, mask=None), info
+
+    def place_partitioned(self, pg):
+        """The mesh's partitions of this process on the device, in one
+        copy (parallel/sharded_stinet.py:place_partitioned)."""
+        from stinet_tpu_torch.parallel.sharded_stinet import (
+            place_partitioned)
+        return place_partitioned(self.mesh, pg, self._placer)
+
+    @torch.inference_mode()
+    def forward_partitioned(self, graphs) -> torch.Tensor:
+        """The partitioned generator on placed partitions, in f32: every
+        partition's [vp0, output_nc] rows in partition order, on every
+        rank."""
+        if self._sharded_apply is None:
+            from stinet_tpu_torch.parallel.sharded_stinet import (
+                make_sharded_stinet)
+            self._sharded_apply = make_sharded_stinet(self.mesh, self.model,
+                                                      self.impl)
+        with full_f32_matmuls():
+            outs = [o.float() for o in self._sharded_apply(graphs)]
+            return self.mesh.gather(outs)
 
     def predict_stream(self, scenes: Iterable[RawHierarchy]
                        ) -> Iterator[np.ndarray]:
@@ -542,6 +637,22 @@ class SceneInpainter:
                 if stacked and b > 1:
                     self.predict_batch(chunk, stacked=False)
         return len(seen)
+
+    def export(self, scene: RawHierarchy, out_path: str) -> str:
+        """Export the forward at this scene's bucket signature (its build,
+        widths normalized, on the server's device) with torch.export
+        (utils/model_io.py:export_serving); `utils/model_io.py:
+        load_serving(out_path)` gives a callable that takes such a graph
+        (the leaves `inference_graph` keeps, on this device) and returns
+        the f32 output rows in the build's vertex order (a windowed
+        build's is the RCM order), without model code. The artifact is
+        torch.export's
+        format, not the JAX package's StableHLO. An export from a mesh
+        server is single-device, as in JAX."""
+        from stinet_tpu_torch.utils.model_io import export_serving
+        graph = self._inference_graph(self._build_scene(scene)[0])
+        return export_serving(_ServedForward(self.model, self.impl),
+                              (graph.to(self.device),), out_path)
 
     # -- construction --------------------------------------------------
     @classmethod

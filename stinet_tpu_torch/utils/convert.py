@@ -3,8 +3,10 @@
 (`seg_state_dict_from_jax_params`), Resnet2D's and the GAN zoo's
 (`resnet2d_state_dict_from_jax_params`), and the 2D trainer's perceptual
 nets' (`inception_state_dict_from_jax_variables`,
-`lpips_state_dict_from_jax_variables`), so the port runs the random
-features a JAX trainer drew under `allow_random_features`.
+`lpips_state_dict_from_jax_variables`, `vgg_state_dict_from_jax_params`),
+so the port runs the random features a JAX trainer drew under
+`allow_random_features` and reads the `.msgpack` weights the JAX package
+converts (utils/convert_perceptual_weights.py).
 
 `state_dict_from_jax_params` is the inverse of the JAX package's
 `convert_stinet_state_dict` (stinet_tpu/utils/convert_reference_checkpoint
@@ -268,6 +270,28 @@ def lpips_state_dict_from_jax_variables(variables, lins=None
         out[f"alex.features.{ti}.bias"] = _tensor(leaves["bias"], False)
     for i, w in enumerate(lins or ()):
         out[f"lin{i}"] = _tensor(np.asarray(w).reshape(-1), False)
+    return out
+
+
+def vgg_state_dict_from_jax_params(variables) -> Dict[str, torch.Tensor]:
+    """Flax variables of the JAX package's VGG16 trunk (up to relu4_3) ->
+    the port's trunk state dict (models/vgg.py), the inverse of the JAX
+    package's `convert_torch_vgg16`:
+
+      conv_{i}/kernel  -> features.{0,2,5,...}[i].weight (HWIO -> OIHW)
+      conv_{i}/bias    -> features.{...}[i].bias
+
+    Anything else raises rather than being dropped."""
+    from stinet_tpu_torch.models.vgg import _TORCH_IDX
+    out = {}
+    for name, leaves in variables["params"].items():
+        kind, _, i = name.rpartition("_")
+        if kind != "conv" or not i.isdigit() or int(i) >= len(_TORCH_IDX) \
+                or set(leaves) != {"kernel", "bias"}:
+            raise ValueError(f"no port layer for VGG16 entry {name!r}")
+        ti = _TORCH_IDX[int(i)]
+        out[f"features.{ti}.weight"] = _hwio_to_oihw(leaves["kernel"])
+        out[f"features.{ti}.bias"] = _tensor(leaves["bias"], False)
     return out
 
 

@@ -1372,3 +1372,111 @@ def test_texture_optimization_on_the_card_matches_the_cpu(dev):
     np.testing.assert_allclose(g[1], c[1], rtol=0, atol=1e-6)
     np.testing.assert_allclose(g[0], c[0], rtol=0, atol=1e-4)
     assert not g[1][0].any()
+
+
+# --- graph-partition serving: K1 over the local-plus-halo sender space -------
+
+PART_TINY = dict(input_nc=10, output_nc=3, ngf=8, n_blocks=3,
+                 dilations=[1, 2, 4], norm="instance", pooling_type="max",
+                 n_levels=2, n_repeated_io_convs=1,
+                 filter_type="edgeconvtransinv")
+
+
+@pytest.mark.parametrize("n_parts", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ell_kernel_on_the_halo_layout_bitwise(dev, n_parts, dtype):
+    """K1 with q of Vp + S*W rows (more than p's) and nbr in the
+    local-plus-halo space of every partition's every edge set, as
+    `predict_partitioned` launches it: bit for bit the plain version."""
+    from stinet_tpu_torch.graph.partition import partition_hierarchy, shard
+    scene = synthetic_scene(num_vertices=3000, levels=3, seed=5,
+                            dilation_dists=(2, 4))
+    pg, _ = partition_hierarchy(scene, n_parts)
+    rng = np.random.default_rng(n_parts)
+    for lv in pg.levels:
+        for es in [lv.edges, *lv.dilated.values()]:
+            for p in range(n_parts):
+                e = shard(es, p, n_parts)
+                vp, h = e.nbr_halo.shape[0], 64
+                ext = vp + e.send_idx.shape[1] * e.send_idx.shape[2]
+                pt = _cuda_t(rng.normal(size=(vp, h)), dev).to(dtype)
+                qt = _cuda_t(rng.normal(size=(ext, h)), dev).to(dtype)
+                nbr, deg = _cuda_t(e.nbr_halo, dev), _cuda_t(e.degree, dev)
+                assert qt.shape[0] > pt.shape[0] or n_parts == 1
+                got = ell.ell_edge_conv_sum_kernel(pt, qt, nbr, deg)
+                want = ell.ell_edge_conv_sum_plain(pt, qt, nbr, deg)
+                torch.cuda.synchronize()
+                view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                assert torch.equal(got.view(view), want.view(view))
+
+
+@pytest.mark.parametrize("n_parts", [1, 2, 4])
+def test_predict_partitioned_on_the_card_matches_the_cpu(dev, n_parts):
+    """The in-process mesh on the card (K1 launched on the halo layout)
+    against the same mesh on the CPU's plain versions, and against the
+    card's own `predict`, within 1e-5 (the card's scatter adds are atomic
+    and sums run in other orders)."""
+    from stinet_tpu_torch.parallel.mesh import make_mesh
+    from stinet_tpu_torch.serving import SceneInpainter
+    scene = synthetic_scene(num_vertices=3000, levels=3, seed=5,
+                            dilation_dists=(2, 4))
+    model = define_G(**PART_TINY, generator=torch.Generator().manual_seed(2))
+    sd = model.state_dict()
+    card = SceneInpainter(model, sd, device=dev, mesh=make_mesh(n_parts, dev))
+    from stinet_tpu_torch.models.stinet import EdgeConvFilter
+    convs = sum(isinstance(m, EdgeConvFilter) for m in model.modules())
+    before = ell.ell_edge_conv_sum_kernel.launches
+    got = card.predict_partitioned(scene)
+    assert ell.ell_edge_conv_sum_kernel.launches - before == convs * n_parts
+    cpu = SceneInpainter(model, sd, device="cpu",
+                         mesh=make_mesh(n_parts, "cpu"))
+    np.testing.assert_allclose(got, cpu.predict_partitioned(scene),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got, card.predict(scene), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["f32", "bf16-windowed"])
+def test_exported_forward_on_the_card_equals_the_servers(dev, tmp_path,
+                                                        case):
+    """`SceneInpainter.export` on the card: the reloaded program launches
+    the kernels through the custom ops of ops/library.py (K1 and K2; K3a
+    for the bf16 windowed model) as often as the server's forward, and its
+    output is the forward's bit for bit (deterministic algorithms on, so
+    the spill's index_add_ sums in one order)."""
+    from stinet_tpu_torch.serving import SceneInpainter
+    from stinet_tpu_torch.utils.model_io import load_serving
+    widths, dtype, banded, n = {
+        "f32": (dict(ngf=8, n_blocks=2, dilations=[1, 2]), None, False, 600),
+        "bf16-windowed": (dict(ngf=64, n_blocks=1, dilations=[2]),
+                          torch.bfloat16, True, 4096)}[case]
+    model = define_G(input_nc=10, output_nc=3, filter_type="edgeconvtransinv",
+                     norm="instance", pooling_type="max", n_levels=2,
+                     n_repeated_io_convs=1, dtype=dtype,
+                     generator=torch.Generator().manual_seed(4), **widths)
+    scene = synthetic_scene(num_vertices=n, levels=3, seed=2,
+                            dilation_dists=(2, 4))
+    server = SceneInpainter(model, model.state_dict(), device=dev,
+                            windowed=banded)
+    fn = load_serving(server.export(scene, str(tmp_path / "served.pt2")))
+    graph = server.place(server._build_scene(scene)[0])
+    counters = [(ell.ell_edge_conv_sum_kernel, "launches"),
+                (norms.masked_instance_norm_kernel, "launches"),
+                (windowed.windowed_edge_conv_sum_kernel, "launches")]
+
+    def counted(call):
+        before = [getattr(f, a) for f, a in counters]
+        out = call()
+        torch.cuda.synchronize()
+        return out, [getattr(f, a) - b for (f, a), b in zip(counters,
+                                                            before)]
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want, expect = counted(lambda: server.forward(graph))
+        got, launched = counted(lambda: fn(graph))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert launched == expect and launched[0] > 0 and launched[1] > 0
+    assert (launched[2] > 0) == banded
+    assert torch.equal(got, want)

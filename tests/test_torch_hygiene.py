@@ -1,6 +1,6 @@
 """The port stands alone: stinet_tpu_torch and chip_smoke.py import neither
-JAX nor the JAX package, and entry points never quietly fall back to the
-CPU."""
+JAX nor the JAX package (nor msgpack, which the card's image lacks), and
+entry points never quietly fall back to the CPU."""
 import ast
 import pathlib
 import subprocess
@@ -18,7 +18,9 @@ PORT = ROOT / "stinet_tpu_torch"
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "stinet_tpu")
+    # msgpack: the card's image lacks it; the port decodes flax's format
+    # itself (utils/convert_perceptual_weights.py)
+    return top in ("jax", "jaxlib", "flax", "optax", "stinet_tpu", "msgpack")
 
 
 def _port_sources():
@@ -33,7 +35,7 @@ def test_import_leaves_jax_and_stinet_tpu_unloaded():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'stinet_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'stinet_tpu', 'msgpack'))\n"
         "print(len([m for m in sys.modules if m.startswith(pkg.__name__)]))\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

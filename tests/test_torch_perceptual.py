@@ -26,7 +26,8 @@ Tolerances:
 - VGGLoss: content and style within 1e-5 relative, and their gradient
   with respect to the prediction within 1e-4 of its largest (f32 through
   10 convolutions, the resize and the Gram matrices);
-- the converters: the round trip torch -> JAX -> port is bitwise.
+- the converters: the round trip torch -> JAX -> port is bitwise, and so
+  is torch -> the JAX package's `.msgpack` -> port.
 """
 import warnings
 
@@ -43,6 +44,7 @@ from stinet_tpu.metrics.lpips import (
 from stinet_tpu.models.inception import (
     InceptionV3 as JaxInceptionV3, convert_torch_state_dict)
 from stinet_tpu.models.vgg import VGGLoss as JaxVGGLoss, convert_torch_vgg16
+from stinet_tpu.utils.convert_perceptual_weights import _save as jax_save
 from stinet_tpu.ops import resize as jax_resize
 from stinet_tpu_torch.metrics import fid
 from stinet_tpu_torch.metrics.lpips import (
@@ -56,7 +58,7 @@ from stinet_tpu_torch.ops import resize
 from stinet_tpu_torch.serving import full_f32_matmuls
 from stinet_tpu_torch.utils.convert import (
     inception_state_dict_from_jax_variables,
-    lpips_state_dict_from_jax_variables)
+    lpips_state_dict_from_jax_variables, vgg_state_dict_from_jax_params)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -244,7 +246,8 @@ def test_inception_matches_jax(inception_weights, size, resize):
 
 def test_inception_loaders(tmp_path, inception_weights):
     """The converter's round trip is bitwise; a file loads, `fc.*` ignored;
-    a stray key raises; msgpack is refused."""
+    a stray key raises; the JAX package's `.msgpack` loads bitwise the
+    `.pth` it was converted from."""
     sd, variables = inception_weights
     back = inception_state_dict_from_jax_variables(
         jax.tree.map(np.asarray, variables))
@@ -262,8 +265,11 @@ def test_inception_loaders(tmp_path, inception_weights):
     with pytest.raises(ValueError, match="Mixed_5b/bogus"):
         inception_state_dict_from_jax_variables({"params": {"Mixed_5b": {
             "bogus": np.zeros(3)}}, "batch_stats": {}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        inception_from_file(str(tmp_path / "w.msgpack"))
+    # the JAX package's converted file, written by its own `_save`
+    msgpack = tmp_path / "inception.msgpack"
+    jax_save(convert_torch_state_dict(sd), str(msgpack))
+    for k, v in inception_from_file(str(msgpack)).state_dict().items():
+        assert torch.equal(v, model.state_dict()[k]), k
 
 
 # --- LPIPS -------------------------------------------------------------------
@@ -306,7 +312,8 @@ def test_lpips_matches_jax(size, heads):
 def test_lpips_key_layouts_converters_and_refusals(tmp_path):
     """Every torch layout `convert_torch_lpips` reads gives one model; the
     port's own state dict and JAX's random features carry across; small
-    images, a missing conv and msgpack are refused."""
+    images and a missing conv are refused; the JAX package's `.msgpack`
+    loads bitwise the torch weights it was converted from."""
     alex, lins = lpips_state_dicts()
     want = lpips_from_state_dict(dict(alex, **lins)).state_dict()
     bare = {k[len("features."):]: v for k, v in alex.items()}
@@ -340,8 +347,22 @@ def test_lpips_key_layouts_converters_and_refusals(tmp_path):
         LPIPS()(torch.zeros(1, 31, 40, 3), torch.zeros(1, 31, 40, 3))
     with pytest.raises(KeyError, match="conv 0"):
         lpips_from_state_dict({})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        lpips_from_file(str(tmp_path / "w.msgpack"))
+    # the JAX package's converted files (with and without the heads),
+    # written by its own `_save` as its converter's `main` writes them
+    for heads in (lins, None):
+        variables, jlins = convert_torch_lpips(
+            {k: v.numpy() for k, v in alex.items()},
+            heads and {k: v.numpy() for k, v in heads.items()})
+        msgpack = tmp_path / "lpips.msgpack"
+        jax_save({"variables": variables,
+                  "lins": [np.asarray(w) for w in (jlins or [])]},
+                 str(msgpack))
+        src = lpips_from_state_dict(dict(alex, **(heads or {})))
+        got = lpips_from_file(str(msgpack))
+        assert got.has_lins == (heads is not None)
+        assert sorted(got.state_dict()) == sorted(src.state_dict())
+        for k, v in src.state_dict().items():
+            assert torch.equal(got.state_dict()[k], v), k
 
 
 # --- resize_right and the VGG16 loss ----------------------------------------
@@ -422,5 +443,13 @@ def test_vgg_loaders(tmp_path):
             assert torch.equal(got[k], v), k
     with pytest.raises(KeyError, match="index 0"):
         vgg_from_state_dict({})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        vgg_from_file(str(tmp_path / "w.msgpack"))
+    # the JAX package's converted file, written by its own `_save`
+    msgpack = tmp_path / "vgg.msgpack"
+    jax_save(convert_torch_vgg16({k: v.numpy() for k, v in sd.items()}),
+             str(msgpack))
+    got = vgg_from_file(str(msgpack)).state_dict()
+    assert sorted(got) == sorted(sd)
+    for k, v in sd.items():
+        assert torch.equal(got[k], v), k
+    with pytest.raises(ValueError, match="VGG16 entry 'fc'"):
+        vgg_state_dict_from_jax_params({"params": {"fc": {}}})
