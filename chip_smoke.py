@@ -115,6 +115,12 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    step (device busy ms, launches, idle share, top 8 ops); a resume for
    one more epoch (state and Adam state bitwise the file's) and
    `-e valid`; the phase's wall time;
+8b'. stacked-seg: the same config and scenes for one epoch at batch 1,
+   concatenated and stacked (`make_stacked_segmentation_steps`) from the
+   same weights under deterministic algorithms: each step's loss and the
+   val loss within STACKED_SEG_TOL, the IoU keys within
+   STACKED_SEG_IOU_TOL, the weights' and statistics' differences and both
+   trainers' ms/step;
 8c. inpainting2d: the CLI trains the hermetic 2D config (STINet with
    edgeconv over 128 x 128 image grid graphs, ngf 64, 9 blocks, f32, B=4;
    LPIPS every batch and FID on random features) with the cuts listed in
@@ -157,6 +163,12 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    resume (both models and Adam states bitwise the file's) and `-e
    valid`; then `metrics/fid_cli.py` on the card from gz UV maps and .npz
    statistics; the phase's wall time;
+8e. stacked-2d: the hermetic 2D config, graph branch and
+   Resnet2D with its PatchGAN, one epoch of 4 steps stacked and
+   concatenated from the same weights: the first step's loss within
+   STACKED_2D_TOL, the later ones and the val loss within
+   STACKED_2D_LATER_TOL, the graph branch's kernels launched one image a
+   graph, ms/step of both;
 9. serving-windowed: the flagship f32 server with windowed=True on phase
    5's build; every K3b call of one plain-path forward held bit for bit
    against its plain version and against f32 K1 on the same inputs, each
@@ -206,6 +218,15 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    stacked step on its batch, the first loss within TRAIN_TOL of that
    step's; the trainer's clock, the loader's ms, the wait, the step by
    CUDA events and peak memory;
+14b. dp-training: the same config and scenes trained by DP_RANKS gloo
+   ranks on the one card (spawned processes, each rank one scene of every
+   global batch of 2, the gradients summed in one all_reduce a step):
+   each rank's K3a, K3c, bf16 K1, dp, dq and K2 launched, both ranks'
+   weights bitwise alike, each step's loss within DP_TOL of phase 14's,
+   the ranks' ms/step beside phase 14's; then one epoch through
+   `torch.distributed.run --standalone --nproc_per_node 1` (NCCL at world
+   size 1) and through the plain CLI, both --deterministic: weights and
+   Adam state bitwise alike;
 15. preprocess: two rooms of PREP_VERTICES source vertices
    (utils/synthetic_sensor.py:room_mesh, the terrain scaled to 8 m x 8 m,
    seeds 0 and 1) written as the ScanNet scans of a train and a val scene,
@@ -241,12 +262,21 @@ Phases, each printed as it ends; any failure raises and exits nonzero:
    PART_RTOL / PART_ATOL of `predict` (bf16: PART_BF16_MEAN_TOL and
    PART_BF16_MAX_TOL), ms end to end and by step with the host partition
    build's share, the device forward and its K1 calls, beside `predict`;
+18b. partitioned-training: `make_sharded_train_step` of the flagship f32
+   model on the terrain at PART_COUNTS partitions and of the bf16 model at
+   2, on in-process meshes: every dp and dq call of a plain-path step
+   replayed on its kernel bitwise (dq's q of Vp + S*W rows, more than g's),
+   the kernel path's K1, dp and dq launches equal to the recorded calls,
+   the loss and every gradient within PT_RTOL / PT_GRAD_RTOL /
+   PT_GRAD_ATOL of the single-device step's (bf16: PT_BF16_*), ms/step
+   beside the single-device step's;
 19. export: `SceneInpainter.export` of the flagship, plain and windowed,
    reloaded by `utils/model_io.load_serving`: launches as the server's
    forward, output bitwise its, export and load seconds, a call's time.
 
 The last two lines are the kernel record (a row for K1 on phase 18's
-halo layout at P = 4 besides phase 3's; K3 rows also carry
+halo layout at P = 4 besides phase 3's, and rows for dp and dq on phase
+18b's at P = 4 besides phase 6's; K3 rows also carry
 `k1_same_inputs_ms`, K1's time on the same inputs; K1 and K3 rows
 `device_ms`, the card-alone time, and `host_us`, the host's time a call)
 and the result, one JSON object each. Without a CUDA card the script exits
@@ -2221,8 +2251,107 @@ def segmentation_phase(torch, card):
             f"{eval_s:.2f} s for {len(evaluator.data_loader.val_dataset)} "
             f"scene(s), the trainer's construction included")
         del evaluator
-    say("segmentation", f"phase wall time {time.perf_counter() - t_phase:.1f}"
-        f" s; on {card}")
+        say("segmentation", f"phase wall time "
+            f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+        stacked_seg_phase(torch, card, tmp, roots)
+
+
+STACKED_SEG_TOL = 1e-4      # losses, stacked vs concatenated at B = 1
+STACKED_SEG_IOU_TOL = 0.02  # IoU keys: a vertex may take the other class
+
+
+def stacked_seg_phase(torch, card, tmp, roots):
+    """Phase 8b', stacked-seg: the segmentation phase's config and scenes
+    for one epoch at train and test batch 1, concatenated and with
+    `stacked_batching` (make_stacked_segmentation_steps), from the same
+    seeded weights under torch's deterministic algorithms: every step's
+    graph one stacked scene, each step's loss and the val loss within
+    STACKED_SEG_TOL (at B = 1 a scene's own batch statistics are the
+    batch's; the two steps associate their sums otherwise), the IoU keys
+    within STACKED_SEG_IOU_TOL; the weights' and running statistics' max
+    |diff| and both trainers' ms/step."""
+    from stinet_tpu_torch.core.config import ConfigParser
+    from stinet_tpu_torch.trainers.segmentation import (
+        GraphSegmentationTrainer)
+    phase = "stacked-seg"
+    t0 = time.perf_counter()
+    out = {}
+    for stacked in (False, True):
+        cfg = trainer_config(tmp / f"seg_stacked_{stacked}.json", roots,
+                             tmp / "saved_stacked", SEG_CONFIG, 1,
+                             stacked_batching=stacked, train_batch_size=1,
+                             test_batch_size=1)
+        with deterministic(torch):
+            trainer = GraphSegmentationTrainer(
+                ConfigParser(cfg, dry_run=True), device="cuda")
+            check(trainer._stacked == stacked, f"{phase}: the trainer's "
+                  f"layout is not the loader's (stacked={stacked})")
+            losses, shapes, step = [], [], trainer._train_step
+            events = []
+
+            def recorded(graph, lr, step=step, losses=losses, shapes=shapes,
+                         events=events):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                res = step(graph, lr)
+                ev[1].record()
+                events.append(ev)
+                losses.append(float(res[0]["loss"]))
+                shapes.append((tuple(graph.x.shape),
+                               tuple(graph.levels[0].edges.src.shape)))
+                return res
+
+            trainer._train_step = recorded
+            log = trainer._train_epoch(1)
+            torch.cuda.synchronize()
+        t = trainer.epoch_timings[0]
+        out[stacked] = dict(log=log, losses=losses, shapes=shapes,
+                            ms=t["train_s"] * 1e3 / t["steps"],
+                            step_ms=[a.elapsed_time(b) for a, b in events],
+                            build_ms=list(trainer.data_loader.train_loader
+                                          .build_ms),
+                            state={k: v.detach().float().clone() for k, v in
+                                   trainer.model.state_dict().items()})
+        del trainer
+    cat, st = out[False], out[True]
+    check(all(len(x) == 3 and x[0] == 1 for x, _ in st["shapes"]),
+          f"{phase}: stacked batches {st['shapes']}")
+    check(len(st["losses"]) == len(cat["losses"]) > 0,
+          f"{phase}: {len(st['losses'])} and {len(cat['losses'])} steps")
+    rel = [abs(a - b) / abs(b) for a, b in zip(st["losses"], cat["losses"])]
+    check(max(rel) <= STACKED_SEG_TOL, f"{phase}: losses {st['losses']} "
+          f"against concatenated {cat['losses']}")
+    for k, v in cat["log"].items():
+        if k.removeprefix("val_") in ("mean_iou", "mean_precision",
+                                      "overall_accuracy",
+                                      "full_scene_mean_iou"):
+            check(abs(st["log"][k] - v) <= STACKED_SEG_IOU_TOL,
+                  f"{phase}: {k} {st['log'][k]} against {v}")
+        elif k in ("loss", "val_loss"):
+            check(abs(st["log"][k] - v) <= STACKED_SEG_TOL * abs(v),
+                  f"{phase}: {k} {st['log'][k]} against {v}")
+    stats = max(float((st["state"][k] - v).abs().max())
+                for k, v in cat["state"].items()
+                if k.endswith(("running_mean", "running_var")))
+    weights = max(float((st["state"][k] - v).abs().max())
+                  for k, v in cat["state"].items()
+                  if not k.endswith(("running_mean", "running_var")))
+    say(phase, f"B=1, one epoch ({len(st['losses'])} steps): stacked losses "
+        f"{[round(x, 6) for x in st['losses']]} against concatenated "
+        f"{[round(x, 6) for x in cat['losses']]} (relative up to "
+        f"{max(rel):.2e} <= {STACKED_SEG_TOL}); val loss "
+        f"{st['log']['val_loss']:.6f} against {cat['log']['val_loss']:.6f}; "
+        f"val_full_scene_mean_iou {st['log'].get('val_full_scene_mean_iou')}"
+        f" against {cat['log'].get('val_full_scene_mean_iou')}; max |diff| "
+        f"weights {weights:.3e}, running statistics {stats:.3e}; on {card}")
+    fmt = ", ".join
+    for tag, r in (("stacked", st), ("concatenated", cat)):
+        say(phase, f"{tag}: trainer clock {r['ms']:.2f} ms/step; step by "
+            f"CUDA events {fmt(f'{x:.2f}' for x in r['step_ms'])} ms; loader "
+            f"build {fmt(f'{x:.2f}' for x in r['build_ms'])} ms a batch "
+            f"(deterministic algorithms on); a batch's x and level-0 edge "
+            f"list {r['shapes'][0]}; on {card}")
+    say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s")
 
 
 # --- the 2D texture-inpainting workload, graph branch -------------------------
@@ -3207,7 +3336,305 @@ def trainer_stacked_phase(torch, card):
             f"step {probe.launches[0]} (two scenes), equal to the plain "
             f"path's recorded calls; val loss {val['loss']:.6f}")
         trainer_readings(phase, trainer, probe, card)
+        baseline = dict(
+            losses=losses, step_ms=probe.step_ms(),
+            clock=[t["train_s"] * 1e3 / t["steps"]
+                   for t in trainer.epoch_timings],
+            state={k: v.detach().cpu().clone()
+                   for k, v in trainer.model.state_dict().items()})
+        del trainer, probes, probe
+        say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on "
+            f"{card}")
+        dp_training_phase(torch, card, tmp, roots, baseline)
+
+
+# --- data-parallel training across processes ---------------------------------
+
+DP_RANKS = 2                # gloo ranks on the one card
+DP_TOL = 1e-3               # each step's loss, 2 ranks vs one process (Adam)
+DP_TIMEOUT = 600            # seconds the ranks may take together
+
+
+def _dp_rank(rank, world, port, cfg_path, out_dir):
+    """One rank of the dp-training phase (spawned): the gloo group on the
+    card (cuda:0), the CLI on the stacked bf16 config, its kernels' launches
+    and each step's probe written to out_dir/rank{rank}.pt."""
+    import hashlib
+    import torch
+    import torch.distributed as dist
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    multihost.initialize(f"tcp://localhost:{port}", world, rank, "gloo")
+    try:
+        counters = _train_counters()
+        _zero(counters)
+        with probed_trainer(torch) as (probes, _):
+            trainer = cli.main(["-c", cfg_path, "-d", "cuda:0", "-n",
+                                f"dp{rank}"])
+        torch.cuda.synchronize()
+        probe = probes[0]
+        state = {k: v.detach().cpu() for k, v in
+                 trainer.model.state_dict().items()}
+        digest = hashlib.sha256()
+        for k in sorted(state):
+            digest.update(state[k].contiguous().view(torch.uint8).numpy()
+                          .tobytes())
+        torch.save(dict(
+            launches=_read(counters), per_step=probe.launches,
+            losses=[float(x) for x in probe.losses],
+            rows=[int(g.x.shape[0]) for g in probe.graphs],
+            step_ms=probe.step_ms(),
+            clock=[t["train_s"] * 1e3 / t["steps"]
+                   for t in trainer.epoch_timings],
+            mesh=None if trainer._mesh is None else trainer._mesh.n_parts,
+            digest=digest.hexdigest(), state=state if rank == 0 else None,
+            val_loss=trainer.valid_metrics.result()["loss"],
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),
+            str(pathlib.Path(out_dir) / f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(torch, fn, world, args, timeout):
+    """fn(rank, world, *args) in `world` spawned processes; raises if one
+    fails or they outlast `timeout` seconds (the processes killed)."""
+    ctx = torch.multiprocessing.spawn(fn, args=(world, *args), nprocs=world,
+                                      join=False)
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=2):
+            check(time.monotonic() < deadline,
+                  f"{world} ranks still running after {timeout} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+
+
+def dp_training_phase(torch, card, tmp, roots, baseline):
+    """Phase 14b, dp-training: the trainer-stacked phase's config and
+    scenes (the bf16 config, stacked_batching, global B = 2; the val batch
+    at 2, the one val scene and its tail repeat) trained by
+    DP_RANKS gloo ranks on the one card through the CLI, each rank one
+    scene of every batch: each rank's K3a, K3c, bf16 K1, dp, dq and K2
+    launched, both ranks' weights bitwise alike, each step's loss within
+    DP_TOL of the single-process stacked run's (Adam(amsgrad) turns the
+    ranks' other summation order into steps of up to lr on near-zero
+    gradient elements), and their ms/step beside it. Then one NCCL rank at
+    world size 1 through `python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m stinet_tpu_torch.train` and the same CLI without
+    a process group, both with --deterministic for one epoch without
+    validation: the two checkpoints bitwise alike."""
+    import glob
+    import os
+    import subprocess
+    from stinet_tpu_torch.core.checkpoint import load_checkpoint
+    phase = "dp-training"
+    t0 = time.perf_counter()
+    out_dir = tmp / "dp"
+    out_dir.mkdir()
+    # the stacked run's config; the one val scene at test batch 2 (its
+    # tail repeat on rank 1), since a global batch divides over the ranks
+    trainer_config(tmp / "dp.json", roots, tmp / "saved_dp", BF16_CONFIG,
+                   TRAINER_EPOCHS, stacked_batching=True, train_batch_size=2,
+                   test_batch_size=DP_RANKS)
+    torch.cuda.synchronize()
+    run_ranks(torch, _dp_rank, DP_RANKS,
+              (free_port(), str(tmp / "dp.json"), str(out_dir)), DP_TIMEOUT)
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(DP_RANKS)]
+    want = baseline["losses"]
+    for r, got in enumerate(ranks):
+        check(got["mesh"] == DP_RANKS, f"rank {r}: data mesh {got['mesh']}")
+        check(got["rows"] == [1] * len(want), f"rank {r}: batches of "
+              f"{got['rows']} scenes, expected one a step")
+        check(all(got["launches"][k] > 0 for k in (
+            "k3a", "k3c", "k1", "k1dp", "k1dq", "k2")),
+            f"rank {r}: a kernel of the bf16 path never launched: "
+            f"{got['launches']}")
+        check(len(got["losses"]) == len(want), f"rank {r}: "
+              f"{len(got['losses'])} steps, one process {len(want)}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want)]
+        check(max(rel) <= DP_TOL, f"rank {r}: losses {got['losses']} "
+              f"against one process's {want}: relative {max(rel):.3e} > "
+              f"{DP_TOL}")
+        say(phase, f"rank {r} of {DP_RANKS} (gloo, cuda:0): losses "
+            f"{[round(x, 6) for x in got['losses']]} against one process's "
+            f"{[round(x, 6) for x in want]} (largest relative difference "
+            f"{max(rel):.2e} <= {DP_TOL}); launches {got['launches']}; per "
+            f"step {got['per_step'][0]} (one scene); val loss "
+            f"{got['val_loss']:.6f}; peak memory {got['peak_gib']:.2f} GiB")
+    check(ranks[0]["digest"] == ranks[1]["digest"],
+          "the two ranks ended on different weights")
+    diff = max(float((v.float() - baseline["state"][k].float()).abs().max())
+               for k, v in ranks[0]["state"].items())
+    fmt = ", ".join
+    say(phase, f"both ranks' weights bitwise alike; max |diff| to one "
+        f"process's weights after {len(want)} Adam steps {diff:.3e}")
+    say(phase, f"trainer clock ms/step by epoch: rank 0 "
+        f"{fmt(f'{x:.2f}' for x in ranks[0]['clock'])}, rank 1 "
+        f"{fmt(f'{x:.2f}' for x in ranks[1]['clock'])}; one process "
+        f"(two scenes a step) {fmt(f'{x:.2f}' for x in baseline['clock'])}; "
+        f"step by CUDA events, median: rank 0 "
+        f"{statistics.median(ranks[0]['step_ms']):.2f}, rank 1 "
+        f"{statistics.median(ranks[1]['step_ms']):.2f}, one process "
+        f"{statistics.median(baseline['step_ms']):.2f}; on {card}")
+
+    cfg = trainer_config(tmp / "nccl.json", roots, tmp / "saved_nccl",
+                         BF16_CONFIG, 1, stacked_batching=True,
+                         train_batch_size=2)
+    cfg["trainer"]["do_validation"] = False     # the weights are compared
+    (tmp / "nccl.json").write_text(json.dumps(cfg))
+    env = dict(os.environ, STINET_DISABLE_GIT_TAG="1",
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    argv = ["-m", "stinet_tpu_torch.train", "-c", str(tmp / "nccl.json"),
+            "--deterministic"]
+    runs = {"nccl": [sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node", "1"] + argv
+            + ["-n", "nccl"],
+            "plain": [sys.executable] + argv + ["-n", "plain"]}
+    files = {}
+    for name, cmd in runs.items():
+        t = time.perf_counter()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=DP_TIMEOUT)
+        log = res.stdout + res.stderr
+        check(res.returncode == 0, f"{phase} {name}: exit "
+              f"{res.returncode}\n{log[-3000:]}")
+        group = ("rank 0 of 1, backend nccl" if name == "nccl"
+                 else "one process")
+        check(f"Processes: {group}" in log, f"{phase} {name}: no "
+              f"'Processes: {group}' in its log\n{log[-3000:]}")
+        found = glob.glob(str(tmp / "saved_nccl" / "models" / "*" /
+                              f"*_{name}" / "checkpoint-epoch1.ckpt"))
+        check(len(found) == 1, f"{phase} {name}: checkpoints {found}")
+        files[name] = found[0]
+        say(phase, f"{name}: {' '.join(cmd[1:])}: exit 0 in "
+            f"{time.perf_counter() - t:.1f} s ({group})")
+    (sa, oa, _, _), (sb, ob, _, _) = (load_checkpoint(files[k])
+                                      for k in ("nccl", "plain"))
+    sa, sb, oa, ob = sa["graph"], sb["graph"], oa["graph"], ob["graph"]
+    check(sorted(sa) == sorted(sb) and sorted(oa["state"])
+          == sorted(ob["state"]) and len(oa["state"]) > 0,
+          f"{phase}: the two checkpoints hold other entries")
+    for k, v in sa.items():
+        check(torch.equal(v, sb[k]), f"{phase}: weight {k} of the NCCL "
+              "world-size-1 run differs from the run without a process "
+              "group")
+    for i, st in oa["state"].items():
+        for k, v in st.items():
+            check(torch.equal(v, ob["state"][i][k]),
+                  f"{phase}: Adam state {i}/{k} differs between the runs")
+    say(phase, "NCCL at world size 1 through torchrun: weights and Adam "
+        "state after one epoch bitwise the run without a process group")
     say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s; on {card}")
+
+
+# --- stacked 2D training ---------------------------------------------------------
+
+STACKED_2D_ITEMS = 20       # max_items: 16 train textures (4 steps), 4 val
+STACKED_2D_TOL = 1e-5       # the first step's loss, stacked vs concatenated
+STACKED_2D_LATER_TOL = 1e-3     # later steps (Adam moves near-zero
+                                # gradient elements by lr either way)
+
+
+def stacked_2d_phase(torch, card):
+    """Phase 8e, stacked-2d: the hermetic 2D config at its shipped width,
+    one epoch of 4 steps (max_items STACKED_2D_ITEMS; no FID), with and
+    without `stacked_batching`, from the same seeded weights under
+    deterministic algorithms: the graph branch (the stacked images one by
+    one, `make_stacked_inpainting2d_steps`: f32 K1, dp, dq and one-graph K2
+    launched, no multi-graph K2) and the Resnet2D branch with its PatchGAN
+    (the stacked images as one batch). The first step's loss within
+    STACKED_2D_TOL, later ones within STACKED_2D_LATER_TOL, the val loss
+    within STACKED_2D_LATER_TOL; ms/step of both layouts."""
+    import os
+    import tempfile
+    from stinet_tpu_torch.core.config import ConfigParser
+    from stinet_tpu_torch.trainers.inpainting2d import Inpainting2DTrainer
+    phase = "stacked-2d"
+    t0 = time.perf_counter()
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory(prefix="stinet_2d_stacked_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "textures").mkdir()
+        for branch in ("graph", "gan"):
+            out = {}
+            for stacked in (False, True):
+                cfg = json.loads(pathlib.Path(INP2D_CONFIG).read_text())
+                if branch == "gan":
+                    cfg["archs"]["SurfaceTextureInpaintingNet"]["enabled"] \
+                        = False
+                    cfg["archs"]["Resnet2D"]["enabled"] = True
+                cfg["data_loader"]["args"].update(
+                    root_dir=str(tmp / "textures"),
+                    max_items=STACKED_2D_ITEMS, stacked_batching=stacked)
+                cfg["trainer"].update(
+                    save_dir=str(tmp / "saved"), epochs=1,
+                    use_train_fid=False, use_val_fid=False,
+                    use_gan=branch == "gan")
+                with deterministic(torch):
+                    trainer = Inpainting2DTrainer(
+                        ConfigParser(cfg, dry_run=True), device="cuda")
+                    check(trainer._stacked == stacked,
+                          f"{phase} {branch}: the trainer's layout is not "
+                          f"the loader's (stacked={stacked})")
+                    losses, step = [], trainer._train_step
+
+                    def recorded(graph, lr, step=step, losses=losses):
+                        res = step(graph, lr)
+                        losses.append(float(res["loss"]))
+                        return res
+
+                    trainer._train_step = recorded
+                    _zero(counters)
+                    log = trainer._train_epoch(1)
+                    torch.cuda.synchronize()
+                    launches = _read(counters)
+                t = trainer.epoch_timings[0]
+                out[stacked] = dict(losses=losses, log=log,
+                                    launches=launches,
+                                    ms=t["train_s"] * 1e3 / t["steps"])
+                del trainer
+            cat, st = out[False], out[True]
+            check(len(st["losses"]) == len(cat["losses"]) == 4,
+                  f"{phase} {branch}: {len(st['losses'])} and "
+                  f"{len(cat['losses'])} steps")
+            rel = [abs(a - b) / abs(b) for a, b in zip(st["losses"],
+                                                       cat["losses"])]
+            check(rel[0] <= STACKED_2D_TOL
+                  and max(rel) <= STACKED_2D_LATER_TOL,
+                  f"{phase} {branch}: losses {st['losses']} against "
+                  f"concatenated {cat['losses']}")
+            vrel = abs(st["log"]["val_loss"] - cat["log"]["val_loss"]) / abs(
+                cat["log"]["val_loss"])
+            check(vrel <= STACKED_2D_LATER_TOL, f"{phase} {branch}: val "
+                  f"loss {st['log']['val_loss']} against "
+                  f"{cat['log']['val_loss']}")
+            if branch == "graph":
+                got = st["launches"]
+                check(all(got[k] > 0 for k in ("k1", "k1dp", "k1dq", "k2"))
+                      and got["k2mg"] == 0, f"{phase} graph: stacked "
+                      f"launches {got} (one image a graph: no multi-graph "
+                      "K2)")
+            say(phase, f"{branch}: stacked losses "
+                f"{[round(x, 6) for x in st['losses']]} against "
+                f"concatenated {[round(x, 6) for x in cat['losses']]} "
+                f"(relative {', '.join(f'{x:.1e}' for x in rel)}); val "
+                f"loss relative {vrel:.1e}; stacked launches "
+                f"{st['launches']}; trainer clock {st['ms']:.2f} ms/step "
+                f"stacked, {cat['ms']:.2f} concatenated; on {card}")
+    say(phase, f"phase wall time {time.perf_counter() - t0:.1f} s")
 
 
 # --- windowed f32 and batched serving ----------------------------------------
@@ -4028,6 +4455,201 @@ def partitioned_phase(torch, card, model, weights, scenes, flagship_scene):
     return row
 
 
+# --- partitioned (halo) training on an in-process mesh ------------------------
+
+PT_RTOL = 1e-5              # f32 loss, partitioned vs one device (JAX's)
+PT_GRAD_RTOL, PT_GRAD_ATOL = 5e-4, 2e-4    # f32 gradients (JAX's)
+# bf16: JAX's tolerances for its bf16 sharded backward
+# (tests/test_sharded_stinet.py:155-181)
+PT_BF16_LOSS_RTOL, PT_BF16_LOSS_ATOL = 1e-2, 1e-3
+PT_BF16_GRAD_TOL = 5e-2     # rtol and atol of every bf16 gradient
+PT_REPS = 5                 # timed train steps a layout
+
+
+def _grads_of(model):
+    return {k: p.grad.detach().float().clone()
+            for k, p in model.named_parameters()}
+
+
+def grads_within(got, want, rtol, atol):
+    """(largest |diff| / (atol + rtol |want|) over every gradient element,
+    its parameter's name)."""
+    worst, where = 0.0, None
+    for k, w in want.items():
+        r = float(((got[k] - w).abs() / (atol + rtol * w.abs())).max())
+        if r > worst:
+            worst, where = r, k
+    return worst, where
+
+
+def partitioned_training_phase(torch, card, scene):
+    """Phase 18b, partitioned-training: `make_sharded_train_step` of the
+    flagship f32 model (seed 0) on the hostile terrain of phase 17 on
+    in-process meshes of PART_COUNTS partitions on the card, then the bf16
+    model at P = 2. For each: a plain-path step records every K1, dp and
+    dq call; each recorded dp and dq call (q of Vp + S*W rows, more than p
+    and g, at P > 1) replayed on its kernel, bitwise its plain version; the
+    kernel-path step's K1, dp and dq launches equal to the recorded calls,
+    no K2 or K3 (the partitioned norm is summed across partitions in torch
+    ops); its loss and every gradient against the single-device step's
+    (f32: PT_RTOL, PT_GRAD_RTOL / PT_GRAD_ATOL; bf16: JAX's bf16 bounds);
+    ms/step (forward, backward and an SGD step at lr 0, by CUDA events)
+    beside the single-device step's. Returns the kernels-line rows of dp
+    and dq on the halo layout (f32, P = 4)."""
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.graph.partition import partition_hierarchy
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.ops import ell
+    from stinet_tpu_torch.parallel.mesh import make_mesh
+    from stinet_tpu_torch.parallel.sharded_stinet import (
+        make_sharded_train_step, place_partitioned)
+    from stinet_tpu_torch.serving import PackedPlacer, full_f32_matmuls
+    from stinet_tpu_torch.trainers import graph_common as gc
+    phase = "partitioned-training"
+    t_phase = time.perf_counter()
+    counters = dict(_train_counters(), **_counters())
+    targets = {k: v for k, v in train_targets().items()
+               if k in ("k1", "k1dp", "k1dq")}
+    graph = build_hierarchical_graph([scene]).to("cuda")
+    placer = PackedPlacer(torch.device("cuda"))
+    rows = None
+    for dtype, counts in ((None, PART_COUNTS), (torch.bfloat16, (2,))):
+        tag = "f32" if dtype is None else "bf16"
+        model = define_G(**FLAGSHIP, dtype=dtype, generator=torch.Generator(
+            ).manual_seed(0)).cuda()
+        opt = torch.optim.SGD(model.parameters(), lr=0.0)
+
+        def single_step():
+            model.train()
+            with full_f32_matmuls():
+                opt.zero_grad(set_to_none=True)
+                loss, _ = gc.inpainting_loss(
+                    model(graph), graph.color, graph.mask,
+                    gc.vertex_mask(graph), True)
+                loss.backward()
+                opt.step()
+            return loss
+
+        ref_loss = float(single_step())
+        ref = _grads_of(model)
+        single_ms = median_ms(torch, single_step, reps=PT_REPS, inner=1,
+                              warmup=1)
+        for n_parts in counts:
+            mesh = make_mesh(n_parts, "cuda")
+            t0 = time.perf_counter()
+            pg, _ = partition_hierarchy(scene, n_parts)
+            build_ms = (time.perf_counter() - t0) * 1e3
+            graphs = place_partitioned(mesh, pg, placer)
+            _, plain_loss_fn = make_sharded_train_step(mesh, model, opt,
+                                                       impl="plain")
+            step, loss_fn = make_sharded_train_step(mesh, model, opt)
+            with record_calls(targets) as calls:
+                opt.zero_grad(set_to_none=True)
+                with full_f32_matmuls():
+                    plain_loss_fn(graphs)[1].backward()
+                torch.cuda.synchronize()
+            ragged = [c for c in calls["k1dq"] if c[0].shape[0]
+                      > c[1].shape[0]]
+            check(n_parts == 1 or len(ragged) == len(calls["k1dq"]) > 0,
+                  f"{phase} {tag} P={n_parts}: {len(ragged)} of "
+                  f"{len(calls['k1dq'])} dq calls with q longer than g")
+            err = 0.0
+            for key, kernel, plain in (
+                    ("k1dp", ell.ell_edge_conv_dp_kernel,
+                     ell.ell_edge_conv_dp_plain),
+                    ("k1dq", ell.ell_edge_conv_dq_kernel,
+                     ell.ell_edge_conv_dq_plain)):
+                for i, c in enumerate(calls[key]):
+                    a, b = kernel(*c), plain(*c)
+                    torch.cuda.synchronize()
+                    view = torch.int16 if a.dtype == torch.bfloat16 \
+                        else torch.int32
+                    check(a.shape == b.shape and torch.equal(
+                        a.view(view), b.view(view)),
+                        f"{phase} {tag} P={n_parts}: {key} call {i} "
+                        f"{[tuple(t.shape) for t in c[:3]]} differs from "
+                        "its plain version")
+            _zero(counters)
+            opt.zero_grad(set_to_none=True)
+            with full_f32_matmuls():
+                loss, share = loss_fn(graphs)
+                share.backward()
+            torch.cuda.synchronize()
+            got = _read(counters)
+            want = {k: len(v) for k, v in calls.items()}
+            check({k: got[k] for k in want} == want and all(
+                v == 0 for k, v in got.items() if k not in want),
+                f"{phase} {tag} P={n_parts}: launches {got}, recorded "
+                f"calls {want}")
+            grads = _grads_of(model)
+            loss = float(loss)
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            if dtype is None:
+                check(rel <= PT_RTOL, f"{phase} f32 P={n_parts}: loss "
+                      f"{loss} vs one device's {ref_loss} ({rel:.2e})")
+                worst, where = grads_within(grads, ref, PT_GRAD_RTOL,
+                                            PT_GRAD_ATOL)
+                bounds = (f"rtol {PT_RTOL}; gradients within rtol "
+                          f"{PT_GRAD_RTOL} atol {PT_GRAD_ATOL}")
+            else:
+                check(abs(loss - ref_loss) <= PT_BF16_LOSS_ATOL
+                      + PT_BF16_LOSS_RTOL * abs(ref_loss),
+                      f"{phase} bf16 P={n_parts}: loss {loss} vs one "
+                      f"device's {ref_loss}")
+                worst, where = grads_within(grads, ref, PT_BF16_GRAD_TOL,
+                                            PT_BF16_GRAD_TOL)
+                bounds = (f"rtol {PT_BF16_LOSS_RTOL} atol "
+                          f"{PT_BF16_LOSS_ATOL}; gradients within rtol and "
+                          f"atol {PT_BF16_GRAD_TOL}")
+            check(worst <= 1.0, f"{phase} {tag} P={n_parts}: gradient "
+                  f"{where} beyond its bound ({worst:.2f}x)")
+            ms = median_ms(torch, lambda: step(graphs, 0.0), reps=PT_REPS,
+                           inner=1, warmup=1)
+            halo = [c[0].shape[0] - c[1].shape[0] for c in calls["k1dq"]]
+            say(phase, f"terrain {tag} P={n_parts}: launches K1 {got['k1']}"
+                f", dp {got['k1dp']}, dq {got['k1dq']} (the recorded "
+                f"calls; dp and dq each bitwise its plain version, q rows "
+                f"beyond g's {min(halo)}-{max(halo)}); loss {loss:.6f} "
+                f"against one device's {ref_loss:.6f} (relative "
+                f"{rel:.2e}, {bounds}: largest {worst:.2f} of the bound, "
+                f"{where}); step {ms:.2f} ms (one device {single_ms:.2f}); "
+                f"host partition build {build_ms:.1f} ms; on {card}")
+            if dtype is None and n_parts == max(PART_COUNTS):
+                rows = {}
+                for key, kernel, plain, nb in (
+                        ("k1dp", ell.ell_edge_conv_dp_kernel,
+                         ell.ell_edge_conv_dp_plain,
+                         lambda p, q, nbr, deg, g: _slot_bytes(
+                             nbr, deg, p.element_size(), p.shape[1], 2)),
+                        ("k1dq", ell.ell_edge_conv_dq_kernel,
+                         ell.ell_edge_conv_dq_plain,
+                         lambda q, g, p, rev, dout: _dq_bytes(
+                             rev, dout, q.element_size(), q.shape[1]))):
+                    cs = calls[key]
+                    nbytes = ops = 0
+                    for c in cs:
+                        b_, slots = nb(*c)
+                        nbytes, ops = nbytes + b_, ops + 4 * c[0].shape[1] \
+                            * slots
+                    b_ms, b_by = bound(nbytes, ops)
+                    rows[key] = dict(
+                        launches=got[key], max_abs_err=err,
+                        ms=median_ms(torch, lambda: [kernel(*c) for c in cs],
+                                     reps=10, inner=1),
+                        plain_ms=median_ms(torch,
+                                           lambda: [plain(*c) for c in cs],
+                                           reps=3, inner=1),
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                    say(phase, f"{key} on the halo layout, P={n_parts}: "
+                        f"{len(cs)} calls, kernel {rows[key]['ms']:.4f} ms, "
+                        f"plain {rows[key]['plain_ms']:.4f} ms, bound "
+                        f"{b_ms:.4f} ms ({b_by}); on {card}")
+            del graphs, calls, step, loss_fn, plain_loss_fn
+        del model, opt
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
 @contextlib.contextmanager
 def deterministic(torch):
     """torch's deterministic algorithms for the block (the spill's
@@ -4274,6 +4896,7 @@ def main(argv=None):
     segmentation_phase(torch, card)
     inpainting2d_phase(torch, card)
     inpainting2d_resnet_phase(torch, card)
+    stacked_2d_phase(torch, card)
 
     # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,
@@ -4296,6 +4919,8 @@ def main(argv=None):
 
     # --- graph-partition serving: predict_partitioned on an in-process mesh
     part_row = partitioned_phase(torch, card, model, weights, hostile, scene)
+    # --- partitioned training: dp and dq on the halo layout
+    part_train = partitioned_training_phase(torch, card, hostile["terrain"])
     # --- the forward exported with torch.export and reloaded
     export_phase(torch, card, model, weights, scene)
 
@@ -4345,7 +4970,13 @@ def main(argv=None):
         dict(name="ell_edge_conv_sum_partitioned", route="cuda",
              source=cu + "ell_edge_conv.cu",
              replaces="stinet_tpu/ops/pallas/gather_pipeline.py:102",
-             **part_row)]
+             **part_row),
+        dict(name="ell_edge_conv_dp_partitioned", route="cuda",
+             source=cu + "ell_edge_conv.cu",
+             replaces="stinet_tpu/ops/ell.py:100", **part_train["k1dp"]),
+        dict(name="ell_edge_conv_dq_partitioned", route="cuda",
+             source=cu + "ell_edge_conv.cu",
+             replaces="stinet_tpu/ops/ell.py:100", **part_train["k1dq"])]
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -21,7 +21,10 @@ trainer walks `train_loader` and `sample_train_loader` decides every later
 batch, as in the JAX package. The loaders here are plain generators; walk
 one at a time.
 
-One process: stacked batching (`stacked_batching`) is not ported yet.
+With `stacked_batching` (forced in a torch.distributed group of more than
+one rank) every batch is a stacked graph, one image a slice of a leading
+sample axis: the skeleton is built once, from the first batch, and each
+rank builds its contiguous slice of every global batch (`_Loader`).
 """
 import dataclasses
 import glob
@@ -34,7 +37,9 @@ import torch
 
 from stinet_tpu_torch.core.registry import DATALOADERS
 from stinet_tpu_torch.graph.build import (
-    RawHierarchy, build_hierarchical_graph, grid_hierarchy)
+    RawHierarchy, build_hierarchical_graph, build_stacked_graph,
+    grid_hierarchy)
+from stinet_tpu_torch.parallel import multihost
 
 
 def _circle_stamp(radius: int) -> np.ndarray:
@@ -126,21 +131,26 @@ class ImageGraphTextureDataSet:
 
 
 class _Loader:
-    """Batched loader yielding (HierarchicalGraph, names) in the
-    concatenated layout. The padded topology is built on the first batch
-    and kept; each batch refreshes only x, color and mask. `build_ms` holds
-    the host time of each batch (sample draws, the first build, the
-    refill), in order."""
+    """Batched loader yielding (HierarchicalGraph, names), concatenated or,
+    with `stacked`, stacked (graph/build.py `build_stacked_graph`: one
+    image a slice of a leading sample axis). The padded topology is built
+    on the first batch and kept; each batch refreshes only x, color and
+    mask. `build_ms` holds the host time of each batch (sample draws, the
+    first build, the refill), in order. Stacked, `batch_size` is the global
+    batch: every rank walks the same shuffled schedule and builds only its
+    contiguous slice of B / ranks images (all images share one topology,
+    so no signature is merged across ranks)."""
 
     def __init__(self, dataset: ImageGraphTextureDataSet, batch_size: int,
                  shuffle: bool, seed: int = 0,
-                 max_batches: Optional[int] = None):
+                 max_batches: Optional[int] = None, stacked: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self._rng = np.random.default_rng(seed)
         self._skeleton = None
         self.max_batches = max_batches
+        self.stacked = stacked
         self.build_ms: List[float] = []
 
     def __len__(self):
@@ -148,18 +158,21 @@ class _Loader:
         return min(n, self.max_batches) if self.max_batches else n
 
     @staticmethod
-    def _fill(g, samples):
-        """The cached skeleton with its x/color/mask leaves refilled."""
-        v_pad = g.x.shape[0]
-        x = np.zeros((v_pad,) + samples[0].x.shape[1:], np.float32)
-        color = np.zeros((v_pad, 3), np.float32)
-        mask = np.zeros((v_pad, 1), np.float32)
+    def _fill(g, samples, stacked):
+        """The cached skeleton with its x/color/mask leaves refilled: the
+        samples' rows one after another, or one a slice when `stacked`."""
+        lead = (len(samples),) if stacked else ()
+        v_pad = g.x.shape[len(lead)]
+        x = np.zeros(lead + (v_pad,) + samples[0].x.shape[1:], np.float32)
+        color = np.zeros(lead + (v_pad, 3), np.float32)
+        mask = np.zeros(lead + (v_pad, 1), np.float32)
         off = 0
-        for s in samples:
+        for i, s in enumerate(samples):
             n = s.x.shape[0]
-            x[off:off + n] = s.x
-            color[off:off + n] = s.color
-            mask[off:off + n] = s.mask
+            rows = (i, slice(0, n)) if stacked else slice(off, off + n)
+            x[rows] = s.x
+            color[rows] = s.color
+            mask[rows] = s.mask
             off += n
         return dataclasses.replace(
             g, x=torch.from_numpy(x), color=torch.from_numpy(color),
@@ -169,13 +182,22 @@ class _Loader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(idx)
+        rank, ranks = multihost.process_index(), multihost.process_count()
+        if self.stacked and self.batch_size % ranks:
+            raise ValueError(f"global batch {self.batch_size} does not "
+                             f"divide over {ranks} processes")
+        local = self.batch_size // ranks
         for b in range(len(self)):
             t0 = time.perf_counter()
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            if self.stacked:
+                sel = sel[rank * local:(rank + 1) * local]
             samples = [self.dataset[i] for i in sel]
             if self._skeleton is None:
-                self._skeleton = build_hierarchical_graph(samples)
-            graph = self._fill(self._skeleton, samples)
+                self._skeleton = (build_stacked_graph(samples)[0]
+                                  if self.stacked
+                                  else build_hierarchical_graph(samples))
+            graph = self._fill(self._skeleton, samples, self.stacked)
             self.build_ms.append((time.perf_counter() - t0) * 1e3)
             yield graph, [s.name for s in samples]
 
@@ -190,10 +212,6 @@ class ImageGraphTextureDataLoader:
         self.config = c
         img_size = c["img_size"]
         end_level = c["end_level"]
-        if c.get("stacked_batching", False):
-            raise NotImplementedError(
-                "stacked_batching is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5: stacked training)")
 
         train_imgs, val_imgs = self._load_images(
             c.get("root_dir", ""), c.get("max_items", -1), img_size)
@@ -209,18 +227,25 @@ class ImageGraphTextureDataLoader:
         self.val_dataset = ImageGraphTextureDataSet(
             val_imgs, is_train=False, seed=seed + 1, **common)
 
+        # stacked batching: a config's choice in one process, the layout
+        # across processes
+        stacked = (bool(c.get("stacked_batching", False))
+                   or multihost.process_count() > 1)
+        self.stacked = stacked
         self.train_loader = _Loader(self.train_dataset,
                                     c["train_batch_size"], shuffle=True,
-                                    seed=seed)
+                                    seed=seed, stacked=stacked)
         self.val_loader = _Loader(self.val_dataset, c["test_batch_size"],
-                                  shuffle=False)
+                                  shuffle=False, stacked=stacked)
         nstat = c.get("num_static_samples", 8)
         self.sample_train_loader = _Loader(
             self.train_dataset, c["train_batch_size"], shuffle=False,
-            max_batches=max(1, nstat // c["train_batch_size"]))
+            max_batches=max(1, nstat // c["train_batch_size"]),
+            stacked=stacked)
         self.sample_val_loader = _Loader(
             self.val_dataset, c["test_batch_size"], shuffle=False,
-            max_batches=max(1, nstat // c["test_batch_size"]))
+            max_batches=max(1, nstat // c["test_batch_size"]),
+            stacked=stacked)
 
     @staticmethod
     def _load_images(root_dir, max_items, img_size):

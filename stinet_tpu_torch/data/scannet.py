@@ -23,8 +23,10 @@ reference writes them.
 
 With `stacked_batching`, every batch is a stacked graph (graph/build.py
 `build_stacked_graph`: each scene its own padded graph, every tensor with a
-leading scene axis) at one layout frozen for the run. One process: there is
-no multi-host split of the data.
+leading scene axis) at one layout frozen for the run. In a
+torch.distributed group of more than one rank the stacked layout is forced,
+and each rank builds its contiguous slice of every global batch
+(`_SceneLoader`), as each JAX host builds its local one.
 """
 import glob
 import hashlib
@@ -41,6 +43,7 @@ from stinet_tpu_torch.data.transforms import compose
 from stinet_tpu_torch.graph.build import (
     RawHierarchy, build_hierarchical_graph, build_stacked_graph,
     freeze_stacked_signature)
+from stinet_tpu_torch.parallel import multihost
 
 _META = os.path.join(os.path.dirname(__file__), "meta", "scannet")
 SCANNET_TRAIN_FILE = os.path.join(_META, "scannetv2_train.txt")
@@ -271,7 +274,11 @@ class _SceneLoader:
     `freeze_stacked_signature` takes from `signature_samples` evenly spaced
     scenes at construction; a short last batch repeats its first scenes to
     keep [B, ...]. The construction's reads draw from the per-sample
-    generators, which are stateless, so the batches are unchanged."""
+    generators, which are stateless, so the batches are unchanged.
+    `batch_size` is then the global batch: in a torch.distributed group
+    every rank walks the same shuffled schedule and builds only its
+    contiguous slice of B / ranks scenes of each batch (JAX's local
+    batches), and the table widths are max-merged across the ranks."""
 
     def __init__(self, dataset, batch_size, shuffle, seed=0,
                  pad_multiple=512, windowed=False, stacked=False,
@@ -291,9 +298,13 @@ class _SceneLoader:
         if stacked and len(dataset):
             k = min(signature_samples, len(dataset))
             sel = np.linspace(0, len(dataset) - 1, k).astype(int)
-            self.signature = freeze_stacked_signature(
+            v_buckets, widths = freeze_stacked_signature(
                 [dataset[int(i)] for i in sel], pad_multiple=pad_multiple,
                 geometric=True, windowed=windowed)
+            # a collective across ranks (the identity in one process): one
+            # signature everywhere, and a raise where the datasets differ
+            self.signature = (v_buckets,
+                              multihost.merge_widths_across_hosts(widths))
 
     def __len__(self):
         return max(len(self.dataset) // self.batch_size, 1) \
@@ -308,11 +319,19 @@ class _SceneLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self._rng.shuffle(idx)
+        rank, ranks = multihost.process_index(), multihost.process_count()
+        if self.stacked and self.batch_size % ranks:
+            raise ValueError(f"global batch {self.batch_size} does not "
+                             f"divide over {ranks} processes")
+        local = self.batch_size // ranks
         for b in range(len(self)):
             t0 = time.perf_counter()
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            if self.stacked and len(sel) < self.batch_size:
-                sel = np.concatenate([sel, sel[:self.batch_size - len(sel)]])
+            if self.stacked:
+                if len(sel) < self.batch_size:
+                    sel = np.concatenate(
+                        [sel, sel[:self.batch_size - len(sel)]])
+                sel = sel[rank * local:(rank + 1) * local]
             samples = [self.dataset[int(i)] for i in sel]
             if self.stacked:
                 graph, _ = build_stacked_graph(
@@ -372,7 +391,10 @@ class ScanNetGraphColorDataLoader:
                           train_cropped=not c.get("no_train_cropped", True))
 
         windowed = bool(c.get("windowed_graphs", False))
-        self.stacked = bool(c.get("stacked_batching", False))
+        # stacked batching: a config's choice in one process, the layout
+        # across processes
+        self.stacked = (bool(c.get("stacked_batching", False))
+                        or multihost.process_count() > 1)
         self.train_loader = _SceneLoader(
             self.train_dataset, c["train_batch_size"], shuffle=True,
             seed=seed, windowed=windowed, stacked=self.stacked)

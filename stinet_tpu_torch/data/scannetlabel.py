@@ -14,7 +14,9 @@ vertices (reference segmentation_trainer.py:93,223).
 Training crops (`<scene>_<crop>.npz`) store no original-mesh trace, so
 their traces are used from index 0; full scenes carry it at index 0, and
 it is kept aside. Transform randomness is stateless, keyed by (seed,
-epoch, index). One process: stacked batching is not ported yet.
+epoch, index). With `stacked_batching` (forced in a torch.distributed
+group of more than one rank) every batch is a stacked graph, each rank's
+slice of the global batch, as in the colour loader (`_SceneLoader`).
 """
 import glob
 import os
@@ -28,6 +30,7 @@ from stinet_tpu_torch.data.scannet import (
     level_sizes, load_scene_npz, load_scene_pt, read_split)
 from stinet_tpu_torch.data.transforms import compose
 from stinet_tpu_torch.graph.build import RawHierarchy
+from stinet_tpu_torch.parallel import multihost
 
 CLASS_LABELS = [
     "none", "wall", "floor", "cabinet", "bed", "chair", "sofa", "table",
@@ -145,10 +148,6 @@ class ScanNetGraphDataLoader:
     def __init__(self, config, multi_gpu=False, seed=0):
         c = dict(config)
         self.config = c
-        if c.get("stacked_batching", False):
-            raise NotImplementedError(
-                "stacked_batching is not ported yet (ROADMAP.md, Queue 1 "
-                "item 5: stacked training)")
         train_tf = compose(c.get("train_transform"))
         valid_tf = compose(c.get("valid_transform"))
         self.train_dataset = ScanNetLabelDataSet(
@@ -164,9 +163,13 @@ class ScanNetGraphDataLoader:
                           self.val_dataset.index2filenames,
                           train_cropped=not c.get("no_train_cropped", False))
         windowed = bool(c.get("windowed_graphs", False))
+        # stacked batching: a config's choice in one process, the layout
+        # across processes
+        self.stacked = (bool(c.get("stacked_batching", False))
+                        or multihost.process_count() > 1)
         self.train_loader = _SceneLoader(
             self.train_dataset, c["train_batch_size"], shuffle=True,
-            seed=seed, windowed=windowed)
+            seed=seed, windowed=windowed, stacked=self.stacked)
         self.val_loader = _SceneLoader(
             self.val_dataset, c["test_batch_size"], shuffle=False,
-            windowed=windowed)
+            windowed=windowed, stacked=self.stacked)

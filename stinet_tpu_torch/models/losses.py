@@ -19,16 +19,27 @@ def cse_loss_terms(logits, targets, weights=None, ignore_index=None,
     targets = targets.to(torch.int64)
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, targets[:, None])[:, 0]
-    w = torch.ones_like(nll)
+    w = cse_row_weights(targets, weights, ignore_index, valid_mask,
+                        nll.dtype)
+    return (nll * w).sum(), w.sum()
+
+
+def cse_row_weights(targets, weights=None, ignore_index=None,
+                    valid_mask=None, dtype=torch.float32):
+    """Each row's weight in `cse_loss_terms` ([N], of `dtype`): its
+    target's class weight, 0 where the target is `ignore_index` or
+    `valid_mask` is 0. Their sum is wnorm, known before any forward."""
+    targets = targets.to(torch.int64)
+    w = torch.ones(targets.shape, dtype=dtype, device=targets.device)
     if weights is not None:
-        weights = torch.as_tensor(weights, dtype=nll.dtype,
-                                  device=nll.device)
+        weights = torch.as_tensor(weights, dtype=dtype,
+                                  device=targets.device)
         w = w * weights[targets.clamp(0, weights.shape[0] - 1)]
     if ignore_index is not None:
         w = w * (targets != ignore_index).to(w.dtype)
     if valid_mask is not None:
         w = w * valid_mask.to(w.dtype)
-    return (nll * w).sum(), w.sum()
+    return w
 
 
 def cse_loss(logits, targets, weights=None, ignore_index=None,

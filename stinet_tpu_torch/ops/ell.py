@@ -137,18 +137,26 @@ def ell_edge_conv_dq_plain(q, g, p, rev_dst, out_degree):
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check_rows(names, tensors, dev):
+def _check_rows(names, tensors, dev, ragged=()):
     """Raise unless the [V, H] operands share one supported dtype and
-    shape; returns the dtype's suffix of the C launchers."""
-    dtype = tensors[0].dtype
+    shape; returns the dtype's suffix of the C launchers. The operands
+    named in `ragged` need the dtype and the width H only: their row count
+    is free (dq's q of a partitioned layout has Vp + S*W rows, more than p
+    and g; stinet_tpu/parallel/sharded_stinet.py:46-63, "dq is shaped
+    from q")."""
+    ref = next(t for n, t in zip(names, tensors) if n not in ragged)
+    dtype = ref.dtype
     if dtype not in _DTYPES:
         raise TypeError(f"{names[0]}: the kernel takes float32 or bfloat16, "
                         f"got {dtype}")
     for name, t in zip(names, tensors):
         _cuda.check_tensor(name, t, dtype, 2, dev)
-        if t.shape != tensors[0].shape:
+        want = ref.shape
+        if name in ragged:
+            want = (t.shape[0], ref.shape[1])
+        if t.shape != want:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                             f"{tuple(tensors[0].shape)}")
+                             f"{tuple(want)}")
     return _DTYPES[dtype]
 
 
@@ -357,8 +365,10 @@ def last_launch(kind: str = "sum") -> dict:
 def ell_edge_conv_dp_kernel(p, q, nbr, deg, g):
     """Launch `ell_edge_conv_dp_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
     with `ell_plan`'s "dp" layout: the receiver-side gradient, bit for bit
-    `ell_edge_conv_dp_plain`. Raises as `ell_edge_conv_sum_kernel`."""
-    _check_rows(("p", "q", "g"), (p, q, g), p.device)
+    `ell_edge_conv_dp_plain`. q may have more rows than p and g (the
+    partitioned layout's halo rows); `nbr` and `deg` have p's rows. Raises
+    as `ell_edge_conv_sum_kernel`."""
+    _check_rows(("p", "q", "g"), (p, q, g), p.device, ragged=("q",))
     _check_table(nbr, deg, p.shape[0], p.device)
     out = _launch("dp", (p, q, nbr, deg, g), nbr.shape[1])
     ell_edge_conv_dp_kernel.launches += 1
@@ -372,8 +382,10 @@ def ell_edge_conv_dq_kernel(q, g, p, rev_dst, out_degree):
     """Launch `ell_edge_conv_dq_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
     with `ell_plan`'s "dq" layout: the sender-side gradient through
     `rev_dst`, bit for bit `ell_edge_conv_dq_plain`. Raises as
-    `ell_edge_conv_sum_kernel`."""
-    _check_rows(("q", "g", "p"), (q, g, p), q.device)
+    `ell_edge_conv_sum_kernel`. q may have more rows than g and p (the
+    partitioned layout's halo rows): dq takes q's rows, and so do
+    `rev_dst` and `out_degree`, whose receivers index g and p."""
+    _check_rows(("q", "g", "p"), (q, g, p), q.device, ragged=("q",))
     _check_table(rev_dst, out_degree, q.shape[0], q.device)
     out = _launch("dq", (q, g, p, rev_dst, out_degree), rev_dst.shape[1])
     ell_edge_conv_dq_kernel.launches += 1

@@ -26,13 +26,27 @@ Two meshes:
     numbers, which is exact in either order, so it gives the in-process
     mesh's bits.
 
-Not ported: JAX's `graph_sharding` and `param_sharding`, GSPMD layouts of
-data-parallel training; they come with the training half (ROADMAP.md).
+Both meshes are differentiable, so the partitioned forward trains
+(parallel/sharded_stinet.py:make_sharded_train_step). On the in-process
+mesh autograd runs through the list rotation and the additions. On the
+process mesh each collective is a `torch.autograd.Function` whose backward
+is its transpose: the ring shift's sends the gradient to rank-1, the sum's
+all-reduces the gradient (each rank's use of the total adds a share), the
+gather's keeps the rank's rows (the gathered rows are used alike on every
+rank). The process mesh is also the data mesh of data-parallel training
+(`all_reduce_`, `broadcast_`, `all_reduce_grads`), where a rank holds its
+slice of a stacked batch.
+
+`graph_sharding` and `param_sharding` are JAX's layout rules as functions
+(parallel/mesh.py:36-63 there): which leaves of a batch a rank slices, and
+which weights a model axis would split. The port has no model axis: a
+tensor-parallel layer is not ported (ROADMAP.md).
 """
 from typing import List, Optional
 
 import torch
 
+from stinet_tpu_torch.graph.hierarchy import map_tensors
 from stinet_tpu_torch.serving import resolve_device
 
 
@@ -62,6 +76,52 @@ class InProcessMesh:
         return torch.cat(outs)
 
 
+class _RingShift(torch.autograd.Function):
+    """Rank r's buffer to rank r+1, rank r-1's back; the backward sends the
+    gradient the other way round."""
+
+    @staticmethod
+    def forward(ctx, buf, mesh):
+        ctx.mesh = mesh
+        return mesh._shift(buf, +1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh._shift(g, -1), None
+
+
+class _Sum(torch.autograd.Function):
+    """The sum of every rank's partial on every rank; its backward sums the
+    ranks' gradients, each rank's use of the total being one share."""
+
+    @staticmethod
+    def forward(ctx, partial, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce_(partial.detach().clone().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_(g.clone().contiguous()), None
+
+
+class _Gather(torch.autograd.Function):
+    """Every rank's rows (equal shapes), in rank order; the backward keeps
+    this rank's rows of the gradient."""
+
+    @staticmethod
+    def forward(ctx, out, mesh):
+        ctx.mesh, ctx.rows = mesh, out.shape[0]
+        out = out.detach().contiguous()
+        parts = [torch.empty_like(out) for _ in range(mesh.n_parts)]
+        mesh._dist.all_gather(parts, out)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.mesh.rank * ctx.rows
+        return g[r:r + ctx.rows], None
+
+
 class ProcessMesh:
     """One partition a rank of the initialised default `torch.distributed`
     process group, on `device`."""
@@ -78,39 +138,118 @@ class ProcessMesh:
         self.device = resolve_device(device)
         self.parts = [self.rank]
 
+    def _shift(self, buf, step):
+        """buf to rank + step, rank - step's received (no autograd)."""
+        dist = self._dist
+        buf = buf.detach().contiguous()
+        recv = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf,
+                          (self.rank + step) % self.n_parts),
+               dist.P2POp(dist.irecv, recv,
+                          (self.rank - step) % self.n_parts)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return recv
+
     def ring_shift(self, bufs: List[torch.Tensor]) -> List[torch.Tensor]:
         (buf,) = bufs
         if self.n_parts == 1:
             return [buf]
-        dist = self._dist
-        buf = buf.contiguous()
-        recv = torch.empty_like(buf)
-        ops = [dist.P2POp(dist.isend, buf, (self.rank + 1) % self.n_parts),
-               dist.P2POp(dist.irecv, recv, (self.rank - 1) % self.n_parts)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return [recv]
+        return [_RingShift.apply(buf, self)]
 
     def sum(self, partials: List[torch.Tensor]) -> List[torch.Tensor]:
         (total,) = partials
-        total = total.clone()
-        self._dist.all_reduce(total)
-        return [total]
+        return [_Sum.apply(total, self)]
 
     def gather(self, outs: List[torch.Tensor]) -> torch.Tensor:
         """Every partition's rows (equal shapes), concatenated in rank
         order, on every rank."""
         (out,) = outs
-        out = out.contiguous()
-        parts = [torch.empty_like(out) for _ in range(self.n_parts)]
-        self._dist.all_gather(parts, out)
-        return torch.cat(parts)
+        return _Gather.apply(out, self)
 
     def all_gather_object(self, obj) -> list:
         """Every rank's `obj`, in rank order, on every rank."""
         out = [None] * self.n_parts
         self._dist.all_gather_object(out, obj)
         return out
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the ranks, in place (contiguous t); returns t.
+        Under gloo a card's tensor is taken too (gloo's all_reduce and
+        broadcast take CUDA tensors)."""
+        if self.n_parts > 1:
+            self._dist.all_reduce(t)
+        return t
+
+    def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank `src`'s t on every rank, in place; returns t."""
+        if self.n_parts > 1:
+            self._dist.broadcast(t, src)
+        return t
+
+    def all_reduce_grads(self, params) -> None:
+        """Every parameter's gradient summed over the ranks, in one
+        all_reduce of one flat buffer (a parameter without a gradient adds
+        zeros, and keeps none where no rank has one)."""
+        params = [p for p in params if p.requires_grad]
+        if self.n_parts <= 1 or not params:
+            return
+        ref = next((p.grad for p in params if p.grad is not None), None)
+        dtype = ref.dtype if ref is not None else params[0].dtype
+        flat = torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p)
+              ).reshape(-1).to(dtype) for p in params]
+            + [torch.tensor([float(p.grad is not None) for p in params],
+                            dtype=dtype, device=params[0].device)])
+        self.all_reduce_(flat)
+        has = flat[-len(params):].tolist()
+        i = 0
+        for p, h in zip(params, has):
+            n = p.numel()
+            if h > 0:
+                p.grad = flat[i:i + n].view_as(p).to(p.dtype).clone()
+            i += n
+
+
+def _split(t, n_data: int) -> bool:
+    """JAX's data-axis rule: dim 0 of the leaf divides over the ranks."""
+    return t.ndim >= 1 and t.shape[0] % n_data == 0 \
+        and t.shape[0] >= n_data
+
+
+def graph_sharding(graph, n_data: int):
+    """JAX's data-axis layout rule (parallel/mesh.py:graph_sharding) for
+    a batch of `n_data` ranks: a leaf whose dim 0 `n_data` divides (and is
+    at least `n_data`) is split on dim 0, ("data",); every other leaf is
+    replicated, (). Returns the tree of specs, the graph's shape."""
+    return map_tensors(graph, lambda t: ("data",) if _split(t, n_data)
+                       else ())
+
+
+def shard_graph(graph, rank: int, n_data: int):
+    """Rank `rank`'s part of `graph` under `graph_sharding`: its contiguous
+    dim-0 block of every split leaf, every replicated leaf whole."""
+    def piece(t):
+        if not _split(t, n_data):
+            return t
+        b = t.shape[0] // n_data
+        return t[rank * b:(rank + 1) * b]
+    return map_tensors(graph, piece)
+
+
+def param_sharding(params, n_model: int, min_dim: int = 128):
+    """JAX's tensor-parallel layout rule (parallel/mesh.py:param_sharding)
+    on torch's layout, {name: spec}: a 2-D weight ([out, in], a Linear's)
+    whose output dim `n_model` divides and is at least `min_dim` wide
+    splits its output dim, ("model", None); everything else is replicated,
+    (). JAX's kernels are [in, out], hence its P(None, "model"). Pure data
+    parallelism (n_model 1) replicates everything."""
+    def spec(t):
+        if (n_model > 1 and t.dim() == 2 and t.shape[0] % n_model == 0
+                and t.shape[0] >= min_dim):
+            return ("model", None)
+        return ()
+    return {k: spec(v) for k, v in params.items()}
 
 
 def make_mesh(n_parts: Optional[int] = None, device="cuda",

@@ -45,15 +45,18 @@ def sharded_instance_norm(xs: List[torch.Tensor], vmasks, mesh,
             for c, v, ni in zip(centered, sq, n)]
 
 
-def _halo_edge_set(edges) -> EdgeSet:
+def _halo_edge_set(edges, rows: int) -> EdgeSet:
     """A partition's PartEdges (placed) as the EdgeSet that
     `edge_conv_aggregate` reads: the ELL table in the local-plus-halo
-    space, its reverse tables, no COO lists, no spill, and `halo` None, so
-    the windowed dispatch is bypassed (its band premise |nbr[v, d] - v| <=
-    halo does not hold once halo rows follow the local range)."""
+    space, its reverse tables over the `rows` of the extended sender space,
+    no COO lists, no spill, and `halo` None, so the windowed dispatch is
+    bypassed (its band premise |nbr[v, d] - v| <= halo does not hold once
+    halo rows follow the local range). With one partition there is no halo,
+    but the layout keeps one hop of W pad rows (graph/partition.py), which
+    no receiver reads; `rows` cuts them, so dq is shaped as q."""
     return EdgeSet(src=None, dst=None, num_edges=None, degree=edges.degree,
-                   nbr=edges.nbr_halo, rev_dst=edges.rev_idx,
-                   out_degree=edges.rev_deg)
+                   nbr=edges.nbr_halo, rev_dst=edges.rev_idx[:rows],
+                   out_degree=edges.rev_deg[:rows])
 
 
 def sharded_edge_conv(filt, xs, edges, mesh, impl=None):
@@ -64,8 +67,8 @@ def sharded_edge_conv(filt, xs, edges, mesh, impl=None):
     pq = [filt.projections(x) for x in xs]
     q_ext = halo_exchange([q for _, q in pq],
                           [e.send_idx[0] for e in edges], mesh)
-    return [_dense(filt.nn[2], edge_conv_aggregate(p, q, _halo_edge_set(e),
-                                                   impl=impl), filt.dtype)
+    return [_dense(filt.nn[2], edge_conv_aggregate(
+                p, q, _halo_edge_set(e, q.shape[0]), impl=impl), filt.dtype)
             for (p, _), q, e in zip(pq, q_ext, edges)]
 
 

@@ -19,8 +19,10 @@ The forward walks the model's own modules (models/stinet.py), so one state
 dict serves both paths. It keeps JAX's refusals: instance norm only, no
 label embedding, EdgeConv filters, pooling "mean" or "max".
 
-Not ported: `make_sharded_train_step`, which waits for the training half
-(ROADMAP.md: it needs K1's dp and dq over ragged rows).
+`make_sharded_train_step` trains through it: autograd runs back through
+the mesh's collectives (parallel/mesh.py) and the halo gathers (a
+scatter-add into the previous buffer), and K1's dp and dq run on the halo
+layout, dq over q's Vp + S*W rows (ops/ell.py).
 """
 from typing import List
 
@@ -34,6 +36,7 @@ from stinet_tpu_torch.models.stinet import (
 from stinet_tpu_torch.ops.ell import ell_pool_max, ell_pool_mean, ell_unpool
 from stinet_tpu_torch.parallel.sharded_block import (
     sharded_instance_norm, sharded_resnet_block)
+from stinet_tpu_torch.serving import full_f32_matmuls
 
 
 def check_partitionable(model: SurfaceTextureInpaintingNet) -> None:
@@ -125,3 +128,49 @@ def place_partitioned(mesh, pg: PartitionedGraph, placer
     if mesh.processes:
         return [placed]
     return [shard(placed, p, pg.n_parts) for p in mesh.parts]
+
+
+def make_sharded_train_step(mesh, model: SurfaceTextureInpaintingNet,
+                            optimizer, use_mask_weighted=True, impl=None):
+    """(train_step, loss_fn): the full train step on the partitioned
+    layout, the counterpart of JAX's (sharded_stinet.py:213-236).
+
+    loss_fn(graphs) -> (loss, share): the masked-composite L1
+    (trainers/graph_common.py:inpainting_loss_terms) over the valid level-0
+    rows of all partitions, its count summed over the mesh. `loss` is the
+    global value; `share` is this process's sum over the global count, so
+    that its backward, summed over the ranks, is the loss's gradient (on
+    the in-process mesh `share` is `loss`).
+    train_step(graphs, lr) -> loss: `share` backpropagated, the parameters'
+    gradients summed over the ranks of a process mesh (they are
+    replicated), one optimizer step at `lr`. f32 matmuls run in full f32,
+    as in the single-device step. Raises as `make_sharded_stinet` for a
+    model the partitioned forward does not cover."""
+    from stinet_tpu_torch.trainers.graph_common import (
+        inpainting_loss_terms, set_lr)
+    apply = make_sharded_stinet(mesh, model, impl)
+
+    def loss_fn(graphs: List[PartitionedGraph]):
+        terms = [inpainting_loss_terms(o, g.color, g.mask, g.levels[0].vmask,
+                                       use_mask_weighted)[:2]
+                 for o, g in zip(apply(graphs), graphs)]
+        n = torch.clamp(mesh.sum([n.detach() for _, n in terms])[0], min=1.0)
+        wsum = sum(w for w, _ in terms)
+        share = wsum / n
+        if not mesh.processes:
+            return share, share
+        return mesh.sum([wsum.detach()])[0] / n, share
+
+    def train_step(graphs: List[PartitionedGraph], lr):
+        model.train()
+        with full_f32_matmuls():
+            optimizer.zero_grad(set_to_none=True)
+            loss, share = loss_fn(graphs)
+            share.backward()
+            if mesh.processes:
+                mesh.all_reduce_grads(list(model.parameters()))
+            set_lr(optimizer, lr)
+            optimizer.step()
+        return loss.detach()
+
+    return train_step, loss_fn

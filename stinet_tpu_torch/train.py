@@ -9,15 +9,27 @@ Without `-d` the trainer runs on the card, and without one it exits with
 `serving.resolve_device`'s error; `-d cpu` runs the kernels' plain torch
 versions on the CPU. `--bs` sets the train batch size
 (`data_loader;args;train_batch_size`, the key the ScanNet loader reads).
+
+Across cards, one process a card under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m stinet_tpu_torch.train -c config.json
+
+`main` sets up the process group first (parallel/multihost.py: NCCL on
+cards, gloo on the CPU, each rank's card from LOCAL_RANK); in a plain run
+that is nothing. The batches then take the stacked layout, `--bs` is the
+global batch, and each rank trains on its slice of it.
 """
 import argparse
 import collections
 import subprocess
 
 import numpy as np
+import torch
 
 from stinet_tpu_torch.core.config import ConfigParser
 from stinet_tpu_torch.core.registry import TRAINERS
+from stinet_tpu_torch.parallel import multihost
 import stinet_tpu_torch.trainers  # noqa: F401  (registers trainer types)
 
 DEFAULT_SEED = 123
@@ -53,6 +65,10 @@ def parser():
                       help='evaluate on the "train", "valid" or "test" sets')
     args.add_argument("-v", "--vis", default=False, action="store_true",
                       help="visualize evaluation")
+    args.add_argument("--deterministic", default=False, action="store_true",
+                      help="torch's deterministic algorithms (warnings for "
+                      "ops without one), so that two runs give the same "
+                      "bits on a card")
     return args
 
 
@@ -64,6 +80,7 @@ def run(config):
     seed = config.get("seed") if config.get("seed") is not None \
         else DEFAULT_SEED
     logger.info("Random seed: %s", seed)
+    logger.info("Processes: %s", multihost.describe())
 
     git_hash = config.get("git_hash")
     if git_hash is None:
@@ -87,7 +104,11 @@ def run(config):
 
 
 def main(argv=None):
-    """Parse `argv` (sys.argv when None) and run; returns the trainer."""
+    """Set up the process group under torchrun (nothing otherwise), parse
+    `argv` (sys.argv when None) and run; returns the trainer."""
+    multihost.initialize()
+    if parser().parse_known_args(argv)[0].deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
     return run(ConfigParser.from_args(parser(), OPTIONS, argv))
 
 

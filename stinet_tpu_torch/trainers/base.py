@@ -1,9 +1,15 @@
 """BaseTrainer: the epoch loop with wall-clock timing, metric-monitored
 best tracking, early stopping and periodic checkpoints. The counterpart of
 `stinet_tpu/trainers/base.py` (monitor strings like "min val_loss",
-save_period, early_stop, dry_run), for one process: the JAX package's
-multi-host averaging and barriers have nothing to do here.
-`SingleModelTrainer` adds the checkpoints of a trainer of one model."""
+save_period, early_stop, dry_run).
+
+In a `torch.distributed` group of more than one rank (parallel/
+multihost.py) every rank trains on its share of each batch and runs this
+loop: the epoch log is averaged across ranks (`mean_scalar_metrics`), so
+the monitor's decisions agree; only rank 0 writes TensorBoard logs and
+checkpoints, and every rank waits at the save points (`sync_hosts`). In
+one process all of that is the identity. `SingleModelTrainer` adds the
+checkpoints of a trainer of one model."""
 import time
 from abc import abstractmethod
 
@@ -11,6 +17,7 @@ import numpy as np
 
 from stinet_tpu_torch.core.checkpoint import load_checkpoint, save_checkpoint
 from stinet_tpu_torch.core.writer import TensorboardWriter
+from stinet_tpu_torch.parallel import multihost
 
 
 class BaseTrainer:
@@ -39,7 +46,8 @@ class BaseTrainer:
         self.checkpoint_dir = config.save_dir
         self.writer = TensorboardWriter(
             config.log_dir, self.logger,
-            cfg.get("tensorboard", False) and not config.dry_run)
+            cfg.get("tensorboard", False) and not config.dry_run
+            and multihost.is_primary())
 
     @abstractmethod
     def _train_epoch(self, epoch):
@@ -56,6 +64,9 @@ class BaseTrainer:
             result = self._train_epoch(epoch)
             log = {"epoch": epoch, "time elapsed": time.perf_counter() - t0}
             log.update(result)
+            # each rank trained on its share: average the floats, so the
+            # decisions below agree on every rank
+            log = multihost.mean_scalar_metrics(log)
 
             for key, value in log.items():
                 self.logger.info("    {:15s}: {}".format(str(key), value))
@@ -89,10 +100,15 @@ class BaseTrainer:
                         break
 
             if not self.config.dry_run:
+                # rank 0 writes; every rank waits at the same points
                 if epoch % self.save_period == 0:
-                    self._save_checkpoint(epoch)
+                    if multihost.is_primary():
+                        self._save_checkpoint(epoch)
+                    multihost.sync_hosts("save_checkpoint")
                 if best:
-                    self._save_best(epoch)
+                    if multihost.is_primary():
+                        self._save_best(epoch)
+                    multihost.sync_hosts("save_best")
 
     def _observe_lr(self, log):
         """Feed the monitored metric to stateful LR schedulers

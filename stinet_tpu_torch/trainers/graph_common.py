@@ -2,7 +2,8 @@
 `optimizer` block, the epoch -> learning-rate schedules, the inpainting
 loss and metrics, the train / eval step factories with gradient
 accumulation (over concatenated batches, and over stacked ones scene by
-scene), and the placement of a loader's batches on the device.
+scene, across the ranks of a data mesh too), the data mesh of a
+multi-process run, and the placement of a loader's batches on the device.
 
 PyTorch counterpart of `stinet_tpu/trainers/graph_common.py`. The JAX
 package writes torch's Adam(amsgrad=True) out by hand
@@ -19,6 +20,7 @@ import torch
 from stinet_tpu_torch.data.prefetch import PrefetchIterator
 from stinet_tpu_torch.graph.hierarchy import HierarchicalGraph, scene_of
 from stinet_tpu_torch.metrics import graph_metrics as gm
+from stinet_tpu_torch.parallel import multihost
 from stinet_tpu_torch.serving import PackedPlacer, full_f32_matmuls
 
 
@@ -198,6 +200,42 @@ def set_lr(optimizer, lr) -> None:
         group["lr"] = float(lr)
 
 
+def mesh_sum(mesh, t):
+    """t summed over the ranks of `mesh` (a new tensor); t itself without
+    a mesh."""
+    return t if mesh is None else mesh.all_reduce_(t.detach().clone())
+
+
+class _MeshGrads:
+    """Hold the parameters' gradients aside before a call's backward, then
+    sum the call's fresh gradients over the ranks of the mesh (one
+    all_reduce of one flat buffer) and add them to what was held. Each
+    call's gradients are summed as JAX's mesh step psums them, so a
+    partial accumulation is the same on every rank, and rank 0's
+    checkpoint of it holds the global sum. Does nothing without a mesh."""
+
+    def __init__(self, mesh, model):
+        self.mesh, self.model = mesh, model
+
+    def hold(self):
+        if self.mesh is None:
+            return None
+        held = []
+        for p in self.model.parameters():
+            held.append(p.grad)
+            p.grad = None
+        return held
+
+    def reduce(self, held):
+        if self.mesh is None:
+            return
+        params = list(self.model.parameters())
+        self.mesh.all_reduce_grads(params)
+        for p, h in zip(params, held):
+            if h is not None:
+                p.grad = h if p.grad is None else h + p.grad
+
+
 class _TrainStep:
     """train_step(graph, lr) -> what `metrics_of` returns, with gradient
     accumulation over `accumulate` calls. `loss_of(graph)` gives (loss,
@@ -207,13 +245,19 @@ class _TrainStep:
     use, steps on the mean of the gradients; this is the same sum). The
     partial sum carries over from call to call, so over an epoch's end as
     well; `state` and `load_state` hold it for checkpoints. The result is
-    `metrics_of(graph, loss, aux)`, taken without gradients."""
+    `metrics_of(graph, loss, aux)`, taken without gradients. With a data
+    `mesh` each call's fresh gradients are summed over its ranks
+    (`_MeshGrads`), so `loss_of` gives this rank's share of the global
+    loss."""
 
-    def __init__(self, model, optimizer, loss_of, accumulate, metrics_of):
+    def __init__(self, model, optimizer, loss_of, accumulate, metrics_of,
+                 mesh=None):
         self.model, self.optimizer = model, optimizer
         self.loss_of, self.accumulate = loss_of, int(accumulate)
         self.metrics_of = metrics_of
         self.mini_step = 0
+        self.mesh = mesh
+        self._grads = _MeshGrads(mesh, model)
 
     def __call__(self, graph, lr):
         self.model.train()
@@ -236,8 +280,10 @@ class _TrainStep:
     def _backward(self, graph, lr):
         """The call's loss / accumulate backpropagated into the gradients;
         returns (loss, aux)."""
+        held = self._grads.hold()
         loss, aux = self._loss(graph, lr)
         (loss / self.accumulate if self.accumulate > 1 else loss).backward()
+        self._grads.reduce(held)
         return loss, aux
 
     def state(self):
@@ -295,26 +341,36 @@ class _StackedTrainStep(_TrainStep):
     `loss_of(scene)` gives (wsum, n, composite); the gradient that reaches
     the parameters is sum_b grad(wsum_b) / sum_b n_b / accumulate, the
     concatenated batch's up to summation order (n does not depend on the
-    parameters, so sum_b n_b is taken from the vertex counts first)."""
+    parameters, so sum_b n_b is taken from the vertex counts first).
+
+    With a data `mesh` (parallel/mesh.py:ProcessMesh) each rank holds its
+    slice of the global batch: n is summed over the ranks before the
+    backward, each rank's scenes are scaled by that global n, the call's
+    gradients are summed over the ranks in one all_reduce (`_MeshGrads`),
+    and every rank takes the same optimizer step."""
 
     def _backward(self, graph, lr):
         scenes = [scene_of(graph, i) for i in range(graph.x.shape[0])]
-        n = torch.clamp(sum(vertex_mask(g).sum() for g in scenes)
-                        * graph.color.shape[-1], min=1.0)
+        n = torch.clamp(mesh_sum(self.mesh, sum(
+            vertex_mask(g).sum() for g in scenes) * graph.color.shape[-1]),
+            min=1.0)
+        held = self._grads.hold()
         wsum, composites = 0.0, []
         for g in scenes:
             w, _, composite = self.loss_of(g)
             (w / (n * self.accumulate)).backward()
             wsum = wsum + w.detach()
             composites.append(composite.detach())
-        return wsum / n, torch.stack(composites)
+        self._grads.reduce(held)
+        return mesh_sum(self.mesh, wsum) / n, torch.stack(composites)
 
 
-def _stacked_metrics(graph, loss, composite):
+def _stacked_metrics(graph, loss, composite, mesh=None):
     """Per-scene metrics averaged with the scenes' valid-vertex counts as
     weights; "loss" is the batch's exact loss. PSNRs are per scene before
     the average, as in JAX's stacked step (a monitoring difference from
-    the concatenated layout's)."""
+    the concatenated layout's). With a data mesh the weighted sums and the
+    weights are summed over the ranks first (one all_reduce)."""
     sums, total = {}, 0.0
     for i in range(composite.shape[0]):
         g = scene_of(graph, i)
@@ -322,23 +378,30 @@ def _stacked_metrics(graph, loss, composite):
         for k, v in inpainting_metrics(composite[i], g, loss).items():
             sums[k] = sums.get(k, 0.0) + v * w
         total = total + w
+    if mesh is not None:
+        flat = mesh_sum(mesh, torch.stack(
+            [sums[k].to(torch.float32) for k in sums]
+            + [total.to(torch.float32)]))
+        sums, total = dict(zip(sums, flat[:-1])), flat[-1]
     out = {k: v / torch.clamp(total, min=1.0) for k, v in sums.items()}
     out["loss"] = loss
     return out
 
 
 def make_stacked_inpainting_steps(model, optimizer, use_mask_weighted,
-                                  impl=None, accumulate=1):
+                                  impl=None, accumulate=1, mesh=None):
     """(train_step, eval_step) over stacked graphs (graph/build.py
     `build_stacked_graph`) already on the model's device, the counterpart
-    of stinet_tpu/trainers/graph_common.py:make_stacked_inpainting_steps
-    without a mesh: a loop over the scenes, each scene's gradient of its
-    weighted sum accumulated, one optimizer step on their sum over the
-    batch's valid-vertex count (`_StackedTrainStep`); loss
-    sum wsum / sum n; metrics per scene, averaged with valid-vertex
-    weights. eval_step(graph) -> (metrics, [B, V_pad, 3] composites).
-    Batch-norm models are refused, as in JAX: per-scene batch statistics
-    would differ from the batch's."""
+    of stinet_tpu/trainers/graph_common.py:make_stacked_inpainting_steps:
+    a loop over the scenes, each scene's gradient of its weighted sum
+    accumulated, one optimizer step on their sum over the batch's
+    valid-vertex count (`_StackedTrainStep`); loss sum wsum / sum n;
+    metrics per scene, averaged with valid-vertex weights.
+    eval_step(graph) -> (metrics, [B, V_pad, 3] composites). With a data
+    `mesh` each rank passes its slice of the global batch, and the sums
+    (gradients, wsum, n, the metrics' weighted sums) run over the ranks,
+    as JAX's shard_map psums them. Batch-norm models are refused, as in
+    JAX: per-scene batch statistics would differ from the batch's."""
     if any(getattr(m, "norm_type", None) == "batch" for m in model.modules()):
         raise ValueError("stacked batching does not support batch-norm "
                          "models (per-scene batch statistics would diverge);"
@@ -349,18 +412,90 @@ def make_stacked_inpainting_steps(model, optimizer, use_mask_weighted,
         return inpainting_loss_terms(out, graph.color, graph.mask,
                                      vertex_mask(graph), use_mask_weighted)
 
+    def metrics_of(graph, loss, composite):
+        return _stacked_metrics(graph, loss, composite, mesh)
+
     def eval_step(graph):
         model.eval()
         with full_f32_matmuls(), torch.no_grad():
             terms = [loss_of(scene_of(graph, i))
                      for i in range(graph.x.shape[0])]
-            loss = (sum(w for w, _, _ in terms)
-                    / torch.clamp(sum(n for _, n, _ in terms), min=1.0))
+            loss = (mesh_sum(mesh, sum(w for w, _, _ in terms))
+                    / torch.clamp(mesh_sum(mesh, sum(n for _, n, _ in terms)),
+                                  min=1.0))
             composite = torch.stack([c for _, _, c in terms])
-            return _stacked_metrics(graph, loss, composite), composite
+            return metrics_of(graph, loss, composite), composite
 
     return (_StackedTrainStep(model, optimizer, loss_of, accumulate,
-                              _stacked_metrics), eval_step)
+                              metrics_of, mesh), eval_step)
+
+
+# --- data parallelism across processes ---------------------------------------
+# The reference's `n_gpu` key (asserted to 1 there). A torch process drives
+# one card, so the port's data mesh is the torch.distributed process group
+# (parallel/mesh.py:ProcessMesh, one rank a card, started by torchrun); each
+# rank's loader builds its slice of every global stacked batch.
+
+CONCATENATED_REFUSAL = (
+    "concatenated batch graphs are single-process only; use stacked "
+    "batching across processes (the data loader's stacked_batching, which "
+    "a group of more than one rank forces)")
+
+
+def maybe_data_mesh(config_dict, device, logger=None):
+    """The data mesh of a run: in a torch.distributed group of more than
+    one rank, the group's `ProcessMesh` on `device`; else None. In one
+    process an `n_gpu` above 1 is logged and ignored: a torch process
+    drives one card, and a run across cards is one process a card under
+    torchrun (JAX's one-process mesh of several devices has no torch
+    counterpart)."""
+    if multihost.process_count() > 1:
+        from stinet_tpu_torch.parallel.mesh import ProcessMesh
+        mesh = ProcessMesh(device)
+        if logger is not None:
+            logger.info("Data parallelism: %d processes, this one rank %d on "
+                        "%s", mesh.n_parts, mesh.rank, mesh.device)
+        return mesh
+    n_req = int(config_dict.get("n_gpu", 1) or 1)
+    if n_req > 1 and logger is not None:
+        logger.warning(
+            "n_gpu=%d in one process: a torch process drives one card, so "
+            "this run uses one. Start one process a card with torchrun "
+            "(python -m torch.distributed.run --nproc_per_node %d -m "
+            "stinet_tpu_torch.train -c <config>)", n_req, n_req)
+    return None
+
+
+def replicate_to_mesh(mesh, model, optimizer=None):
+    """Rank 0's parameters, buffers and optimizer state on every rank
+    (broadcasts, in place); nothing without a mesh."""
+    if mesh is None:
+        return
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            mesh.broadcast_(t.data)
+        if optimizer is not None:
+            for state in optimizer.state.values():
+                for v in state.values():
+                    if isinstance(v, torch.Tensor):
+                        mesh.broadcast_(v)
+
+
+def place_stacked(mesh, stacked, device=None):
+    """A stacked batch on the device (the mesh's, else `device`). Across
+    processes each rank passes its own slice of the global batch, which its
+    loader built (data/scannet.py), as each JAX host passes its local one."""
+    return stacked.to(mesh.device if mesh is not None else device)
+
+
+def place_graph_on_mesh(mesh, graph, device=None):
+    """A concatenated batch on the device (the mesh's, else `device`).
+    Raises NotImplementedError in a group of more than one rank: a
+    concatenated graph's vertex ids and counts are the batch's, so it
+    cannot be split across processes (JAX's global_graph_from_local)."""
+    if mesh is not None and mesh.n_parts > 1:
+        raise NotImplementedError(CONCATENATED_REFUSAL)
+    return graph.to(mesh.device if mesh is not None else device)
 
 
 def skip_probe(data_loader):

@@ -44,11 +44,21 @@ asks for the CPU; weights are drawn from `torch.Generator`s seeded from the
 config's `seed` (the discriminator's from seed + 1). Batches reach the
 device through `iter_placed`, and every step, LPIPS, VGG and Inception
 forwards included, runs inside `full_f32_matmuls`. The JAX trainer's
-parameter-template probe reads the validation loader, which draws nothing,
-so the port does not probe.
+parameter-template probe reads the first validation batch, which draws
+nothing; where the validation loader has no batch it reads the first train
+batch, which shuffles the train order and draws the batch's samples, and
+the port reads it too (`_probe`), so its batches stay the JAX trainer's.
 
-Not ported here: the stacked layout and its 2d and GAN steps (ROADMAP.md,
-Queue 1 item 5). `use_gan` is ignored on the graph branch, as in JAX.
+With the loader's `stacked_batching` (forced in a torch.distributed group
+of more than one rank; one image a slice of a leading sample axis) the
+graph branch runs its images one by one (`make_stacked_inpainting2d_steps`:
+every image has the same pixel count, so the mean of the images' losses is
+the batch's), and the 2d branch and the GAN take the slices as one batch of
+images. Across ranks each rank holds its slice of the global batch: its
+losses and metrics are its share of the global batch means, the gradients
+(the discriminator's too) are summed over the ranks, and the discriminator
+steps before the generator's loss, as in one process. `use_gan` is ignored
+on the graph branch, as in JAX.
 """
 import time
 
@@ -66,8 +76,10 @@ from stinet_tpu_torch.models.gan_networks import gan_loss
 from stinet_tpu_torch.models.losses import total_variation_loss
 from stinet_tpu_torch.serving import full_f32_matmuls, resolve_device
 from stinet_tpu_torch.trainers.base import SingleModelTrainer
+from stinet_tpu_torch.graph.hierarchy import scene_of
 from stinet_tpu_torch.trainers.graph_common import (
-    _TrainStep, build_optimizer, host_metrics, iter_placed, set_lr,
+    CONCATENATED_REFUSAL, _TrainStep, build_optimizer, host_metrics,
+    iter_placed, maybe_data_mesh, mesh_sum, replicate_to_mesh, set_lr,
     step_lr, vertex_mask)
 from stinet_tpu_torch.trainers.inpainting3d import (
     _timed, check_nan_in_params)
@@ -87,16 +99,11 @@ def _perceptual_terms(composite, color, vgg, vgg_weights, tv_weight):
     return extra
 
 
-def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
-                            lpips_tag="lpips", tv_weight=None, vgg=None,
-                            vgg_weights=(0.03, 3000.0), impl=None,
-                            accumulate=1):
-    """(train_step, eval_step) of the graph branch over grid graphs
-    already on the model's device. train_step(graph, lr) -> metrics, one
-    optimizer step at `lr` every `accumulate` calls (`_TrainStep`);
-    eval_step(graph) -> (metrics, composite rows) without gradients. The
-    loss adds `_perceptual_terms` on the composite images; `lpips` (an
-    LPIPS module) adds its batch mean to the metrics as `lpips_tag`."""
+def _graph_branch(model, img_size, lpips, lpips_tag, tv_weight, vgg,
+                  vgg_weights, impl):
+    """(loss_of, metrics_of) of the graph branch on a grid batch (one or
+    more images a graph): loss_of(graph) -> (loss, composite rows);
+    metrics_of(graph, loss, composite) -> the metric dict."""
     def images(flat):
         return flat.reshape(-1, img_size, img_size, flat.shape[-1])
 
@@ -128,6 +135,22 @@ def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
                                    images(graph.color[:n])).mean()
         return out
 
+    return loss_of, metrics_of
+
+
+def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
+                            lpips_tag="lpips", tv_weight=None, vgg=None,
+                            vgg_weights=(0.03, 3000.0), impl=None,
+                            accumulate=1):
+    """(train_step, eval_step) of the graph branch over grid graphs
+    already on the model's device. train_step(graph, lr) -> metrics, one
+    optimizer step at `lr` every `accumulate` calls (`_TrainStep`);
+    eval_step(graph) -> (metrics, composite rows) without gradients. The
+    loss adds `_perceptual_terms` on the composite images; `lpips` (an
+    LPIPS module) adds its batch mean to the metrics as `lpips_tag`."""
+    loss_of, metrics_of = _graph_branch(model, img_size, lpips, lpips_tag,
+                                        tv_weight, vgg, vgg_weights, impl)
+
     def eval_step(graph):
         model.eval()
         with full_f32_matmuls(), torch.no_grad():
@@ -138,15 +161,82 @@ def make_inpainting2d_steps(model, optimizer, img_size, lpips=None,
             eval_step)
 
 
+class _StackedImagesStep(_TrainStep):
+    """The graph branch's step over a stacked batch: each image's forward
+    and backward in turn, the gradient sum_b grad(loss_b) / B (B summed
+    over the ranks of a data mesh first, the gradients after)."""
+
+    def _backward(self, graph, lr):
+        scenes = [scene_of(graph, i) for i in range(graph.x.shape[0])]
+        b = mesh_sum(self.mesh, torch.tensor(float(len(scenes)),
+                                             device=graph.x.device))
+        held = self._grads.hold()
+        lsum, composites = 0.0, []
+        for g in scenes:
+            loss, composite = self.loss_of(g)
+            (loss / (b * self.accumulate)).backward()
+            lsum = lsum + loss.detach()
+            composites.append(composite.detach())
+        self._grads.reduce(held)
+        return mesh_sum(self.mesh, lsum) / b, torch.stack(composites)
+
+
+def make_stacked_inpainting2d_steps(model, optimizer, img_size, lpips=None,
+                                    lpips_tag="lpips", tv_weight=None,
+                                    vgg=None, vgg_weights=(0.03, 3000.0),
+                                    impl=None, accumulate=1, mesh=None):
+    """(train_step, eval_step) of the graph branch over stacked grid
+    graphs (one image a slice), the counterpart of JAX's
+    `_make_stacked_graph_steps`: the images one by one, the loss the mean
+    of their losses (each image has s^2 pixels, so it is the concatenated
+    batch's), each metric the mean of the images' (PSNR and
+    graph_lap_var pooled per image first, as in JAX); with a data `mesh`
+    over every rank's images. eval_step(graph) -> (metrics, [B, V_pad, 3]
+    composites)."""
+    loss_of, scene_metrics = _graph_branch(
+        model, img_size, lpips, lpips_tag, tv_weight, vgg, vgg_weights, impl)
+
+    def metrics_of(graph, loss, composites):
+        sums = {}
+        for i in range(composites.shape[0]):
+            for k, v in scene_metrics(scene_of(graph, i), loss,
+                                      composites[i]).items():
+                sums[k] = sums.get(k, 0.0) + v
+        keys = [k for k in sums if k != "loss"]
+        flat = mesh_sum(mesh, torch.stack(
+            [sums[k].to(torch.float32) for k in keys]
+            + [torch.tensor(float(composites.shape[0]),
+                            device=composites.device)]))
+        out = {"loss": loss}
+        out.update({k: v / flat[-1] for k, v in zip(keys, flat[:-1])})
+        return out
+
+    def eval_step(graph):
+        model.eval()
+        with full_f32_matmuls(), torch.no_grad():
+            terms = [loss_of(scene_of(graph, i))
+                     for i in range(graph.x.shape[0])]
+            b = mesh_sum(mesh, torch.tensor(float(len(terms)),
+                                            device=graph.x.device))
+            loss = mesh_sum(mesh, sum(l for l, _ in terms)) / b
+            composites = torch.stack([c for _, c in terms])
+            return metrics_of(graph, loss, composites), composites
+
+    return (_StackedImagesStep(model, optimizer, loss_of, accumulate,
+                               metrics_of, mesh), eval_step)
+
+
 # --- the 2d branch -----------------------------------------------------------
 
 def batch_images(graph, img_size):
-    """(x, color, mask) of a grid batch's first num_graphs * img_size^2
-    rows as [B, s, s, C] images."""
-    n = graph.num_graphs * img_size * img_size
+    """(x, color, mask) of a grid batch as [B, s, s, C] images: its first
+    num_graphs * img_size^2 rows, or each slice's first img_size^2 rows of
+    a stacked batch."""
+    n = img_size * img_size
 
-    def images(flat):
-        return flat[:n].reshape(-1, img_size, img_size, flat.shape[-1])
+    def images(t):
+        rows = t[:, :n] if t.dim() == 3 else t[:graph.num_graphs * n]
+        return rows.reshape(-1, img_size, img_size, t.shape[-1])
     return images(graph.x), images(graph.color), images(graph.mask)
 
 
@@ -160,17 +250,30 @@ def nhwc_forward(model, x):
     return model(_nchw(x)).permute(0, 2, 3, 1)
 
 
-def image_metrics(composite, color, loss, lpips=None, lpips_tag="lpips"):
+def image_metrics(composite, color, loss, lpips=None, lpips_tag="lpips",
+                  mesh=None):
     """The 2d branch's metric dict from [B, s, s, 3] images (JAX's
     `_image_metrics_from`): psnr -10 log10(mse / 4 + 1e-8), graph_tv and
-    graph_lap_var 0."""
+    graph_lap_var 0. With a data `mesh` the images are this rank's equal
+    share of the global batch, `loss` this rank's share of the global
+    loss: the means are summed over the ranks at their share, the psnr
+    taken from the global mse."""
     mse = ((composite - color) ** 2).mean()
+    l1 = (composite - color).abs().mean()
+    lp = None if lpips is None else lpips(composite, color).mean()
+    if mesh is not None:
+        share = 1.0 / mesh.n_parts
+        flat = mesh_sum(mesh, torch.stack(
+            [loss, l1 * share, mse * share]
+            + ([] if lp is None else [lp * share])))
+        loss, l1, mse = flat[0], flat[1], flat[2]
+        lp = None if lp is None else flat[3]
     zero = torch.zeros((), device=color.device)
-    out = {"loss": loss, "l1": (composite - color).abs().mean(), "mse": mse,
+    out = {"loss": loss, "l1": l1, "mse": mse,
            "psnr": -10.0 * torch.log10(mse / 4.0 + 1e-8),
            "graph_tv": zero, "graph_lap_var": zero}
-    if lpips is not None:
-        out[lpips_tag] = lpips(composite, color).mean()
+    if lp is not None:
+        out[lpips_tag] = lp
     return out
 
 
@@ -183,8 +286,9 @@ class GanStep(_TrainStep):
 
     def __init__(self, model, optimizer, disc, disc_optimizer, img_size,
                  gan_mode, gan_loss_weight, tv_weight, accumulate,
-                 metrics_of):
-        super().__init__(model, optimizer, None, accumulate, metrics_of)
+                 metrics_of, mesh=None):
+        super().__init__(model, optimizer, None, accumulate, metrics_of,
+                         mesh)
         self.disc, self.disc_optimizer = disc, disc_optimizer
         self.img_size, self.gan_mode = img_size, gan_mode
         self.gan_loss_weight, self.tv_weight = gan_loss_weight, tv_weight
@@ -228,11 +332,19 @@ class GanStep(_TrainStep):
         self.disc.requires_grad_(True)
         self.disc_optimizer.zero_grad(set_to_none=True)
         d_loss, terms = self.disc_loss(fake, color, prior)
+        if self.mesh is not None:
+            # this rank's share of the global batch mean; the
+            # discriminator's gradients summed over the ranks
+            d_loss = d_loss / self.mesh.n_parts
         d_loss.backward()
+        if self.mesh is not None:
+            self.mesh.all_reduce_grads(list(self.disc.parameters()))
         set_lr(self.disc_optimizer, lr)
         self.disc_optimizer.step()
         loss, lg = self.gen_loss(fake, color, prior)
         terms["loss_G"] = lg.detach()
+        if self.mesh is not None:
+            loss = loss / self.mesh.n_parts
         return loss, (fake, color, terms)
 
 
@@ -240,26 +352,36 @@ def make_resnet2d_steps(model, optimizer, img_size, lpips=None,
                         lpips_tag="lpips", tv_weight=None, vgg=None,
                         vgg_weights=(0.03, 3000.0), accumulate=1, disc=None,
                         disc_optimizer=None, gan_mode="lsgan",
-                        gan_loss_weight=1e-3):
+                        gan_loss_weight=1e-3, mesh=None):
     """(train_step, eval_step) of the 2d branch over grid batches already
-    on the model's device, as `make_inpainting2d_steps` but on the
-    batch's images; eval_step's composite is [B, s, s, 3]. With `disc`
-    (and its `disc_optimizer`), train_step is the `GanStep`."""
+    on the model's device, concatenated or stacked (`batch_images`), as
+    `make_inpainting2d_steps` but on the batch's images; eval_step's
+    composite is [B, s, s, 3]. With `disc` (and its `disc_optimizer`),
+    train_step is the `GanStep`. With a data `mesh` each rank's images are
+    its equal share of the global batch: its loss and metrics are its
+    share of the global means, which the ranks sum, as the gradients."""
     def loss_of(graph):
         x, color, mask = batch_images(graph, img_size)
         composite = torch.where(mask > 0, nhwc_forward(model, x), color)
         loss = (composite - color).abs().mean() + _perceptual_terms(
             composite, color, vgg, vgg_weights, tv_weight)
+        if mesh is not None:
+            loss = loss / mesh.n_parts
         return loss, composite
 
     def metrics_of(graph, loss, composite):
         _, color, _ = batch_images(graph, img_size)
         return image_metrics(composite.detach(), color, loss, lpips,
-                             lpips_tag)
+                             lpips_tag, mesh)
 
     def gan_metrics_of(graph, loss, aux):
         fake, color, terms = aux
-        out = image_metrics(fake.detach(), color, loss, lpips, lpips_tag)
+        out = image_metrics(fake.detach(), color, loss, lpips, lpips_tag,
+                            mesh)
+        if mesh is not None:
+            flat = mesh_sum(mesh, torch.stack(list(terms.values()))
+                            / mesh.n_parts)
+            terms = dict(zip(terms, flat))
         out.update(terms)
         return out
 
@@ -271,10 +393,10 @@ def make_resnet2d_steps(model, optimizer, img_size, lpips=None,
 
     if disc is None:
         return (_TrainStep(model, optimizer, loss_of, accumulate,
-                           metrics_of), eval_step)
+                           metrics_of, mesh), eval_step)
     return (GanStep(model, optimizer, disc, disc_optimizer, img_size,
                     gan_mode, gan_loss_weight, tv_weight, accumulate,
-                    gan_metrics_of), eval_step)
+                    gan_metrics_of, mesh), eval_step)
 
 
 def _refuse_what_jax_cannot_train(arch_args):
@@ -315,6 +437,7 @@ class Inpainting2DTrainer(SingleModelTrainer):
 
         self.data_loader = config.init_obj_with_config(
             "data_loader", DATALOADERS)
+        self._probe()
         self.img_size = config["data_loader"]["args"]["img_size"]
 
         tcfg = config["trainer"]
@@ -361,8 +484,17 @@ class Inpainting2DTrainer(SingleModelTrainer):
             vgg_weights=(self.vgg_content_weight, self.vgg_style_weight),
             accumulate=self.num_accum)
         self.disc = self.disc_optimizer = None
+        # the loader decides the layout, the trainer follows
+        self._stacked = bool(getattr(self.data_loader, "stacked", False))
+        self._mesh = maybe_data_mesh(config.config, self.device, logger)
+        if self._mesh is not None and not self._stacked:
+            raise NotImplementedError(CONCATENATED_REFUSAL)
         if self.branch == "graph":
-            self._train_step, self._eval_step = make_inpainting2d_steps(
+            make_steps = (make_stacked_inpainting2d_steps if self._stacked
+                          else make_inpainting2d_steps)
+            if self._stacked:
+                common["mesh"] = self._mesh
+            self._train_step, self._eval_step = make_steps(
                 self.model, self.optimizer, self.img_size, impl=impl,
                 **common)
         else:
@@ -378,10 +510,13 @@ class Inpainting2DTrainer(SingleModelTrainer):
             self._train_step, self._eval_step = make_resnet2d_steps(
                 self.model, self.optimizer, self.img_size, disc=self.disc,
                 disc_optimizer=self.disc_optimizer, gan_mode=self.gan_mode,
-                gan_loss_weight=self.gan_loss_weight, **common)
+                gan_loss_weight=self.gan_loss_weight, mesh=self._mesh,
+                **common)
 
         if config.resume is not None:
             self._resume_checkpoint(config.resume)
+        for model, optimizer in self._checkpointed().values():
+            replicate_to_mesh(self._mesh, model, optimizer)
 
         metrics = ["loss", "l1", "mse", "psnr", "graph_tv", "graph_lap_var"]
         if self.lpips is not None:
@@ -397,6 +532,18 @@ class Inpainting2DTrainer(SingleModelTrainer):
         # Inception forwards up to the host copy, "distance_s": the host
         # statistics and Frechet distance}
         self.fid_timings = []
+
+    def _probe(self):
+        """Advance the loaders as the JAX trainer's parameter-template
+        probe does: it reads the first validation batch (no draws), or,
+        where there is none, the first train batch."""
+        for loader in (self.data_loader.val_loader,
+                       self.data_loader.train_loader):
+            if len(loader):
+                if loader is self.data_loader.train_loader:
+                    next(iter(loader))
+                return
+        raise RuntimeError("No data available")
 
     def _checkpointed(self):
         parts = super()._checkpointed()
@@ -459,11 +606,15 @@ class Inpainting2DTrainer(SingleModelTrainer):
         return random_lpips(torch.Generator().manual_seed(0)).to(self.device)
 
     def _images(self, t, n_images):
-        """[n_images, s, s, C] from the first rows of a [V_pad, C] leaf, or
-        of the 2d branch's [B, s, s, C] images."""
+        """This rank's [n_images, s, s, C] images from the first rows of a
+        [V_pad, C] leaf, each slice's first rows of a stacked [B, V_pad, C]
+        leaf, or the 2d branch's [B, s, s, C] images (JAX's
+        `_local_images`)."""
         if t.dim() == 4:
             return t[:n_images]
         s = self.img_size
+        if t.dim() == 3:
+            return t[:n_images, :s * s].reshape(n_images, s, s, -1)
         return t[:n_images * s * s].reshape(n_images, s, s, -1)
 
     # ------------------------------------------------------------------

@@ -17,6 +17,13 @@ i+1's copy overlaps step i. `impl` goes to the model, as in
 `SceneInpainter`: None runs the CUDA kernels on a card, "plain" their plain
 torch versions.
 
+In a torch.distributed group of more than one rank (one process a card,
+started by torchrun; parallel/multihost.py) the loader takes the stacked
+layout and builds each rank's slice of every global batch, and the steps
+sum their gradients, losses and metrics over the ranks
+(`graph_common.maybe_data_mesh`); rank 0's weights and optimizer state are
+broadcast at the start.
+
 The JAX trainer reads one batch at construction for its parameter
 template, which advances the train loader's epoch key and shuffle by one
 iteration. The port needs no template, but advances the loader the same
@@ -34,8 +41,9 @@ from stinet_tpu_torch.models.factory import define_G
 from stinet_tpu_torch.serving import resolve_device
 from stinet_tpu_torch.trainers.base import SingleModelTrainer
 from stinet_tpu_torch.trainers.graph_common import (
-    build_optimizer, host_metrics, iter_placed, make_inpainting_steps,
-    make_stacked_inpainting_steps, skip_probe, step_lr)
+    CONCATENATED_REFUSAL, build_optimizer, host_metrics, iter_placed,
+    make_inpainting_steps, make_stacked_inpainting_steps, maybe_data_mesh,
+    replicate_to_mesh, skip_probe, step_lr)
 from stinet_tpu_torch.utils.profiling import device_memory_stats
 
 METRICS = ("loss", "l1", "mse", "graph_tv", "graph_lap_var", "psnr",
@@ -106,14 +114,21 @@ class Inpainting3DTrainer(SingleModelTrainer):
 
         # the loader decides the layout, the trainer follows
         self._stacked = bool(getattr(self.data_loader, "stacked", False))
-        make_steps = (make_stacked_inpainting_steps if self._stacked
-                      else make_inpainting_steps)
-        self._train_step, self._eval_step = make_steps(
-            self.model, self.optimizer, self.use_mask_weighted_loss,
-            impl=impl, accumulate=self.num_accum)
+        self._mesh = maybe_data_mesh(config.config, self.device, logger)
+        if self._stacked:
+            self._train_step, self._eval_step = make_stacked_inpainting_steps(
+                self.model, self.optimizer, self.use_mask_weighted_loss,
+                impl=impl, accumulate=self.num_accum, mesh=self._mesh)
+        elif self._mesh is not None:
+            raise NotImplementedError(CONCATENATED_REFUSAL)
+        else:
+            self._train_step, self._eval_step = make_inpainting_steps(
+                self.model, self.optimizer, self.use_mask_weighted_loss,
+                impl=impl, accumulate=self.num_accum)
 
         if config.resume is not None:
             self._resume_checkpoint(config.resume)
+        replicate_to_mesh(self._mesh, self.model, self.optimizer)
 
         self.train_metrics = MetricTracker(*METRICS, writer=self.writer)
         self.valid_metrics = MetricTracker(*METRICS, writer=self.writer)

@@ -1435,6 +1435,90 @@ def test_predict_partitioned_on_the_card_matches_the_cpu(dev, n_parts):
     np.testing.assert_allclose(got, card.predict(scene), rtol=0, atol=1e-5)
 
 
+# --- partitioned training: K1's dp and dq on ragged rows -----------------------
+
+@pytest.mark.parametrize("halo", [1, 37, 300, 4100])
+@pytest.mark.parametrize("h", [64, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dp_dq_kernels_on_ragged_rows_bitwise(dev, dtype, h, halo):
+    """dp and dq with q of V + halo rows (more than p and g), nbr over q's
+    rows and the reverse tables over q's rows, as partitioned training
+    launches them: bit for bit the plain versions, dq shaped as q."""
+    rng = np.random.default_rng(halo + h)
+    v, d = 900, 7
+    vq = v + halo
+    p = _cuda_t(rng.normal(size=(v, h)), dev).to(dtype)
+    g = _cuda_t(rng.normal(size=(v, h)), dev).to(dtype)
+    q = _cuda_t(rng.normal(size=(vq, h)), dev).to(dtype)
+    nbr_np = rng.integers(0, vq, size=(v, d)).astype(np.int32)
+    deg_np = rng.integers(0, d + 1, size=v)
+    rev = [[] for _ in range(vq)]
+    for r in range(v):
+        for s in nbr_np[r, :deg_np[r]]:
+            rev[s].append(r)
+    dr = max(1, max(len(x) for x in rev))
+    rev_np = np.zeros((vq, dr), np.int32)
+    for s, x in enumerate(rev):
+        rev_np[s, :len(x)] = x
+    nbr, deg = _cuda_t(nbr_np, dev), _cuda_t(deg_np.astype(np.float32), dev)
+    rev_dst = _cuda_t(rev_np, dev)
+    dout = _cuda_t(np.asarray([len(x) for x in rev], np.float32), dev)
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    before = (ell.ell_edge_conv_dp_kernel.launches,
+              ell.ell_edge_conv_dq_kernel.launches)
+    dp = ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, g)
+    dq = ell.ell_edge_conv_dq_kernel(q, g, p, rev_dst, dout)
+    want_dp = ell.ell_edge_conv_dp_plain(p, q, nbr, deg, g)
+    want_dq = ell.ell_edge_conv_dq_plain(q, g, p, rev_dst, dout)
+    torch.cuda.synchronize()
+    assert dp.shape == p.shape and dq.shape == q.shape
+    assert torch.equal(dp.view(view), want_dp.view(view))
+    assert torch.equal(dq.view(view), want_dq.view(view))
+    assert (ell.ell_edge_conv_dp_kernel.launches,
+            ell.ell_edge_conv_dq_kernel.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    with pytest.raises(ValueError):     # g must have p's rows
+        ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, q)
+    with pytest.raises(ValueError):     # the reverse tables have q's rows
+        ell.ell_edge_conv_dq_kernel(q, g, p, rev_dst[:v], dout[:v])
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_partitioned_train_step_on_the_card_matches_the_cpu(dev, n_parts):
+    """One partitioned train step (K1, dp and dq on the halo layout) on
+    the card's in-process mesh against the CPU's: the loss, every
+    gradient and the weights after one SGD step within 1e-5 (|diff| <=
+    1e-5 + 1e-5 |cpu|; the card's scatter adds are atomic)."""
+    from stinet_tpu_torch.graph.partition import partition_hierarchy
+    from stinet_tpu_torch.parallel.mesh import make_mesh
+    from stinet_tpu_torch.parallel.sharded_stinet import (
+        make_sharded_train_step, place_partitioned)
+    from stinet_tpu_torch.utils.hostile import hostile_scene
+    scene = hostile_scene(3000, "terrain", seed=0)
+    pg, _ = partition_hierarchy(scene, n_parts)
+    out = {}
+    for where in ("cpu", dev):
+        model = define_G(**PART_TINY,
+                         generator=torch.Generator().manual_seed(2)).to(where)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1)
+        mesh = make_mesh(n_parts, where)
+        step, _ = make_sharded_train_step(mesh, model, opt)
+        graphs = place_partitioned(mesh, pg, PackedPlacer(torch.device(where)))
+        before = ell.ell_edge_conv_dq_kernel.launches
+        loss = step(graphs, 0.1)
+        launched = ell.ell_edge_conv_dq_kernel.launches - before
+        out[str(where)] = (float(loss), launched, {
+            k: p.grad.cpu() for k, p in model.named_parameters()},
+            {k: v.cpu() for k, v in model.state_dict().items()})
+    (cl, _, cg, cs), (gl, launched, gg, gs) = out["cpu"], out[str(dev)]
+    assert launched > 0
+    np.testing.assert_allclose(gl, cl, rtol=1e-5, atol=1e-5)
+    for got, want in ((gg, cg), (gs, cs)):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("case", ["f32", "bf16-windowed"])
 def test_exported_forward_on_the_card_equals_the_servers(dev, tmp_path,
                                                         case):

@@ -161,9 +161,30 @@ def test_loader_matches_jax_in_the_trainers_order():
 
 
 def test_loader_refuses_stacked_batching():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        imagegraph.ImageGraphTextureDataLoader(
-            _loader_args(stacked_batching=True))
+    """`stacked_batching`, which the loader once refused, builds stacked
+    batches (one image a slice of a leading sample axis, the skeleton
+    built once) leaf for leaf JAX's, in the trainer's order, over two
+    epochs."""
+    args = _loader_args(stacked_batching=True, test_batch_size=2)
+    got = imagegraph.ImageGraphTextureDataLoader(copy.deepcopy(args), seed=5)
+    want = jax_imagegraph.ImageGraphTextureDataLoader(copy.deepcopy(args),
+                                                      seed=5)
+    assert got.stacked and want.stacked
+    order = ("train_loader", "sample_train_loader", "val_loader",
+             "sample_train_loader", "sample_val_loader")
+    n = 0
+    for _ in range(2):
+        pairs = list(zip(_walk(got, order), _walk(want, order),
+                         strict=True))
+        for (pg, pnames), (jg, jnames) in pairs:
+            assert pnames == jnames
+            assert_same_tree(pg, jg)
+            assert pg.x.shape[0] == 2 and pg.x.dim() == 3
+        n += len(pairs)
+    assert n == 2 * (16 + 2 + 4 + 2 + 2)
+    g1, _ = next(iter(got.train_loader))
+    assert g1.levels[0].edges.nbr is \
+        got.train_loader._skeleton.levels[0].edges.nbr
 
 
 # --- the 2D config's generator -----------------------------------------------

@@ -467,10 +467,24 @@ def test_loader_matches_jax_leaf_for_leaf(tmp_path, roots, cropped):
 
 
 def test_loader_refuses_stacked_batching(tmp_path, roots):
+    """`stacked_batching`, which the loader once refused, builds stacked
+    batches (a leading scene axis, labels included) leaf for leaf JAX's
+    over two epochs, at train and test batch 2."""
+    from test_torch_graph import assert_same_tree
     args = _loader_args(tmp_path, roots, False)
-    args["stacked_batching"] = True
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        scannetlabel.ScanNetGraphDataLoader(args)
+    args.update(stacked_batching=True, train_batch_size=2, test_batch_size=2)
+    want = jax_label.ScanNetGraphDataLoader(copy.deepcopy(args), seed=5)
+    got = scannetlabel.ScanNetGraphDataLoader(copy.deepcopy(args), seed=5)
+    assert got.stacked and want.stacked
+    assert got.train_loader.signature == want.train_loader.signature
+    for _ in range(2):
+        for name in ("train_loader", "val_loader"):
+            pairs = list(zip(getattr(got, name), getattr(want, name)))
+            assert len(pairs) == len(getattr(want, name)) > 0
+            for (g, gn), (w, wn) in pairs:
+                assert gn == wn and len(gn) == 2
+                assert_same_tree(g, w)
+                assert g.labels.shape[0] == 2
 
 
 def test_loader_tables_are_the_jax_packages():
