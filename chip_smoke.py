@@ -2004,11 +2004,11 @@ def probed_segmentation(torch, expect=None):
                         "make_segmentation_steps", SegStepProbe, expect)
 
 
-def seg_card_against_cpu(torch, trainer, graph):
+def seg_card_against_cpu(torch, trainer, graph, tol=SEG_TOL):
     """One train step from the trainer's weights on `graph` (host tensors)
     on the card and on the CPU, each with a fresh Adam: the loss, the
-    logits, the confusion matrix and the new running statistics. Returns
-    a summary line."""
+    logits, the confusion matrix and the new running statistics, within
+    `tol`. Returns a summary line."""
     from stinet_tpu_torch.models.singleconvmeshnet import SingleConvMeshNet
     from stinet_tpu_torch.trainers.segmentation import (
         make_segmentation_steps)
@@ -2038,13 +2038,13 @@ def seg_card_against_cpu(torch, trainer, graph):
                    if "running" in k})
     card, cpu = runs["cuda"], runs["cpu"]
     loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
-    check(loss_rel <= SEG_TOL, f"card loss {card['loss']} vs CPU "
-          f"{cpu['loss']}: relative {loss_rel:.3e} > {SEG_TOL}")
+    check(loss_rel <= tol, f"card loss {card['loss']} vs CPU "
+          f"{cpu['loss']}: relative {loss_rel:.3e} > {tol}")
     nv = int(graph.levels[0].num_vertices)
     scale = float(cpu["logits"][:nv].abs().max())
     logit_err = float((card["logits"][:nv] - cpu["logits"][:nv]).abs().max())
-    check(logit_err <= SEG_TOL * scale, f"card logits vs CPU: max |diff| "
-          f"{logit_err:.3e} > {SEG_TOL} x {scale:.3f}")
+    check(logit_err <= tol * scale, f"card logits vs CPU: max |diff| "
+          f"{logit_err:.3e} > {tol} x {scale:.3f}")
     # a vertex can take the other class only where its top two logits lie
     # within twice the largest logit difference of each other
     top2 = cpu["logits"][:nv].topk(2, dim=-1).values
@@ -2055,8 +2055,8 @@ def seg_card_against_cpu(torch, trainer, graph):
     stat_err = max(float((card["stats"][k] - v).abs().max())
                    for k, v in cpu["stats"].items())
     stat_scale = max(float(v.abs().max()) for v in cpu["stats"].values())
-    check(stat_err <= SEG_TOL * stat_scale, f"running statistics card vs "
-          f"CPU: max |diff| {stat_err:.3e} > {SEG_TOL} x {stat_scale:.3f}")
+    check(stat_err <= tol * stat_scale, f"running statistics card vs "
+          f"CPU: max |diff| {stat_err:.3e} > {tol} x {stat_scale:.3f}")
     return (f"card vs CPU, one step from the trainer's weights: loss "
             f"{card['loss']:.6f} vs {cpu['loss']:.6f} (relative "
             f"{loss_rel:.2e}); logits max |diff| {logit_err:.3e} of "
@@ -2064,7 +2064,7 @@ def seg_card_against_cpu(torch, trainer, graph):
             f"({close} with top two logits within twice that); running "
             f"statistics "
             f"max |diff| {stat_err:.3e} of {stat_scale:.3f}; tolerance "
-            f"{SEG_TOL} relative; CPU step {cpu['s']:.1f} s")
+            f"{tol} relative; CPU step {cpu['s']:.1f} s")
 
 
 def bare_step(torch, phase, trainer, graph, card, unit="scene", per=1):
@@ -2254,6 +2254,7 @@ def segmentation_phase(torch, card):
         say("segmentation", f"phase wall time "
             f"{time.perf_counter() - t_phase:.1f} s; on {card}")
         stacked_seg_phase(torch, card, tmp, roots)
+        bf16_seg_phase(torch, card, tmp, roots)
 
 
 STACKED_SEG_TOL = 1e-4      # losses, stacked vs concatenated at B = 1
@@ -3007,6 +3008,406 @@ def inpainting2d_resnet_phase(torch, card):
         say(phase, fid_cli_on_card(torch, tmp, card))
     say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s; on "
         f"{card}")
+
+
+# --- PR 18: the 2D trainer's profiler, bf16 outside STINet ------------------
+
+PROFILE_EPOCHS = 2          # epochs of each profile-2d run: 16 steps
+PROFILE_SCHEDULE = (1, 2, 1, 3, 4)  # EpochProfiler's skip/wait/warmup/
+#                                     active/repeat, JAX's defaults
+# the symbols of the 2D path's kernels in a trace, by launch counter
+PROFILE_SYMBOLS = {"k1": ("ell_fwd_rows",), "k1dp": ("ell_dp_rows",),
+                   "k1dq": ("ell_dq_rows",),
+                   "k2": ("instance_norm_stats", "instance_norm_apply")}
+TIMER_REPS = 5              # synced step sections timed (after 2 dropped)
+BF16_EPOCHS = 1             # epochs of each bf16-models CLI run
+BF16_OUT_TOL = 5e-2         # bf16 outputs, card vs CPU, L2 relative
+BF16_LOSS_TOL = 1e-2        # bf16 losses and metrics, card vs CPU, relative
+BF16_SEG_TOL = 2e-2         # bf16 segmentation step, card vs CPU
+
+
+def traced_schedule(n_steps, skip, wait, warmup, active, repeat):
+    """The steps among `n_steps` that JAX's EpochProfiler traces
+    (`_should_trace`)."""
+    cycle = wait + warmup + active
+    return [k for k in range(skip, n_steps)
+            if not (repeat and k - skip >= cycle * repeat)
+            and (k - skip) % cycle >= wait + warmup]
+
+
+def read_traces(directory):
+    """(files with their MB, the ProfilerStep numbers the traces mark,
+    {launch counter: device launches the traces name}) of the trace files
+    under `directory`."""
+    files, steps, named = [], [], {k: 0 for k in PROFILE_SYMBOLS}
+    for f in sorted(pathlib.Path(directory).glob("*.pt.trace.json")):
+        events = json.loads(f.read_text())["traceEvents"]
+        files.append((f.name, f.stat().st_size / 2 ** 20))
+        steps += sorted({int(e["name"].split("#")[1]) for e in events
+                         if e.get("name", "").startswith("ProfilerStep#")})
+        for e in events:
+            if e.get("cat") != "kernel":
+                continue
+            for key, symbols in PROFILE_SYMBOLS.items():
+                named[key] += any(s in e.get("name", "") for s in symbols)
+    return files, steps, named
+
+
+def synced_sections(torch, trainer, graph):
+    """The trainer's graph-branch step on one placed batch in three
+    sections timed by `SyncedTimer` (its host clock, a device sync at each
+    section's end, 2 runs dropped) and by CUDA events recorded at each
+    section's start and end in the same runs: {section: (timer ms, median
+    event ms)}."""
+    from stinet_tpu_torch.serving import full_f32_matmuls
+    from stinet_tpu_torch.utils.profiling import SyncedTimer
+    step = getattr(trainer._train_step, "_step", trainer._train_step)
+    model, opt = trainer.model, trainer.optimizer
+    timer, runs = SyncedTimer(warmup=2), []
+    names = ("forward", "backward", "optimizer")
+    for _ in range(2 + TIMER_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        model.train()
+        with full_f32_matmuls():
+            opt.zero_grad(set_to_none=True)
+            with timer.section("forward", graph.x):
+                ev[0].record()
+                loss, _ = step.loss_of(graph)
+                ev[1].record()
+            with timer.section("backward", graph.x):
+                ev[2].record()
+                loss.backward()
+                ev[3].record()
+            with timer.section("optimizer", graph.x):
+                ev[4].record()
+                opt.step()
+                ev[5].record()
+        runs.append(ev)
+    torch.cuda.synchronize()
+    res = timer.results()
+    return {n: (res[n] * 1e3, statistics.median(
+        ev[2 * i].elapsed_time(ev[2 * i + 1]) for ev in runs[2:]))
+        for i, n in enumerate(names)}
+
+
+def profile_2d_phase(torch, card):
+    """Phase profile-2d: the hermetic 2D config (graph branch at full
+    width) through the CLI for PROFILE_EPOCHS epochs of 8 steps, once
+    without and once with `trainer.profile` (validation and FID off, so
+    the epochs are the train loops): each step's kernel launches equal
+    in both runs; the trace files under <log_dir>/profile mark the steps
+    JAX's schedule selects and name K1, dp, dq and K2 by their CUDA
+    symbols, as often as the traced steps launched them; the trainer's
+    clock both ways; `SyncedTimer`'s sections beside CUDA events."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    phase = "profile-2d"
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t_phase = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="stinet_profile_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "textures").mkdir()
+        cfg = json.loads(pathlib.Path(INP2D_CONFIG).read_text())
+        cfg["data_loader"]["args"]["root_dir"] = str(tmp / "textures")
+        cfg["trainer"].update(save_dir=str(tmp / "saved"),
+                              epochs=PROFILE_EPOCHS,
+                              save_period=PROFILE_EPOCHS, epochs_per_fid=0,
+                              do_validation=False, monitor="off")
+        for name in ("off", "on"):
+            cfg["trainer"]["profile"] = name == "on"
+            (tmp / f"{name}.json").write_text(json.dumps(cfg))
+            with probed_2d(torch) as (probes, _):
+                trainer = cli.main(["-c", str(tmp / f"{name}.json"), "-d",
+                                    "cuda", "-n", f"profile_{name}"])
+            runs[name] = (trainer, probes[0])
+        (off, off_probe), (on, on_probe) = runs["off"], runs["on"]
+        check(off.profiler is None and on.profiler is not None,
+              "the profiler was built against the config")
+        n_steps = len(on_probe.launches)
+        check(n_steps == len(off_probe.launches) >= 7,
+              f"{n_steps} steps profiled, {len(off_probe.launches)} not")
+        check(on_probe.launches == off_probe.launches,
+              "a step's kernel launches differ with the profiler open: "
+              f"{on_probe.launches} against {off_probe.launches}")
+        want_steps = traced_schedule(n_steps, *PROFILE_SCHEDULE)
+        files, steps, named = read_traces(on.config.log_dir / "profile")
+        check(steps == want_steps, f"the traces mark steps {steps}, JAX's "
+              f"schedule traces {want_steps}")
+        per_step = on_probe.launches[0]
+        want = {k: len(want_steps) * per_step[k] for k in ("k1", "k1dp",
+                                                             "k1dq")}
+        # a K2 call is 2 device launches: its statistics and its apply
+        want["k2"] = len(want_steps) * K2_DEVICE_LAUNCHES * (
+            per_step["k2"] + per_step["k2mg"])
+        missing = [k for k in PROFILE_SYMBOLS if not named[k]]
+        check(not missing, f"the traces name no {missing} launch: {named}")
+        check(named == want, f"the traces name launches {named}, the "
+              f"traced steps made {want}")
+        say(phase, f"{len(files)} trace files under <log_dir>/profile: "
+            + ", ".join(f"{n} {mb:.2f} MB" for n, mb in files)
+            + f"; ProfilerStep marks {steps} (JAX's schedule {want_steps} of "
+            f"{n_steps} steps); kernels named by symbol "
+            + ", ".join(f"{k} ({'/'.join(PROFILE_SYMBOLS[k])}) {named[k]}"
+                        for k in PROFILE_SYMBOLS)
+            + f", each the traced steps' launches; a step's launches "
+            f"{per_step}, equal with and without the profiler in every step")
+        for name, (trainer, probe) in runs.items():
+            clock = [t["train_s"] * 1e3 / t["steps"]
+                     for t in trainer.epoch_timings]
+            say(phase, f"profile {name}: trainer clock ms/step by epoch "
+                + ", ".join(f"{x:.2f}" for x in clock) + "; step ms by CUDA "
+                f"events median {statistics.median(probe.step_ms()):.2f}; "
+                f"on {card}")
+        sections = synced_sections(torch, on, on_probe.graphs[-1])
+        say(phase, f"SyncedTimer (host clock, synced, mean of {TIMER_REPS} "
+            f"after 2 dropped) against CUDA events (median) of the same "
+            "runs, ms: " + "; ".join(
+                f"{n} {t:.3f} against {e:.3f}" for n, (t, e) in
+                sections.items()) + f"; on {card}")
+        del runs, off, on, off_probe, on_probe
+    say(phase, f"phase wall time {time.perf_counter() - t_phase:.1f} s; on "
+        f"{card}")
+
+
+def rel_l2(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm())
+
+
+def step_ms_peak(torch, step, graph, lr):
+    """Median ms by CUDA events of SEG_STEP_REPS calls of `step(graph, lr)`
+    after 2 untimed, and the peak device memory of those calls in GiB."""
+    for _ in range(2):
+        step(graph, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(SEG_STEP_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        step(graph, lr)
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    return statistics.median(ms), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+class LossProbe:
+    """Stands in for a train step: runs it and records each call's loss
+    and its time by CUDA events. Every other attribute is the step's."""
+
+    def __init__(self, torch, step, model, optimizer, expect=None):
+        self._torch, self._step = torch, step
+        self.losses, self.events = [], []
+
+    def __getattr__(self, name):
+        return getattr(self._step, name)
+
+    def __call__(self, graph, lr):
+        ev = [self._torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self._step(graph, lr)
+        ev[1].record()
+        metrics = out[0] if isinstance(out, tuple) else out
+        self.losses.append(metrics["loss"].detach())
+        self.events.append(ev)
+        return out
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def bf16_resnet2d_phase(torch, card):
+    """Phase bf16-models, its 2D half: the hermetic 2D config with
+    `archs.Resnet2D` at its shipped width and `"dtype": "bfloat16"`, and
+    `use_gan`, through the CLI for BF16_EPOCHS epoch of 8 steps (FID off):
+    the generator computes in bf16 on f32 parameters, the discriminator in
+    f32 (the trainer builds it without a dtype, as JAX's), no graph kernel
+    launched, losses finite; the generator's output on a batch, card
+    against CPU (BF16_OUT_TOL in L2, beside the bf16 output's distance
+    from an f32 copy's); one GAN step from the trainer's weights, card
+    against CPU (every metric within BF16_LOSS_TOL); the GAN step's ms and
+    peak memory beside the same step with an f32 generator."""
+    import os
+    import tempfile
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.models.factory import define_G
+    from stinet_tpu_torch.trainers.graph_common import build_optimizer
+    from stinet_tpu_torch.trainers.inpainting2d import (
+        Inpainting2DTrainer, batch_images, make_resnet2d_steps, nhwc_forward)
+    phase = "bf16-models"
+    os.environ["STINET_DISABLE_GIT_TAG"] = "1"
+    t_phase = time.perf_counter()
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory(prefix="stinet_bf16_2d_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "textures").mkdir()
+        cfg = json.loads(pathlib.Path(INP2D_CONFIG).read_text())
+        cfg["archs"]["SurfaceTextureInpaintingNet"]["enabled"] = False
+        cfg["archs"]["Resnet2D"]["enabled"] = True
+        args = cfg["archs"]["Resnet2D"]["args"]
+        args["dtype"] = "bfloat16"
+        cfg["data_loader"]["args"]["root_dir"] = str(tmp / "textures")
+        cfg["trainer"].update(save_dir=str(tmp / "saved"),
+                              epochs=BF16_EPOCHS, save_period=1,
+                              epochs_per_fid=0, use_gan=True)
+        (tmp / "bf16.json").write_text(json.dumps(cfg))
+        _zero(counters)
+        with probed_steps(torch, Inpainting2DTrainer, "make_resnet2d_steps",
+                          LossProbe) as (probes, logs):
+            trainer = cli.main(["-c", str(tmp / "bf16.json"), "-d", "cuda",
+                                "-n", "bf16"])
+        launches = _read(counters)
+        probe = probes[0]
+        check(trainer.model.dtype == torch.bfloat16
+              and trainer.disc.dtype is None, "the generator is not bf16 "
+              "or the discriminator not f32")
+        check(all(p.dtype == torch.float32 and p.is_cuda
+                  for p in list(trainer.model.parameters())
+                  + list(trainer.disc.parameters())),
+              "a parameter is not f32 on the card")
+        check(not any(launches.values()), f"a graph kernel launched on the "
+              f"bf16 Resnet2D path: {launches}")
+        losses = [float(x) for x in probe.losses]
+        check(len(losses) == BF16_EPOCHS * len(
+            trainer.data_loader.train_loader) and all(
+            math.isfinite(x) for x in losses), f"losses {losses}")
+        for log in logs:
+            for k in ("loss", "loss_D_fake", "loss_D_real", "loss_G",
+                      "val_loss"):
+                check(math.isfinite(log[k]), f"epoch log {k} {log[k]}")
+        say(phase, f"{INP2D_CONFIG} with archs.Resnet2D (ngf {args['ngf']}, "
+            f"{args['n_blocks']} blocks, dtype bfloat16) and use_gan: "
+            f"{len(losses)} GAN steps through the CLI, losses "
+            f"{[round(x, 5) for x in losses]}; generator bf16 on f32 "
+            "parameters, discriminator f32; graph kernel launches "
+            f"{launches}")
+        trainer_readings(phase, trainer, probe, card)
+
+        graph, _ = next(iter(trainer.data_loader.train_loader))
+        x = batch_images(graph, trainer.img_size)[0]
+        f32 = define_G(**dict(args, dtype=None)).cuda()
+        f32.load_state_dict(trainer.model.state_dict())
+        cpu = copy.deepcopy(trainer.model).cpu()
+        with torch.no_grad():
+            card_out = nhwc_forward(trainer.model, x.cuda())
+            f32_out = nhwc_forward(f32, x.cuda())
+            cpu_out = nhwc_forward(cpu, x)
+        check(card_out.dtype == cpu_out.dtype == torch.bfloat16,
+              f"output dtypes {card_out.dtype}, {cpu_out.dtype}")
+        err, own = rel_l2(card_out, cpu_out), rel_l2(card_out, f32_out)
+        check(err <= BF16_OUT_TOL, f"bf16 generator, card vs CPU: L2 "
+              f"relative {err:.3e} > {BF16_OUT_TOL}")
+        (card_m, _), (cpu_m, _) = (
+            resnet_steps_on(torch, trainer, graph, d, True, torch.float32)
+            for d in ("cuda", "cpu"))
+        rel = {k: abs(card_m[k] - v) / max(abs(v), 1e-30)
+               for k, v in cpu_m.items() if v != 0 or card_m[k] != 0}
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= BF16_LOSS_TOL, f"bf16 GAN step {worst}: card "
+              f"{card_m[worst]} vs CPU {cpu_m[worst]}, relative "
+              f"{rel[worst]:.3e} > {BF16_LOSS_TOL}")
+        say(phase, f"bf16 generator on a batch of {x.shape[0]}, card vs CPU:"
+            f" L2 relative {err:.3e} (tolerance {BF16_OUT_TOL}); the card's "
+            f"bf16 output from its f32 copy's {own:.3e}; one GAN step from "
+            f"the trainer's weights, card vs CPU: loss {card_m['loss']:.6f} "
+            f"vs {cpu_m['loss']:.6f}, largest metric difference {worst} "
+            f"{rel[worst]:.2e} relative (tolerance {BF16_LOSS_TOL})")
+
+        placed = graph.to("cuda")
+        lr = trainer.lr_fn(1)
+        timed = {}
+        for name, model in (("bf16", trainer.model), ("f32", f32)):
+            model = copy.deepcopy(model)
+            disc = copy.deepcopy(trainer.disc)
+            opt, _ = build_optimizer(model.parameters(),
+                                     trainer.config["optimizer"])
+            dopt, _ = build_optimizer(disc.parameters(),
+                                      trainer.config["optimizer"])
+            step, _ = make_resnet2d_steps(
+                model, opt, trainer.img_size, disc=disc, disc_optimizer=dopt,
+                gan_mode=trainer.gan_mode,
+                gan_loss_weight=trainer.gan_loss_weight)
+            timed[name] = step_ms_peak(torch, step, placed, lr)
+            del model, disc, opt, dopt, step
+        say(phase, "GAN step by CUDA events (median of "
+            f"{SEG_STEP_REPS}), bf16 generator {timed['bf16'][0]:.2f} ms, "
+            f"peak {timed['bf16'][1]:.2f} GiB; f32 generator "
+            f"{timed['f32'][0]:.2f} ms, peak {timed['f32'][1]:.2f} GiB; "
+            f"on {card}")
+        del trainer, probes, f32, cpu
+    say(phase, f"2D half wall time {time.perf_counter() - t_phase:.1f} s; "
+        f"on {card}")
+
+
+def bf16_seg_phase(torch, card, tmp, roots):
+    """Phase bf16-models, its segmentation half: the shipped segmentation
+    config with `"dtype": "bfloat16"` in its arch args (the JAX model's,
+    which only the head reads) on the segmentation phase's 65536-vertex
+    crops through the CLI for BF16_EPOCHS epoch: logits bf16, parameters
+    f32, losses finite; one step card against CPU (BF16_SEG_TOL); the bare
+    step's ms and peak memory beside the f32 model's."""
+    from stinet_tpu_torch import train as cli
+    from stinet_tpu_torch.graph.build import build_hierarchical_graph
+    from stinet_tpu_torch.models.singleconvmeshnet import SingleConvMeshNet
+    from stinet_tpu_torch.trainers.graph_common import build_optimizer
+    from stinet_tpu_torch.trainers.segmentation import (
+        GraphSegmentationTrainer, make_segmentation_steps)
+    phase = "bf16-models"
+    t_phase = time.perf_counter()
+    cfg = trainer_config(tmp / "seg_bf16.json", roots, tmp / "saved_bf16",
+                         SEG_CONFIG, BF16_EPOCHS)
+    args = cfg["archs"]["SingleConvMeshNet"]["args"]
+    args["dtype"] = "bfloat16"
+    (tmp / "seg_bf16.json").write_text(json.dumps(cfg))
+    with probed_steps(torch, GraphSegmentationTrainer,
+                      "make_segmentation_steps", LossProbe) as (probes, logs):
+        trainer = cli.main(["-c", str(tmp / "seg_bf16.json"), "-d", "cuda",
+                            "-n", "seg_bf16"])
+    probe = probes[0]
+    check(trainer.model.dtype == torch.bfloat16 and all(
+        p.dtype == torch.float32 and p.is_cuda
+        for p in trainer.model.parameters()),
+        "the segmentation model is not bf16 on f32 parameters on the card")
+    losses = [float(x) for x in probe.losses]
+    check(len(losses) == 2 * BF16_EPOCHS and all(
+        math.isfinite(x) for x in losses), f"losses {losses}")
+    for log in logs:
+        for k in ("loss", "val_loss"):
+            check(math.isfinite(log[k]), f"epoch log {k} {log[k]}")
+    say(phase, f"{SEG_CONFIG} with dtype bfloat16 (filter_sizes "
+        f"{args['filter_sizes']}): {len(losses)} steps through the CLI on "
+        f"the segmentation phase's crops, losses "
+        f"{[round(x, 6) for x in losses]}; epoch logs " + "; ".join(
+            ", ".join(f"{k} {log[k]:.4f}" for k in ("loss", "val_loss",
+                                                  "val_mean_iou"))
+            for log in logs))
+    trainer_readings(phase, trainer, probe, card)
+    sample = trainer.data_loader.train_dataset[0]
+    graph = build_hierarchical_graph(
+        [sample], pad_multiple=trainer.data_loader.train_loader.pad_multiple,
+        geometric=True)
+    say(phase, seg_card_against_cpu(torch, trainer, graph, BF16_SEG_TOL))
+    placed = graph.to("cuda")
+    lr = trainer.lr_fn(1)
+    timed = {}
+    for name, dtype in (("bf16", "bfloat16"), ("f32", None)):
+        model = SingleConvMeshNet(**dict(args, dtype=dtype)).cuda()
+        model.load_state_dict(trainer.model.state_dict())
+        opt, _ = build_optimizer(model.parameters(),
+                                 trainer.config["optimizer"])
+        step, _ = make_segmentation_steps(model, opt, trainer.class_weights,
+                                          trainer.num_classes)
+        timed[name] = step_ms_peak(torch, step, placed, lr)
+        del model, opt, step
+    say(phase, f"segmentation step by CUDA events (median of "
+        f"{SEG_STEP_REPS}), bf16 head {timed['bf16'][0]:.2f} ms, peak "
+        f"{timed['bf16'][1]:.2f} GiB; f32 {timed['f32'][0]:.2f} ms, peak "
+        f"{timed['f32'][1]:.2f} GiB; segmentation half wall time "
+        f"{time.perf_counter() - t_phase:.1f} s; on {card}")
+    del trainer, probes
 
 
 # --- the rest of the STINet model: reference checkpoints, SageConv, labels --
@@ -3774,6 +4175,8 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
     say("serving-windowed", f"the same with the numpy builder "
         f"(STINET_NATIVE_BUILD=0, scipy RCM): predict {np_ms:.2f} ms/scene "
         f"end to end; by phase: {np_split}")
+    say("serving-windowed", f"num_compiles {server.num_compiles()} after "
+        "the phase's predicts of the windowed flagship scene")
     return server, row, launches
 
 
@@ -3949,6 +4352,9 @@ def serving_batched(torch, card, server, scene, first):
         f"max |diff| "
         f"against single-scene forwards {err:.3e}; host builds of "
         f"{len(scenes) - 1} scenes on 4 threads {build_s:.2f} s; on {card}")
+    say("serving-batched", f"num_compiles {server.num_compiles()} after "
+        f"the windowed predicts, the B={BATCH} batches both ways and the "
+        f"stream of {len(scenes)} scenes")
     return row, concat_launches
 
 
@@ -4650,6 +5056,250 @@ def partitioned_training_phase(torch, card, scene):
     return rows
 
 
+# --- PR 18: tensor parallelism at a model axis of 2 --------------------------
+
+TP_RANKS = 2                # gloo ranks on the one card: data 1 x model 2
+TP_STEPS = 3                # steps of each side
+TP_TOL = 1e-4               # each step's loss, model axis 2 vs one process
+TP_TIMEOUT = 600            # seconds the ranks may take together
+TP_ADAM = {"type": "Adam", "args": {"lr": 7e-5, "amsgrad": True}}  # the
+#                             f32 reference config's optimizer
+
+
+def _tp_steps(torch, model, mesh, stacked, impl=None):
+    """`make_sharded_train_step` of `model` over `mesh` (None: one process)
+    with Adam(amsgrad): (step, the placed batch, lr)."""
+    from stinet_tpu_torch.parallel.data_parallel import (
+        make_sharded_train_step)
+    from stinet_tpu_torch.trainers.graph_common import build_optimizer
+    opt, lr = build_optimizer(model.parameters(), TP_ADAM)
+    step, place_state, place_graph, _ = make_sharded_train_step(
+        model, opt, mesh, use_mask_weighted=True, impl=impl)
+    place_state()
+    return step, place_graph(stacked), lr
+
+
+def _timed_losses(torch, step, graph, lr, counters):
+    """TP_STEPS calls of `step`: (losses, ms by CUDA events, each call's
+    kernel launches)."""
+    losses, ms, launches = [], [], []
+    for _ in range(TP_STEPS):
+        before = _read(counters)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        losses.append(float(step(graph, lr)["loss"]))
+        ev[1].record()
+        ev[1].synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        after = _read(counters)
+        launches.append({k: after[k] - before[k] for k in after})
+    return losses, ms, launches
+
+
+def _tp_grad_need(need, h):
+    """(bytes, operations) of a dp or dq call from (`_slot_bytes` or
+    `_dq_bytes`'s bytes, live slots) at `h` channels."""
+    nbytes, slots = need
+    return nbytes, 4 * h * slots
+
+
+def _tp_rank(rank, world, port, weights_path, out_dir):
+    """One rank of the tensor-parallel phase (spawned): the gloo group on
+    the card, the flagship sharded over a model axis of `world`; a
+    plain-path step records its K1, dp and dq calls, each replayed on its
+    kernel and held bitwise against its plain version; then TP_STEPS
+    kernel-path steps, counted and timed; written to out_dir/rank{r}.pt."""
+    import torch
+    import torch.distributed as dist
+    from stinet_tpu_torch.parallel import multihost
+    torch.cuda.set_device(0)
+    multihost.initialize(f"tcp://localhost:{port}", world, rank, "gloo")
+    try:
+        _tp_rank_work(torch, rank, world, weights_path, out_dir)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_rank_work(torch, rank, world, weights_path, out_dir):
+    """`_tp_rank`'s work, under deterministic algorithms (the spill's
+    `index_add_` sums in one order, so the model ranks' replicated work
+    gives the same bits)."""
+    from stinet_tpu_torch.graph.build import build_stacked_graph
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.ops import ell
+    from stinet_tpu_torch.parallel import multihost, tensor_parallel
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    with deterministic(torch):
+        weights = torch.load(weights_path)
+        stacked, _ = build_stacked_graph([synthetic_scene(**FLAGSHIP_SCENE)])
+        mesh = multihost.make_global_mesh(world, "cuda")
+        models = {}
+        for impl in ("plain", None):
+            model = define_G(**FLAGSHIP).cuda()
+            model.load_state_dict(weights)
+            models[impl] = (model,) + _tp_steps(torch, model, mesh, stacked,
+                                                impl)
+        model, step, graph, lr = models["plain"]
+        with record_calls(train_targets()) as calls:
+            step(graph, lr)
+        torch.cuda.synchronize()
+        n_calls = {k: len(v) for k, v in calls.items()}
+        held = {}
+        for key, kernel, plain in (
+                ("k1", ell.ell_edge_conv_sum_kernel,
+                 ell.ell_edge_conv_sum_plain),
+                ("k1dp", ell.ell_edge_conv_dp_kernel,
+                 ell.ell_edge_conv_dp_plain),
+                ("k1dq", ell.ell_edge_conv_dq_kernel,
+                 ell.ell_edge_conv_dq_plain)):
+            widths = []
+            for args in calls[key]:
+                got, want = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                check(torch.equal(got.view(torch.int32),
+                                  want.view(torch.int32)),
+                      f"rank {rank} {key} on {tuple(args[0].shape)}: kernel "
+                      "and plain version differ")
+                widths.append(int(args[0].shape[1]))
+            held[key] = widths
+        rows = {}
+        for key, kernel, plain, need in (
+                ("k1", ell.ell_edge_conv_sum_kernel,
+                 ell.ell_edge_conv_sum_plain,
+                 lambda p, q, nbr, deg: k1_call_bound(torch, p, q, nbr, deg)),
+                ("k1dp", ell.ell_edge_conv_dp_kernel,
+                 ell.ell_edge_conv_dp_plain,
+                 lambda p, q, nbr, deg, g: _tp_grad_need(
+                     _slot_bytes(nbr, deg, p.element_size(), p.shape[1], 2),
+                     p.shape[1])),
+                ("k1dq", ell.ell_edge_conv_dq_kernel,
+                 ell.ell_edge_conv_dq_plain,
+                 lambda q, g, p, rev, dout: _tp_grad_need(
+                     _dq_bytes(rev, dout, q.element_size(), q.shape[1]),
+                     q.shape[1]))):
+            cs = calls[key]
+            nbytes = ops = 0
+            for c in cs:
+                b_, o_ = need(*c)
+                nbytes, ops = nbytes + b_, ops + o_
+            b_ms, b_by = bound(nbytes, ops)
+            rows[key] = dict(
+                max_abs_err=0.0,
+                ms=median_ms(torch, lambda: [kernel(*c) for c in cs],
+                             reps=10, inner=1),
+                plain_ms=median_ms(torch, lambda: [plain(*c) for c in cs],
+                                   reps=3, inner=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        model, step, graph, lr = models[None]
+        del models, calls
+        counters = _train_counters()
+        losses, ms, launches = _timed_losses(torch, step, graph, lr,
+                                             counters)
+        local = model.state_dict()
+        sharded = {f"{n}.{k}" for n, m in model.named_modules()
+                   if isinstance(m, tensor_parallel.TensorParallelEdgeConv)
+                   for k, _ in tensor_parallel._SLICED}
+        for key, row in rows.items():
+            row["launches"] = sum(n[key] for n in launches)
+        torch.save(dict(
+            losses=losses, ms=ms, launches=launches, held=held, rows=rows,
+            calls=n_calls,
+            model_rank=mesh.model_rank, sharded=len(sharded) // 3,
+            replicated={k: v.cpu() for k, v in local.items()
+                        if k not in sharded},
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30),
+            str(pathlib.Path(out_dir) / f"rank{rank}.pt"))
+
+
+def tensor_parallel_phase(torch, card):
+    """Phase tensor-parallel: the flagship (f32, full width) on the
+    synthetic 65k scene, a stacked batch of one, trained by TP_RANKS gloo
+    ranks on the one card at a model axis of TP_RANKS (every EdgeConv's
+    hidden channels split, parallel/tensor_parallel.py) and by one
+    process, TP_STEPS Adam steps each from the same weights: every K1, dp
+    and dq call of a rank's plain-path step on its channel slice bitwise
+    its kernel, each rank's kernel-path launches a step equal to those
+    calls, each step's loss within TP_TOL of one process's, a rank's step
+    ms beside one process's."""
+    import tempfile
+    from stinet_tpu_torch.graph.build import build_stacked_graph
+    from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
+    from stinet_tpu_torch.utils.synthetic import (
+        FLAGSHIP_SCENE, synthetic_scene)
+    phase = "tensor-parallel"
+    t_phase = time.perf_counter()
+    model = define_G(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory(prefix="stinet_tp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        torch.save(model.state_dict(), tmp / "weights.pt")
+        run_ranks(torch, _tp_rank, TP_RANKS,
+                  (free_port(), str(tmp / "weights.pt"), str(tmp)),
+                  TP_TIMEOUT)
+        ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(TP_RANKS)]
+    stacked, _ = build_stacked_graph([synthetic_scene(**FLAGSHIP_SCENE)])
+    step, graph, lr = _tp_steps(torch, model.cuda(), None, stacked)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with deterministic(torch):
+        losses, ms, launches = _timed_losses(torch, step, graph, lr,
+                                             _train_counters())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for r, got in enumerate(ranks):
+        check(got["sharded"] > 0, f"rank {r} split no filter")
+        for key in ("k1", "k1dp", "k1dq"):
+            check(got["calls"][key] > 0, f"rank {r}: no {key} call")
+        for i, n in enumerate(got["launches"]):
+            want = dict(got["calls"])
+            n = dict(n)
+            n["k2"] += n.pop("k2mg")
+            check(n == want, f"rank {r} step {i}: launches {n}, the "
+                  f"plain-path step's calls {want}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], losses)]
+        check(max(rel) <= TP_TOL, f"rank {r} losses {got['losses']} vs one "
+              f"process's {losses}: relative {max(rel):.3e} > {TP_TOL}")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          f"the model ranks' losses differ: {ranks[0]['losses']} against "
+          f"{ranks[1]['losses']}")
+    differ = [k for k, v in ranks[0]["replicated"].items()
+              if not torch.equal(v, ranks[1]["replicated"][k])]
+    check(not differ, f"replicated tensors differ on the model ranks after "
+          f"{TP_STEPS} steps: {differ}")
+    full = {key: sorted(set(2 * w for w in ranks[0]["held"][key]))
+            for key in ("k1", "k1dp", "k1dq")}
+    say(phase, f"flagship f32 on the {FLAGSHIP_SCENE['num_vertices']}-"
+        f"vertex scene, {TP_RANKS} gloo ranks on the card at a model axis "
+        f"of {TP_RANKS}: {ranks[0]['sharded']} EdgeConv filters split; "
+        "every K1, dp and dq call of a rank's plain-path step on its "
+        "channel slice bitwise its kernel: " + ", ".join(
+            f"{k} {len(ranks[0]['held'][k])} calls at widths "
+            f"{sorted(set(ranks[0]['held'][k]))} (whole "
+            f"{full[k]})" for k in full)
+        + f"; a step's launches {ranks[0]['calls']} on each rank")
+    for key, row in ranks[0]["rows"].items():
+        say(phase, f"{key} on the channel slice, rank 0's plain-path step's "
+            f"calls: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+            f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"{row['launches']} launches in the rank's {TP_STEPS} steps; on "
+            f"{card}")
+    say(phase, f"losses, one process {[round(x, 7) for x in losses]}; "
+        + "; ".join(f"rank {r} {[round(x, 7) for x in g['losses']]}"
+                    for r, g in enumerate(ranks))
+        + f" (tolerance {TP_TOL} relative); replicated tensors bitwise "
+        f"alike on the model ranks: "
+        f"{len(ranks[0]['replicated']) - len(differ)} of "
+        f"{len(ranks[0]['replicated'])}")
+    say(phase, f"step ms by CUDA events, one process "
+        f"{', '.join(f'{x:.2f}' for x in ms)} (peak {peak:.2f} GiB); "
+        + "; ".join(f"rank {r} {', '.join(f'{x:.2f}' for x in g['ms'])} "
+                    f"(peak {g['peak_gib']:.2f} GiB)"
+                    for r, g in enumerate(ranks))
+        + f"; phase wall time {time.perf_counter() - t_phase:.1f} s; on "
+        f"{card}")
+    return ranks[0]["rows"]
+
+
 @contextlib.contextmanager
 def deterministic(torch):
     """torch's deterministic algorithms for the block (the spill's
@@ -4866,6 +5516,8 @@ def main(argv=None):
         f"kernel path, {plain_fwd_ms:.3f} ms plain path; on {card}")
     say("slice", f"the same with the numpy builder (STINET_NATIVE_BUILD=0): "
         f"predict {np_ms:.2f} ms/scene end to end; by phase: {np_split}")
+    say("slice", f"num_compiles {server.num_compiles()}: the layouts the "
+        "server's predicts of the flagship and the small scene ran on")
 
     # --- the bf16 windowed train path
     cfg = json.loads(pathlib.Path(BF16_CONFIG).read_text())
@@ -4896,7 +5548,9 @@ def main(argv=None):
     segmentation_phase(torch, card)
     inpainting2d_phase(torch, card)
     inpainting2d_resnet_phase(torch, card)
+    bf16_resnet2d_phase(torch, card)
     stacked_2d_phase(torch, card)
+    profile_2d_phase(torch, card)
 
     # --- windowed f32 and batched serving
     wserver, k3b, w_launches = serving_windowed(torch, card, scene, whost,
@@ -4921,6 +5575,8 @@ def main(argv=None):
     part_row = partitioned_phase(torch, card, model, weights, hostile, scene)
     # --- partitioned training: dp and dq on the halo layout
     part_train = partitioned_training_phase(torch, card, hostile["terrain"])
+    # --- tensor parallelism: K1, dp and dq on channel slices
+    tp_rows = tensor_parallel_phase(torch, card)
     # --- the forward exported with torch.export and reloaded
     export_phase(torch, card, model, weights, scene)
 
@@ -4977,6 +5633,16 @@ def main(argv=None):
         dict(name="ell_edge_conv_dq_partitioned", route="cuda",
              source=cu + "ell_edge_conv.cu",
              replaces="stinet_tpu/ops/ell.py:100", **part_train["k1dq"])]
+    for key, name, replaces in (
+            ("k1", "ell_edge_conv_sum_channel_slice",
+             "stinet_tpu/ops/pallas/gather_pipeline.py:102"),
+            ("k1dp", "ell_edge_conv_dp_channel_slice",
+             "stinet_tpu/ops/ell.py:100"),
+            ("k1dq", "ell_edge_conv_dq_channel_slice",
+             "stinet_tpu/ops/ell.py:100")):
+        kernels.append(dict(name=name, route="cuda",
+                            source=cu + "ell_edge_conv.cu",
+                            replaces=replaces, **tp_rows[key]))
     say("done", f"every phase passed in {time.perf_counter() - t_start:.1f} "
         f"s, the kernels' build included, on {card}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -5,7 +5,7 @@ STINet; `define_D` builds the PatchGAN zoo's discriminators. Knobs of the
 reference's torch setup that the JAX models also ignore (init type and
 gain, GPU ids; dropout on STINet) are accepted so a config's archs section
 passes unchanged. `dtype` ("bfloat16" / "float32" as JSON configs spell
-them) is STINet's compute dtype (the conv2d models are f32), and the
+them) is every model's compute dtype (parameters stay f32), and the
 checkpointing knobs place `torch.utils.checkpoint` as the JAX model places
 `nn.remat`."""
 from typing import Optional
@@ -32,9 +32,6 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
     """Build the generator named by `filter_type`; its weights are drawn
     from `generator` (torch.Generator() when None)."""
     if filter_type == "conv2d":
-        if resolve_dtype(dtype) is not None:
-            raise NotImplementedError(f"dtype {dtype!r}: the conv2d "
-                                      "generator is ported in float32")
         from stinet_tpu_torch.models.resnet2d import Resnet2D
         return Resnet2D(
             input_nc=input_nc, output_nc=output_nc, ngf=ngf, norm=norm,
@@ -43,7 +40,7 @@ def define_G(input_nc, output_nc, ngf, filter_type, norm="batch",
             n_repeated_io_convs=n_repeated_io_convs,
             pooling_type=pooling_type,
             io_receptive_field_type=io_receptive_field_type,
-            generator=generator)
+            dtype=resolve_dtype(dtype), generator=generator)
     from stinet_tpu_torch.models.stinet import SurfaceTextureInpaintingNet
     return SurfaceTextureInpaintingNet(
         input_nc=input_nc, output_nc=output_nc, ngf=ngf,
@@ -67,17 +64,15 @@ def define_D(input_nc, ndf, netD, n_layers_D=3, norm="batch",
     `generator`."""
     from stinet_tpu_torch.models.gan_networks import (
         NLayerDiscriminator, PixelDiscriminator)
-    if resolve_dtype(dtype) is not None:
-        raise NotImplementedError(f"dtype {dtype!r}: the discriminators are "
-                                  "ported in float32")
+    dtype = resolve_dtype(dtype)
     if netD in ("basic", "n_layers"):
         return NLayerDiscriminator(
             input_nc=input_nc, ndf=ndf,
             n_layers=3 if netD == "basic" else n_layers_D, norm=norm,
-            generator=generator)
+            dtype=dtype, generator=generator)
     if netD == "pixel":
         return PixelDiscriminator(input_nc=input_nc, ndf=ndf, norm=norm,
-                                  generator=generator)
+                                  dtype=dtype, generator=generator)
     raise NotImplementedError(
         f"Discriminator model name {netD!r} is not recognized")
 
@@ -95,3 +90,12 @@ def resolve_dtype(dtype) -> Optional[torch.dtype]:
         return torch.bfloat16
     raise NotImplementedError(f"dtype {dtype!r}: float32 and bfloat16 are "
                               "ported")
+
+
+def weak_scalar(value: float, dtype: torch.dtype) -> float:
+    """A Python scalar as JAX applies it to an array of `dtype`: it takes
+    the array's dtype, so against a bf16 array it is rounded to bf16 first
+    (torch would apply it in f32)."""
+    if dtype == torch.bfloat16:
+        return float(torch.tensor(value, dtype=dtype))
+    return value

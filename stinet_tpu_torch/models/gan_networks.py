@@ -4,7 +4,8 @@ module): ResnetGenerator, UnetGenerator, NLayerDiscriminator (PatchGAN),
 PixelDiscriminator, `gan_loss` (lsgan, vanilla, wgangp), the WGAN-GP
 gradient penalty and the epoch -> lr multiplier schedules. NCHW modules
 with their layers in lists by kind in flax's creation order, weights from
-a `torch.Generator`, as `models/resnet2d.py` sets out."""
+a `torch.Generator`, and a compute `dtype` for the convolutions, as
+`models/resnet2d.py` sets out."""
 import math
 from typing import Optional
 
@@ -12,8 +13,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from stinet_tpu_torch.models.factory import weak_scalar
 from stinet_tpu_torch.models.resnet2d import (
-    Norm2D, ResnetBlock2D, init_conv_weights, pad2d)
+    Norm2D, ResnetBlock2D, conv_in, init_conv_weights, pad2d)
 
 
 def _conv(c_in, c_out, k, stride=1, padding=0, bias=True):
@@ -22,7 +24,8 @@ def _conv(c_in, c_out, k, stride=1, padding=0, bias=True):
 
 
 def _leaky(x):
-    return F.leaky_relu(x, 0.2)
+    """flax's leaky_relu(x, 0.2), its slope in x's dtype."""
+    return F.leaky_relu(x, weak_scalar(0.2, x.dtype))
 
 
 class ResnetGenerator(nn.Module):
@@ -34,9 +37,10 @@ class ResnetGenerator(nn.Module):
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 64,
                  norm: str = "batch", use_dropout: bool = False,
                  n_blocks: int = 6, padding_type: str = "reflect",
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.padding_type = padding_type
+        self.padding_type, self.dtype = padding_type, dtype
         use_bias = norm == "instance"
         convs = [_conv(input_nc, ngf, 7, bias=use_bias)]
         norms = [Norm2D(ngf, norm)]
@@ -46,7 +50,8 @@ class ResnetGenerator(nn.Module):
             norms.append(Norm2D(2 * c, norm))
         self.blocks = nn.ModuleList(
             ResnetBlock2D(4 * ngf, 4 * ngf, norm, padding_type=padding_type,
-                          use_dropout=use_dropout, use_bias=use_bias)
+                          use_dropout=use_dropout, use_bias=use_bias,
+                          dtype=dtype)
             for _ in range(n_blocks))
         tconvs = []
         for i in range(2):
@@ -61,16 +66,17 @@ class ResnetGenerator(nn.Module):
         init_conv_weights(self, generator)
 
     def forward(self, x):
-        convs, norms = iter(self.convs), iter(self.norms)
+        convs, norms, dt = iter(self.convs), iter(self.norms), self.dtype
         x = pad2d(x, 3, self.padding_type)
-        x = F.relu(next(norms)(next(convs)(x)))
+        x = F.relu(next(norms)(conv_in(next(convs), x, dt)))
         for _ in range(2):
-            x = F.relu(next(norms)(next(convs)(x)))
+            x = F.relu(next(norms)(conv_in(next(convs), x, dt)))
         for block in self.blocks:
             x = block(x)
         for tconv in self.tconvs:
-            x = F.relu(next(norms)(tconv(x)))
-        return torch.tanh(next(convs)(pad2d(x, 3, self.padding_type)))
+            x = F.relu(next(norms)(conv_in(tconv, x, dt)))
+        return torch.tanh(conv_in(next(convs), pad2d(x, 3, self.padding_type),
+                                  dt))
 
 
 class UnetGenerator(nn.Module):
@@ -83,8 +89,10 @@ class UnetGenerator(nn.Module):
     def __init__(self, input_nc: int, output_nc: int, num_downs: int = 7,
                  ngf: int = 64, norm: str = "batch",
                  use_dropout: bool = False,
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dtype = dtype
         use_bias = norm == "instance"
         chans = [ngf, ngf * 2, ngf * 4] + [ngf * 8] * (num_downs - 3)
         convs = [_conv(input_nc, chans[0], 4, 2, 1, bias=use_bias)]
@@ -106,17 +114,17 @@ class UnetGenerator(nn.Module):
         init_conv_weights(self, generator)
 
     def forward(self, x):
-        norms = iter(self.norms)
-        skips = [self.convs[0](x)]
+        norms, dt = iter(self.norms), self.dtype
+        skips = [conv_in(self.convs[0], x, dt)]
         for conv in self.convs[1:]:
-            skips.append(next(norms)(conv(_leaky(skips[-1]))))
+            skips.append(next(norms)(conv_in(conv, _leaky(skips[-1]), dt)))
         h = skips.pop()
         for i, tconv in enumerate(self.tconvs[:-1]):
-            h = next(norms)(tconv(F.relu(h)))
+            h = next(norms)(conv_in(tconv, F.relu(h), dt))
             if i > 0 and self.dropout is not None:
                 h = self.dropout(h)
             h = torch.cat([skips.pop(), h], dim=1)
-        return torch.tanh(self.tconvs[-1](F.relu(h)))
+        return torch.tanh(conv_in(self.tconvs[-1], F.relu(h), dt))
 
 
 class NLayerDiscriminator(nn.Module):
@@ -124,9 +132,10 @@ class NLayerDiscriminator(nn.Module):
     stride-1 conv (the reference's gan_networks.py:558-603)."""
 
     def __init__(self, input_nc: int, ndf: int = 64, n_layers: int = 3,
-                 norm: str = "batch",
+                 norm: str = "batch", dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dtype = dtype
         use_bias = norm == "instance"
         convs, norms, c_in = [_conv(input_nc, ndf, 4, 2, 1)], [], ndf
         for n in range(1, n_layers + 1):
@@ -140,18 +149,21 @@ class NLayerDiscriminator(nn.Module):
         init_conv_weights(self, generator)
 
     def forward(self, x):
-        x = _leaky(self.convs[0](x))
+        dt = self.dtype
+        x = _leaky(conv_in(self.convs[0], x, dt))
         for conv, norm in zip(self.convs[1:-1], self.norms):
-            x = _leaky(norm(conv(x)))
-        return self.convs[-1](x)
+            x = _leaky(norm(conv_in(conv, x, dt)))
+        return conv_in(self.convs[-1], x, dt)
 
 
 class PixelDiscriminator(nn.Module):
     """1x1 PatchGAN (the reference's gan_networks.py:606-635)."""
 
     def __init__(self, input_nc: int, ndf: int = 64, norm: str = "batch",
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dtype = dtype
         use_bias = norm == "instance"
         self.convs = nn.ModuleList([
             _conv(input_nc, ndf, 1), _conv(ndf, 2 * ndf, 1, bias=use_bias),
@@ -160,9 +172,10 @@ class PixelDiscriminator(nn.Module):
         init_conv_weights(self, generator)
 
     def forward(self, x):
-        x = _leaky(self.convs[0](x))
-        x = _leaky(self.norms[0](self.convs[1](x)))
-        return self.convs[2](x)
+        dt = self.dtype
+        x = _leaky(conv_in(self.convs[0], x, dt))
+        x = _leaky(self.norms[0](conv_in(self.convs[1], x, dt)))
+        return conv_in(self.convs[2], x, dt)
 
 
 # --- losses ------------------------------------------------------------------

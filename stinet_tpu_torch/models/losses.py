@@ -17,11 +17,20 @@ def cse_loss_terms(logits, targets, weights=None, ignore_index=None,
     depend on the logits, so per-batch terms combine exactly: sum both,
     divide once."""
     targets = targets.to(torch.int64)
-    logp = F.log_softmax(logits, dim=-1)
-    nll = -logp.gather(1, targets[:, None])[:, 0]
+    nll = -log_softmax(logits).gather(1, targets[:, None])[:, 0]
     w = cse_row_weights(targets, weights, ignore_index, valid_mask,
-                        nll.dtype)
+                        torch.promote_types(nll.dtype, torch.float32))
     return (nll * w).sum(), w.sum()
+
+
+def log_softmax(logits):
+    """log_softmax over the last dim; on bf16 logits JAX's sequence in
+    bf16 (shift by the max, log of the sum of exps, each step rounded),
+    where torch's would round once."""
+    if logits.dtype != torch.bfloat16:
+        return F.log_softmax(logits, dim=-1)
+    shifted = logits - logits.max(dim=-1, keepdim=True).values.detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
 
 
 def cse_row_weights(targets, weights=None, ignore_index=None,

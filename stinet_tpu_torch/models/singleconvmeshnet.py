@@ -20,9 +20,14 @@ Module names are the JAX model's (`left_{l}`, `right_{l}`, `filter_{i}`,
 `utils/convert.py:seg_state_dict_from_jax_params` maps its variables one
 to one. Every block but `left_0` runs under `torch.utils.checkpoint`, where
 the JAX model puts `nn.remat`; the recomputed forward in the backward
-leaves the running statistics alone (`stinet.is_recomputing`). The model
-computes in its parameters' dtype, f32 as built (the JAX model's `dtype`,
-which only its head reads, is not ported).
+leaves the running statistics alone (`stinet.is_recomputing`).
+
+`dtype` (None, or "bfloat16" / torch.bfloat16) is the JAX model's, which
+only its head reads: the edge convolutions compute in the input's dtype
+(f32) whatever it is, and the head's two linears cast their input and
+weights to it (`stinet._dense`), so with bf16 the head's batch norm takes
+bf16 statistics, returns f32 (its parameters' dtype), and the logits are
+bf16. Parameters stay f32.
 """
 from typing import Optional, Sequence
 
@@ -32,8 +37,9 @@ from torch import nn
 
 from stinet_tpu_torch.graph.hierarchy import EdgeSet, HierarchicalGraph
 from stinet_tpu_torch.metrics.graph_metrics import length_mask
+from stinet_tpu_torch.models.factory import resolve_dtype, weak_scalar
 from stinet_tpu_torch.models.stinet import (
-    init_weights, is_recomputing, run_checkpointed)
+    _dense, init_weights, is_recomputing, run_checkpointed)
 from stinet_tpu_torch.ops.segment import segment_max, segment_mean
 
 
@@ -50,7 +56,9 @@ class _MaskedEdgeBatchNorm(nn.Module):
     In training: the batch mean and biased variance over those rows, with
     n = max(sum(mask), 1), and the running statistics move by `momentum`,
     the variance unbiased as var * n / max(n - 1, 1). In eval: the running
-    statistics. Every row is normalized, pad rows too."""
+    statistics. Every row is normalized, pad rows too. On bf16 rows the
+    statistics are bf16 and the constants take bf16, as JAX's module
+    computes them; the output takes the parameters' dtype."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -70,13 +78,14 @@ class _MaskedEdgeBatchNorm(nn.Module):
             if not is_recomputing():
                 with torch.no_grad():
                     unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
-                    k = self.momentum
-                    self.running_mean.mul_(1 - k).add_(k * mean)
-                    self.running_var.mul_(1 - k).add_(k * unbiased)
+                    k = weak_scalar(self.momentum, m.dtype)
+                    self.running_mean.mul_(1 - self.momentum).add_(k * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(
+                        k * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
-        return (m - mean) / torch.sqrt(var + self.eps) * self.weight \
-            + self.bias
+        eps = weak_scalar(self.eps, var.dtype)
+        return (m - mean) / torch.sqrt(var + eps) * self.weight + self.bias
 
 
 def _bias_free(in_features: int, out_features: int) -> nn.Linear:
@@ -165,8 +174,9 @@ class SingleConvMeshNet(nn.Module):
     def __init__(self, feature_number: int, num_propagation_steps: int,
                  filter_sizes: Sequence[int], num_classes: int = 21,
                  pooling_method: str = "mean", aggr: str = "mean",
-                 generator: Optional[torch.Generator] = None):
+                 dtype=None, generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dtype = resolve_dtype(dtype)
         if pooling_method not in ("mean", "max"):
             raise ValueError(f"pooling method {pooling_method!r}")
         fs = [int(f) for f in filter_sizes]
@@ -212,7 +222,8 @@ class SingleConvMeshNet(nn.Module):
                 fused, g.levels[fine].edges)
 
         lvl0 = g.levels[0]
+        h = _dense(self.head_lin1, current, self.dtype)
         vmask = length_mask(lvl0.num_vertices, lvl0.num_padded_vertices,
-                            current.device).to(current.dtype)
-        h = F.relu(self.head_bn(self.head_lin1(current), vmask))
-        return self.head_lin2(h)
+                            current.device).to(h.dtype)
+        h = F.relu(self.head_bn(h, vmask))
+        return _dense(self.head_lin2, h, self.dtype)

@@ -1,16 +1,17 @@
-"""Data-parallel training step over a process mesh.
+"""Sharded training step over a process mesh: dp, tp and their product.
 
 PyTorch counterpart of `stinet_tpu/parallel/data_parallel.py`. JAX jits
 one GSPMD step over a device mesh; a torch process drives one card, so
-the port's data mesh is the torch.distributed process group
+the port's mesh is the torch.distributed process group
 (parallel/mesh.py:ProcessMesh), and the step is the stacked step of
-trainers/graph_common.py with that mesh: each rank runs the scenes of its
-slice of a stacked batch, the gradients are summed over the ranks in one
-all_reduce, and every rank takes the same optimizer step. The model axis
-is 1: `param_sharding`'s rule is ported (parallel/mesh.py), the sharded
-matmuls are not (ROADMAP.md).
+trainers/graph_common.py with that mesh: each data rank runs the scenes of
+its slice of a stacked batch, the gradients are summed over the data ranks
+in one all_reduce, and every rank takes the same optimizer step. With a
+model axis above 1 the wide EdgeConv filters are split over the model
+ranks first (parallel/tensor_parallel.py).
 """
 from stinet_tpu_torch.parallel.mesh import shard_graph
+from stinet_tpu_torch.parallel.tensor_parallel import shard_model
 from stinet_tpu_torch.trainers.graph_common import (
     make_stacked_inpainting_steps, place_stacked, replicate_to_mesh)
 
@@ -23,14 +24,20 @@ def make_sharded_train_step(model, optimizer, mesh, use_mask_weighted=False,
       train_step(graph, lr) -> metrics: the stacked step
           (`make_stacked_inpainting_steps` with `mesh`) on this rank's
           slice of a stacked batch;
-      place_state(): rank 0's parameters, buffers and optimizer state on
-          every rank (`replicate_to_mesh`);
+      place_state(): data rank 0's parameters, buffers and optimizer
+          state on every data rank (`replicate_to_mesh`);
       place_graph(stacked) -> this rank's slice of a GLOBAL stacked batch
           on the mesh's device: `graph_sharding`'s rule (leaves whose dim
-          0 the rank count divides are split, the rest replicated);
+          0 the data rank count divides are split, the rest replicated);
       jit_step() -> train_step (eager torch has no program to compile).
 
-    `mesh` None runs the step in one process, on the model's device."""
+    With a model axis above 1 the model is sharded first, in place
+    (`shard_model`: rank 0's whole weights, then this model rank's slice
+    of each wide EdgeConv filter, the optimizer's parameters kept);
+    `tensor_parallel.whole` gives its whole state dict back. `mesh` None
+    runs the step in one process, on the model's device."""
+    if mesh is not None:
+        shard_model(model, mesh, optimizer)
     train_step, _ = make_stacked_inpainting_steps(
         model, optimizer, use_mask_weighted, impl=impl, mesh=mesh)
     device = next(model.parameters()).device

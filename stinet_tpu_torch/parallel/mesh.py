@@ -37,10 +37,19 @@ rank). The process mesh is also the data mesh of data-parallel training
 (`all_reduce_`, `broadcast_`, `all_reduce_grads`), where a rank holds its
 slice of a stacked batch.
 
+A process mesh may carry a model axis (`model_parallel`), as JAX's
+(data, model) mesh does: the group's ranks form a grid of n_parts data
+ranks by model_parallel model ranks, rank r at data index r //
+model_parallel and model index r % model_parallel (JAX's reshape of its
+device list). The partition and data collectives above run among the
+ranks of one model index (`data_group`); the ranks of one data index
+(`model_group`) split the wide layers' hidden channels
+(parallel/tensor_parallel.py) and sum across them with
+`model_all_reduce_`.
+
 `graph_sharding` and `param_sharding` are JAX's layout rules as functions
 (parallel/mesh.py:36-63 there): which leaves of a batch a rank slices, and
-which weights a model axis would split. The port has no model axis: a
-tensor-parallel layer is not ported (ROADMAP.md).
+which weights a model axis splits.
 """
 from typing import List, Optional
 
@@ -113,7 +122,7 @@ class _Gather(torch.autograd.Function):
         ctx.mesh, ctx.rows = mesh, out.shape[0]
         out = out.detach().contiguous()
         parts = [torch.empty_like(out) for _ in range(mesh.n_parts)]
-        mesh._dist.all_gather(parts, out)
+        mesh._dist.all_gather(parts, out, group=mesh.data_group)
         return torch.cat(parts)
 
     @staticmethod
@@ -123,20 +132,46 @@ class _Gather(torch.autograd.Function):
 
 
 class ProcessMesh:
-    """One partition a rank of the initialised default `torch.distributed`
-    process group, on `device`."""
+    """One partition a data rank of the initialised default
+    `torch.distributed` process group, on `device`; with `model_parallel`
+    above 1 a grid of data and model ranks (module docstring). `rank` and
+    `n_parts` are the data index and the data ranks; `model_rank` the
+    model index. Every rank builds every subgroup, in one order."""
     processes = True
 
-    def __init__(self, device):
+    def __init__(self, device, model_parallel: int = 1):
         import torch.distributed as dist
         if not dist.is_initialized():
             raise RuntimeError("ProcessMesh needs an initialised "
                                "torch.distributed process group")
+        world = dist.get_world_size()
+        if model_parallel < 1 or world % model_parallel:
+            raise ValueError(f"{world} ranks do not divide into a model "
+                             f"axis of {model_parallel}")
         self._dist = dist
-        self.n_parts = dist.get_world_size()
-        self.rank = dist.get_rank()
+        self.model_parallel = model_parallel
+        self.n_parts = world // model_parallel
+        self.rank, self.model_rank = divmod(dist.get_rank(), model_parallel)
         self.device = resolve_device(device)
         self.parts = [self.rank]
+        self.data_group = self.model_group = None    # None: every rank
+        if model_parallel > 1:
+            for d in range(self.n_parts):
+                group = dist.new_group([self._global(d, m)
+                                        for m in range(model_parallel)])
+                if d == self.rank:
+                    self.model_group = group
+            for m in range(model_parallel):
+                group = dist.new_group([self._global(d, m)
+                                        for d in range(self.n_parts)])
+                if m == self.model_rank:
+                    self.data_group = group
+
+    def _global(self, data_rank, model_rank=None):
+        """The group rank at `data_rank` and `model_rank` (this rank's)."""
+        if model_rank is None:
+            model_rank = self.model_rank
+        return data_rank * self.model_parallel + model_rank
 
     def _shift(self, buf, step):
         """buf to rank + step, rank - step's received (no autograd)."""
@@ -144,9 +179,9 @@ class ProcessMesh:
         buf = buf.detach().contiguous()
         recv = torch.empty_like(buf)
         ops = [dist.P2POp(dist.isend, buf,
-                          (self.rank + step) % self.n_parts),
+                          self._global((self.rank + step) % self.n_parts)),
                dist.P2POp(dist.irecv, recv,
-                          (self.rank - step) % self.n_parts)]
+                          self._global((self.rank - step) % self.n_parts))]
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return recv
@@ -170,7 +205,7 @@ class ProcessMesh:
     def all_gather_object(self, obj) -> list:
         """Every rank's `obj`, in rank order, on every rank."""
         out = [None] * self.n_parts
-        self._dist.all_gather_object(out, obj)
+        self._dist.all_gather_object(out, obj, group=self.data_group)
         return out
 
     def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
@@ -178,13 +213,21 @@ class ProcessMesh:
         Under gloo a card's tensor is taken too (gloo's all_reduce and
         broadcast take CUDA tensors)."""
         if self.n_parts > 1:
-            self._dist.all_reduce(t)
+            self._dist.all_reduce(t, group=self.data_group)
         return t
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """Rank `src`'s t on every rank, in place; returns t."""
+        """Data rank `src`'s t on every data rank, in place; returns t."""
         if self.n_parts > 1:
-            self._dist.broadcast(t, src)
+            self._dist.broadcast(t, self._global(src),
+                                 group=self.data_group)
+        return t
+
+    def model_all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the model ranks of this data index, in place
+        (contiguous t); returns t."""
+        if self.model_parallel > 1:
+            self._dist.all_reduce(t, group=self.model_group)
         return t
 
     def all_reduce_grads(self, params) -> None:
@@ -253,15 +296,20 @@ def param_sharding(params, n_model: int, min_dim: int = 128):
 
 
 def make_mesh(n_parts: Optional[int] = None, device="cuda",
-              processes: bool = False):
+              processes: bool = False, model_parallel: int = 1):
     """A mesh of partitions on `device`: with `processes`, the
-    `ProcessMesh` of the initialised torch.distributed process group
-    (n_parts, if given, must be its size); else the `InProcessMesh` of
-    n_parts partitions (default 1)."""
+    `ProcessMesh` of the initialised torch.distributed process group with
+    a model axis of `model_parallel` (n_parts, if given, must be its data
+    ranks: the group's size over model_parallel); else the
+    `InProcessMesh` of n_parts partitions (default 1), which has no model
+    axis (its partitions share one card)."""
     if processes:
-        mesh = ProcessMesh(device)
+        mesh = ProcessMesh(device, model_parallel)
         if n_parts is not None and n_parts != mesh.n_parts:
             raise ValueError(f"{n_parts} partitions asked of a process "
-                             f"group of {mesh.n_parts}")
+                             f"group of {mesh.n_parts} data ranks")
         return mesh
+    if model_parallel != 1:
+        raise ValueError("a model axis needs a process mesh "
+                         "(processes=True): one rank a model index")
     return InProcessMesh(1 if n_parts is None else n_parts, device)

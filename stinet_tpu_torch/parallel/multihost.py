@@ -19,8 +19,8 @@ the trainers' entry to that group:
 Every collective here runs on CPU tensors under gloo and on the rank's
 card under NCCL (NCCL takes no CPU tensor). Outside a group of more than
 one rank every helper is the identity, so the trainers call them
-unconditionally. JAX's `make_global_mesh` is `parallel/mesh.py:ProcessMesh`
-here, with no model axis (ROADMAP.md: tensor parallelism is not ported).
+unconditionally. `make_global_mesh` is JAX's: the group's
+`parallel/mesh.py:ProcessMesh`, with a model axis.
 """
 import logging
 import os
@@ -203,6 +203,14 @@ def mean_scalar_metrics(log, weight=1.0):
     for k, v in zip(keys, vals[:-1] / total):
         out[k] = float(v)
     return out
+
+
+def make_global_mesh(model_parallel=1, device="cuda"):
+    """The mesh over every rank of the group (every rank calls it with the
+    same arguments): `ProcessMesh` on `device`, a grid of data ranks by
+    `model_parallel` model ranks (JAX's (data, model) mesh)."""
+    from stinet_tpu_torch.parallel.mesh import ProcessMesh
+    return ProcessMesh(device, model_parallel)
 
 
 def sync_hosts(name="barrier"):

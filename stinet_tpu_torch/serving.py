@@ -64,7 +64,8 @@ from stinet_tpu_torch.graph.build import (
     RawHierarchy, build_hierarchical_graph, pad_and_stack,
     pad_tables_to_widths, table_widths, windowed_layout)
 from stinet_tpu_torch.graph.hierarchy import (
-    EdgeSet, HierarchicalGraph, map_tensors, scene_of, tensor_leaves)
+    EdgeSet, HierarchicalGraph, map_tensors, scene_of, tensor_leaves,
+    tree_structure)
 
 
 def resolve_device(device) -> torch.device:
@@ -270,6 +271,13 @@ def _signature(graph: HierarchicalGraph):
         for lv in graph.levels)
 
 
+def _compile_key(graph: HierarchicalGraph):
+    """What a JAX jit cache keys a graph on: its structure (treedef, with
+    the static ints) and every tensor leaf's shape and dtype."""
+    return (tree_structure(graph),
+            tuple((tuple(t.shape), t.dtype) for t in tensor_leaves(graph)))
+
+
 class _ServedForward(torch.nn.Module):
     """The server's forward as a module: the generator's f32 output."""
 
@@ -320,6 +328,9 @@ class SceneInpainter:
         self._widths = {}
         self._width_lock = threading.Lock()
         self._stream_stats = {}
+        # the layouts served (`_serve`), as JAX's two jit caches hold them:
+        # (False, key) a graph's forward, (True, key) a stacked batch's
+        self._served = set()
 
     # -- building ------------------------------------------------------
     def _host_graph(self, scenes: Sequence[RawHierarchy]):
@@ -407,11 +418,17 @@ class SceneInpainter:
         return torch.stack([self.forward(scene_of(graph, i))
                             for i in range(batch)])
 
+    def _serve(self, graph: HierarchicalGraph, stacked=False):
+        """The forward (`forward_stacked` with `stacked`) of a placed graph,
+        its layout noted for `num_compiles` as JAX's jit caches key it."""
+        self._served.add((stacked, _compile_key(graph)))
+        return (self.forward_stacked if stacked else self.forward)(graph)
+
     def predict(self, scene: RawHierarchy) -> np.ndarray:
         """Inpaint one scene; returns [num_vertices, output_nc] colors for
         the valid level-0 vertices, in the scene's vertex order."""
         graph, order = self._build_scene(scene)
-        out = self.forward(self.place(graph))
+        out = self._serve(self.place(graph))
         return _scene_order(out[:scene.num_vertices[0]].cpu().numpy(), order)
 
     def predict_batch(self, scenes: Sequence[RawHierarchy], *,
@@ -455,11 +472,12 @@ class SceneInpainter:
                     raise
                 host = None
             if host is not None:
-                out = self.forward_stacked(self.place(host)).cpu().numpy()
+                out = self._serve(self.place(host), stacked=True)
+                out = out.cpu().numpy()
                 return [_scene_order(out[i, :s.num_vertices[0]], o)
                         for i, (s, o) in enumerate(zip(scenes, orders))]
         laid = [self._layout(s) for s in scenes]
-        out = self.forward(self.place(self._host_graph([s for s, _ in laid])))
+        out = self._serve(self.place(self._host_graph([s for s, _ in laid])))
         out = out.cpu().numpy()
         results, off = [], 0
         for s, order in laid:
@@ -558,7 +576,7 @@ class SceneInpainter:
             t1 = time.perf_counter()
             placed = placer.put(packed)
             t2 = time.perf_counter()
-            out = self.forward(placed)[:s.num_vertices[0]]
+            out = self._serve(placed)[:s.num_vertices[0]]
             done.append((*self._copy_back(out), order))
             stats["pack_ms"].append((t1 - t0) * 1e3)
             stats["wire_mbytes"].append(
@@ -637,6 +655,17 @@ class SceneInpainter:
                 if stacked and b > 1:
                     self.predict_batch(chunk, stacked=False)
         return len(seen)
+
+    def num_compiles(self) -> int:
+        """The number of distinct layouts `predict`, `predict_batch` and
+        `predict_stream` have run a forward on: JAX's `num_compiles`, its
+        jit caches' sizes, counted the same way (the structure and every
+        leaf's shape and dtype; the forward of one graph and of a stacked
+        batch apart). Watch it plateau in
+        production; a steady climb means the bucket ladder leaks shapes.
+        Eager torch compiles nothing; where forwards are captured as CUDA
+        graphs, one a bucket, this count is the count of captures."""
+        return len(self._served)
 
     def export(self, scene: RawHierarchy, out_path: str) -> str:
         """Export the forward at this scene's bucket signature (its build,

@@ -34,6 +34,12 @@ JAX's 2d step applies Resnet2D without a `batch_stats` collection and
 without a dropout RNG, so it cannot train norm="batch" or use_dropout; the
 port's trainer refuses both (the modules have them).
 
+With `trainer.profile` (and not a dry run) an `utils/profiling.py:
+EpochProfiler` traces the train steps the reference's schedule picks,
+into `<log_dir>/profile`, stepped at the top of each train batch where
+the JAX trainer steps its own; `train()` closes it at the end (JAX never
+closes its profiler, so a window open at the end writes nothing there).
+
 Perceptual nets fail closed, as the JAX trainer's do: `use_lpips`, FID or
 `use_vgg` need a weights file (`lpips_weights`, `inception_weights`,
 `vgg_weights`: torch state-dict files) or `allow_random_features`, and
@@ -83,6 +89,7 @@ from stinet_tpu_torch.trainers.graph_common import (
     step_lr, vertex_mask)
 from stinet_tpu_torch.trainers.inpainting3d import (
     _timed, check_nan_in_params)
+from stinet_tpu_torch.utils.profiling import EpochProfiler
 
 
 def _perceptual_terms(composite, color, vgg, vgg_weights, tv_weight):
@@ -464,6 +471,12 @@ class Inpainting2DTrainer(SingleModelTrainer):
         self.lpips_tag = "lpips"
         self.lpips = self._setup_lpips(tcfg) if tcfg.get(
             "use_lpips", False) else None
+        # the reference's torch.profiler wrap of the train epoch
+        # (inpainting2d_trainer.py:319-325), where the JAX trainer builds
+        # its own
+        self.profiler = None
+        if tcfg.get("profile", False) and not config.dry_run:
+            self.profiler = EpochProfiler(config.log_dir / "profile")
 
         dl_args = config["data_loader"]["args"]
         self.num_accum = int(dl_args.get("num_cumulated_train_batches", 1))
@@ -532,6 +545,15 @@ class Inpainting2DTrainer(SingleModelTrainer):
         # Inception forwards up to the host copy, "distance_s": the host
         # statistics and Frechet distance}
         self.fid_timings = []
+
+    def train(self):
+        """The epoch loop; the profiler's open window, if any, is written
+        at its end (JAX never closes its profiler)."""
+        try:
+            super().train()
+        finally:
+            if self.profiler is not None:
+                self.profiler.close()
 
     def _probe(self):
         """Advance the loaders as the JAX trainer's parameter-template
@@ -629,6 +651,8 @@ class Inpainting2DTrainer(SingleModelTrainer):
         for batch_idx, (graph, names) in enumerate(_timed(
                 iter_placed(loader, self.device), waits)):
             self.writer.set_step((epoch - 1) * len_epoch + batch_idx)
+            if self.profiler is not None:
+                self.profiler.step()
             m = host_metrics(self._train_step(graph, lr))
             for k, v in m.items():
                 self.train_metrics.update(k, v)

@@ -1564,3 +1564,138 @@ def test_exported_forward_on_the_card_equals_the_servers(dev, tmp_path,
     assert launched == expect and launched[0] > 0 and launched[1] > 0
     assert (launched[2] > 0) == banded
     assert torch.equal(got, want)
+
+
+# --- profiling, bf16 outside STINet, tensor-parallel slices ------------------
+
+def test_epoch_profiler_names_the_kernels_on_the_card(dev, tmp_path):
+    """`EpochProfiler` at its default schedule over 8 steps of K1 forward
+    and K2 calls: the trace of steps 4-6 names `ell_fwd_rows` and K2's two
+    launches three times each, and the launch counters move as without a
+    profiler (one K1 and one K2 call a step)."""
+    import json
+    from stinet_tpu_torch.utils.profiling import EpochProfiler
+    rng = np.random.default_rng(8)
+    v, h, d = 2048, 64, 8
+    p = _cuda_t(rng.normal(size=(v, h)).astype(np.float32), dev)
+    q = _cuda_t(rng.normal(size=(v, h)).astype(np.float32), dev)
+    nbr = _cuda_t(rng.integers(0, v, size=(v, d)).astype(np.int32), dev)
+    deg = _cuda_t(rng.integers(0, d + 1, size=v).astype(np.float32), dev)
+    nv = torch.tensor(v - 5, dtype=torch.int32, device=dev)
+    gid = (torch.arange(v, device=dev) >= v - 5).to(torch.int32)
+    prof = EpochProfiler(tmp_path)
+    k1, k2 = (ell.ell_edge_conv_sum_kernel.launches,
+              norms.masked_instance_norm_kernel.launches)
+    for _ in range(8):
+        prof.step()
+        norms.masked_instance_norm(ell.ell_edge_conv_sum(p, q, nbr, deg),
+                                   gid, 1, nv)
+        torch.cuda.synchronize()
+    prof.close()
+    assert ell.ell_edge_conv_sum_kernel.launches == k1 + 8
+    assert norms.masked_instance_norm_kernel.launches == k2 + 8
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    names = [e["name"] for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    for symbol in ("ell_fwd_rows", "instance_norm_stats",
+                   "instance_norm_apply"):
+        assert sum(symbol in n for n in names) == 3, symbol
+
+
+def test_bf16_resnet2d_and_discriminator_on_the_card_match_the_cpu(dev):
+    """A bf16 Resnet2D and a bf16 PatchGAN discriminator (f32 parameters)
+    on the card against the CPU from the same weights: bf16 outputs within
+    5e-2 of theirs in L2 (cuDNN's bf16 convolutions round their f32 sums
+    at other ties than the CPU's, and the instance norms amplify a flip),
+    and the generator's gradients f32 within 5e-2 together."""
+    from stinet_tpu_torch.models.gan_networks import NLayerDiscriminator
+    from stinet_tpu_torch.models.resnet2d import Resnet2D
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(2, 4, 32, 32)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(2, 7, 64, 64)).astype(np.float32))
+    for make, inp in (
+            (lambda: Resnet2D(4, ngf=8, n_blocks=3, norm="instance",
+                              pooling_type="max", dilation_order=1,
+                              dtype=torch.bfloat16,
+                              generator=torch.Generator().manual_seed(2)),
+             x),
+            (lambda: NLayerDiscriminator(
+                7, ndf=8, n_layers=3, norm="instance", dtype=torch.bfloat16,
+                generator=torch.Generator().manual_seed(3)), y)):
+        outs, grads = [], []
+        for device in ("cpu", dev):
+            model = make().to(device)
+            out = model(inp.to(device))
+            assert out.dtype == torch.bfloat16
+            out.float().square().sum().backward()
+            outs.append(out.detach().float().cpu())
+            grads.append(torch.cat([p.grad.reshape(-1).cpu()
+                                    for p in model.parameters()]))
+            assert all(p.grad.dtype == torch.float32
+                       for p in model.parameters())
+        assert float((outs[1] - outs[0]).norm()) <= 5e-2 * float(
+            outs[0].norm())
+        assert float((grads[1] - grads[0]).norm()) <= 5e-2 * float(
+            grads[0].norm())
+
+
+def test_bf16_singleconvmeshnet_on_the_card_matches_the_cpu(dev):
+    """A bf16 SingleConvMeshNet (the head bf16, the edge convolutions f32)
+    in a train forward on the card against the CPU: bf16 logits within
+    2e-2 of theirs in L2."""
+    import dataclasses
+    from stinet_tpu_torch.models.singleconvmeshnet import SingleConvMeshNet
+    scene = synthetic_scene(num_vertices=4096, levels=3, seed=5,
+                            dilation_dists=())
+    host = build_hierarchical_graph([scene])
+    rng = np.random.default_rng(1)
+    host = dataclasses.replace(host, x=torch.from_numpy(
+        rng.normal(size=(host.x.shape[0], 9)).astype(np.float32)))
+    outs = []
+    for device in ("cpu", dev):
+        model = SingleConvMeshNet(
+            9, 2, [8, 16, 32], dtype="bfloat16",
+            generator=torch.Generator().manual_seed(3)).to(device)
+        with gc.full_f32_matmuls():
+            out = model(host.to(device))
+        assert out.dtype == torch.bfloat16
+        outs.append(out.detach().float().cpu())
+    assert float((outs[1] - outs[0]).norm()) <= 2e-2 * float(outs[0].norm())
+
+
+@pytest.mark.parametrize("kind", ["sum", "dp", "dq"])
+def test_ell_kernels_on_a_channel_slice_bitwise(dev, kind):
+    """K1, dp and dq on P and Q of a slice of the hidden channels (the
+    first half of a 2H = 128 projection, as a model axis of 2 gives each
+    rank; a column slice made contiguous): bitwise their plain
+    versions."""
+    rng = np.random.default_rng(11)
+    v, d, h = 3000, 9, 128
+    x = _cuda_t(rng.normal(size=(v, 32)).astype(np.float32), dev)
+    w = _cuda_t(rng.normal(size=(h, 32)).astype(np.float32), dev)
+    p = (x @ w.T)[:, :h // 2].contiguous()
+    q = (x.flip(0) @ w.T)[:, :h // 2].contiguous()
+    g = _cuda_t(rng.normal(size=(v, h // 2)).astype(np.float32), dev)
+    nbr_np = rng.integers(0, v, size=(v, d)).astype(np.int32)
+    deg_np = rng.integers(0, d + 1, size=v)
+    nbr, deg = _cuda_t(nbr_np, dev), _cuda_t(deg_np.astype(np.float32), dev)
+    rev = [[] for _ in range(v)]
+    for r in range(v):
+        for s_ in nbr_np[r, :deg_np[r]]:
+            rev[s_].append(r)
+    rev_np = np.zeros((v, max(len(r) for r in rev)), np.int32)
+    for s_, r in enumerate(rev):
+        rev_np[s_, :len(r)] = r
+    dout = _cuda_t(np.asarray([len(r) for r in rev], np.float32), dev)
+    args, kernel, plain = {
+        "sum": ((p, q, nbr, deg), ell.ell_edge_conv_sum_kernel,
+                ell.ell_edge_conv_sum_plain),
+        "dp": ((p, q, nbr, deg, g), ell.ell_edge_conv_dp_kernel,
+               ell.ell_edge_conv_dp_plain),
+        "dq": ((q, g, p, _cuda_t(rev_np, dev), dout),
+               ell.ell_edge_conv_dq_kernel, ell.ell_edge_conv_dq_plain),
+    }[kind]
+    got, want = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (v, h // 2)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

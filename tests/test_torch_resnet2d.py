@@ -182,7 +182,7 @@ def test_resnet2d_backward_matches_jax():
 def test_define_g_builds_resnet2d_as_jax_does():
     """The shipped 2D configs' Resnet2D block through both factories
     (ngf cut to 8): the same layers and parameter count; a bf16 dtype
-    raises."""
+    gives the same f32 parameters and a bf16 compute dtype."""
     args = dict(input_nc=4, output_nc=3, ngf=8, n_blocks=9, norm="instance",
                 use_dropout=False, init_type="normal", init_gain=0.02,
                 dilation_order=1, pooling_type="max",
@@ -197,8 +197,10 @@ def test_define_g_builds_resnet2d_as_jax_does():
         a.size for a in jax.tree.leaves(v["params"]))
     dilations = [b.fconvs[0].convs[0].dilation for b in port.blocks]
     assert dilations == [(1, 1)] * 8 + [(2, 2)]
-    with pytest.raises(NotImplementedError, match="float32"):
-        define_G(**dict(args, dtype="bfloat16"))
+    bf16 = define_G(**dict(args, dtype="bfloat16"))
+    assert bf16.dtype == torch.bfloat16
+    assert count_parameters(bf16) == count_parameters(port)
+    assert all(p.dtype == torch.float32 for p in bf16.parameters())
 
 
 def test_weights_follow_the_torch_linear_law():

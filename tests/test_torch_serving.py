@@ -296,3 +296,27 @@ def test_latest_checkpoint_takes_the_highest_epoch(tmp_path):
                                    {}, {}, e, 0.0, {})
     assert checkpoint.latest_checkpoint(tmp_path).name == (
         "checkpoint-epoch10.ckpt")
+
+
+def test_num_compiles_counts_what_jax_compiles(served):
+    """`num_compiles` after each request of a sequence over two vertex
+    buckets (500 and 1500 vertices): single scenes, a same-bucket repeat,
+    a stacked pair and a pair that falls back to the concatenated layout.
+    The port's count equals JAX's jit-cache count after every request."""
+    model, params, weights = served
+    jax_server = JaxSceneInpainter(model, params)
+    server = port_server(weights)
+    a, b, c = scene(3), scene(4), scene(5, n=1500)
+    requests = [("predict", [a]), ("predict", [b]), ("predict", [a]),
+                ("predict", [c]), ("predict_batch", [a, b]),
+                ("predict_batch", [b, a]), ("predict_batch", [a, c])]
+    counts = []
+    for name, scenes in requests:
+        for s in (jax_server, server):
+            if name == "predict":
+                s.predict(scenes[0])
+            else:
+                s.predict_batch(scenes)
+        counts.append((jax_server.num_compiles(), server.num_compiles()))
+    assert [j for j, _ in counts] == [p for _, p in counts], counts
+    assert counts[-1][0] >= 4
