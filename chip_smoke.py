@@ -2120,13 +2120,21 @@ def timed_parts(torch, parts):
              for i in range(len(runs[0]) - 1)], peak)
 
 
+def _self_device_us(evt) -> float:
+    """An averaged profiler event's own device microseconds, under the
+    name this torch gives them."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    raise AttributeError("profiler event has no device time field")
+
+
 def traced_steps(torch, phase, step, card, what):
     """SEG_STEP_REPS calls of `step` untimed by CUDA events, then the same
     traced (torch.profiler): device busy ms, launches, idle share and the
     top 8 ops by device time, a call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from stinet_tpu_torch.utils.profile_forward import _self_device_us
 
     def steps():
         for _ in range(SEG_STEP_REPS):

@@ -44,6 +44,7 @@ from stinet_tpu_torch.graph.build import (
     RawHierarchy, build_hierarchical_graph, build_stacked_graph,
     freeze_stacked_signature)
 from stinet_tpu_torch.parallel import multihost
+from stinet_tpu_torch.utils.profiling import span
 
 _META = os.path.join(os.path.dirname(__file__), "meta", "scannet")
 SCANNET_TRAIN_FILE = os.path.join(_META, "scannetv2_train.txt")
@@ -229,17 +230,18 @@ class ScanNetGraphColorDataSet:
         mask_path = mask_files[
             list(mask_files)[int(rng.integers(0, len(mask_files)))]]
 
-        (vertices, edges, traces, dilated, dists,
-         banded) = self._load_graph(scene)
-        # vertex layout: 0:3 pos, 3:6 color, 6:9 normals
-        # (reference scannetcolorgraph_dataloader.py:91)
-        v0 = vertices[0].astype(np.float32)
-        pos, color, normals = v0[:, 0:3], v0[:, 3:6], v0[:, 6:9]
-        color = color * 2.0 - 1.0  # [-1,1] (reference :95)
+        with span("load.read", (scene,)):
+            (vertices, edges, traces, dilated, dists,
+             banded) = self._load_graph(scene)
+            # vertex layout: 0:3 pos, 3:6 color, 6:9 normals
+            # (reference scannetcolorgraph_dataloader.py:91)
+            v0 = vertices[0].astype(np.float32)
+            pos, color, normals = v0[:, 0:3], v0[:, 3:6], v0[:, 6:9]
+            color = color * 2.0 - 1.0  # [-1,1] (reference :95)
 
-        with open(mask_path, "rb") as f:
-            mask = np.load(f, allow_pickle=True)["vertex_mask"]
-        mask = mask.astype(np.float32)[:, None]
+            with open(mask_path, "rb") as f:
+                mask = np.load(f, allow_pickle=True)["vertex_mask"]
+            mask = mask.astype(np.float32)[:, None]
         mask_bool = (mask == 0).astype(np.float32)
 
         x = np.concatenate(
@@ -259,7 +261,8 @@ class ScanNetGraphColorDataSet:
             traces=[t for t in use_traces],
             dilated=dilated, name=scene, banded=banded)
         if self._transform is not None:
-            sample = self._transform(sample, rng)
+            with span("load.transform", (scene,)):
+                sample = self._transform(sample, rng)
         return sample
 
 
@@ -325,25 +328,29 @@ class _SceneLoader:
                              f"divide over {ranks} processes")
         local = self.batch_size // ranks
         for b in range(len(self)):
-            t0 = time.perf_counter()
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            if self.stacked:
-                if len(sel) < self.batch_size:
-                    sel = np.concatenate(
-                        [sel, sel[:self.batch_size - len(sel)]])
-                sel = sel[rank * local:(rank + 1) * local]
-            samples = [self.dataset[int(i)] for i in sel]
-            if self.stacked:
-                graph, _ = build_stacked_graph(
-                    samples, v_buckets=self.signature[0],
-                    widths=self.signature[1], pad_multiple=self.pad_multiple,
-                    geometric=True, windowed=self.windowed)
-            else:
-                graph = build_hierarchical_graph(
-                    samples, pad_multiple=self.pad_multiple, geometric=True,
-                    windowed=self.windowed)
-            self.build_ms.append((time.perf_counter() - t0) * 1e3)
-            yield graph, [s.name for s in samples]
+            with span("load.batch") as batch_span:
+                t0 = time.perf_counter()
+                sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                if self.stacked:
+                    if len(sel) < self.batch_size:
+                        sel = np.concatenate(
+                            [sel, sel[:self.batch_size - len(sel)]])
+                    sel = sel[rank * local:(rank + 1) * local]
+                samples = [self.dataset[int(i)] for i in sel]
+                names = [s.name for s in samples]
+                batch_span.batch = names
+                if self.stacked:
+                    graph, _ = build_stacked_graph(
+                        samples, v_buckets=self.signature[0],
+                        widths=self.signature[1],
+                        pad_multiple=self.pad_multiple, geometric=True,
+                        windowed=self.windowed)
+                else:
+                    graph = build_hierarchical_graph(
+                        samples, pad_multiple=self.pad_multiple,
+                        geometric=True, windowed=self.windowed)
+                self.build_ms.append((time.perf_counter() - t0) * 1e3)
+            yield graph, names
 
     def skip_epoch(self):
         """Advance the epoch key and the shuffle stream as one full

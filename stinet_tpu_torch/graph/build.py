@@ -25,6 +25,7 @@ from stinet_tpu_torch.graph import native as _native
 from stinet_tpu_torch.graph.hierarchy import (
     EdgeSet, GraphLevel, HierarchicalGraph, map_tensors, tensor_leaves,
     tree_structure)
+from stinet_tpu_torch.utils.profiling import span
 
 
 def bucket_size(n: int, multiple: int = 128, geometric: bool = False,
@@ -378,8 +379,11 @@ def build_hierarchical_graph(
     the CPU count), since the native builder releases the interpreter
     lock; 1 builds them in turn.
     """
+    names = [s.name for s in samples]
     if windowed:
-        samples = [windowed_layout(s, window_quantile)[0] for s in samples]
+        with span("build.order", names):
+            samples = [windowed_layout(s, window_quantile)[0]
+                       for s in samples]
     num_levels = len(samples[0].num_vertices)
     num_graphs = len(samples)
 
@@ -427,60 +431,64 @@ def build_hierarchical_graph(
     # timing changes no result
     def run(task):
         edges, e_pad, trash, v_pad, halo = task
-        return _pad_edge_set(edges, e_pad, trash, v_pad,
-                             cap_quantile=ell_cap_quantile, window_halo=halo)
+        with span("build.edge_set", names, parent="build.tables"):
+            return _pad_edge_set(edges, e_pad, trash, v_pad,
+                                 cap_quantile=ell_cap_quantile,
+                                 window_halo=halo)
 
     workers = os.environ.get("STINET_BUILD_WORKERS")
     workers = (int(workers) if workers
                else min(len(tasks), os.cpu_count() or 4))
-    if workers <= 1 or len(tasks) <= 1:
-        built = {k: run(t) for k, t in tasks.items()}
-    else:
-        with ThreadPoolExecutor(max_workers=workers) as pool:
-            futures = {k: pool.submit(run, t) for k, t in tasks.items()}
-            built = {k: f.result() for k, f in futures.items()}
+    with span("build.tables", names):
+        if workers <= 1 or len(tasks) <= 1:
+            built = {k: run(t) for k, t in tasks.items()}
+        else:
+            with ThreadPoolExecutor(max_workers=workers) as pool:
+                futures = {k: pool.submit(run, t) for k, t in tasks.items()}
+                built = {k: f.result() for k, f in futures.items()}
 
-    # stage 3: the levels, traces and children tables
-    levels, traces, children = [], [], []
-    for l in range(num_levels):
-        v_pad = int(v_buckets[l])
-        base = built[(l, None)]
-        dil = {d: es for (ll, d), es in built.items()
-               if ll == l and d is not None}
+    # stage 3: the levels, traces and children tables, and the features
+    with span("build.levels", names):
+        levels, traces, children = [], [], []
+        for l in range(num_levels):
+            v_pad = int(v_buckets[l])
+            base = built[(l, None)]
+            dil = {d: es for (ll, d), es in built.items()
+                   if ll == l and d is not None}
 
-        graph_id = np.full(v_pad, num_graphs, dtype=np.int32)
-        for g in range(num_graphs):
-            graph_id[offsets[l, g]:offsets[l, g + 1]] = g
-        levels.append(GraphLevel(
-            edges=base, num_vertices=torch.tensor(int(totals[l]),
-                                                  dtype=torch.int32),
-            graph_id=_t(graph_id), dilated=dil))
+            graph_id = np.full(v_pad, num_graphs, dtype=np.int32)
+            for g in range(num_graphs):
+                graph_id[offsets[l, g]:offsets[l, g + 1]] = g
+            levels.append(GraphLevel(
+                edges=base, num_vertices=torch.tensor(int(totals[l]),
+                                                      dtype=torch.int32),
+                graph_id=_t(graph_id), dilated=dil))
 
-        if l < num_levels - 1:
-            coarse_pad = int(v_buckets[l + 1])
-            tr = np.full(v_pad, coarse_pad - 1, dtype=np.int32)
-            for g, s in enumerate(samples):
-                tr[offsets[l, g]:offsets[l, g + 1]] = (
-                    s.traces[l].astype(np.int64) + offsets[l + 1, g])
-            traces.append(_t(tr))
-            children.append(_build_children(
-                tr, int(totals[l]), coarse_pad, v_pad - 1))
+            if l < num_levels - 1:
+                coarse_pad = int(v_buckets[l + 1])
+                tr = np.full(v_pad, coarse_pad - 1, dtype=np.int32)
+                for g, s in enumerate(samples):
+                    tr[offsets[l, g]:offsets[l, g + 1]] = (
+                        s.traces[l].astype(np.int64) + offsets[l + 1, g])
+                traces.append(_t(tr))
+                children.append(_build_children(
+                    tr, int(totals[l]), coarse_pad, v_pad - 1))
 
-    pad0 = int(v_buckets[0]) - int(totals[0])
-    x = _concat_features([s.x for s in samples], pad0)
-    color = _concat_features([s.color for s in samples], pad0)
-    mask = _concat_features([s.mask for s in samples], pad0)
-    labels = None
-    if samples[0].labels is not None:
-        labels = _concat_features(
-            [s.labels for s in samples], pad0).astype(np.int32)
+        pad0 = int(v_buckets[0]) - int(totals[0])
+        x = _concat_features([s.x for s in samples], pad0)
+        color = _concat_features([s.color for s in samples], pad0)
+        mask = _concat_features([s.mask for s in samples], pad0)
+        labels = None
+        if samples[0].labels is not None:
+            labels = _concat_features(
+                [s.labels for s in samples], pad0).astype(np.int32)
 
-    return HierarchicalGraph(
-        x=_t(x.astype(np.float32)), color=_t(color.astype(np.float32)),
-        mask=_t(mask.astype(np.float32)), levels=tuple(levels),
-        traces=tuple(traces), num_graphs=num_graphs, labels=_t(labels),
-        children=tuple(_t(c[0]) for c in children),
-        child_counts=tuple(_t(c[1]) for c in children))
+        return HierarchicalGraph(
+            x=_t(x.astype(np.float32)), color=_t(color.astype(np.float32)),
+            mask=_t(mask.astype(np.float32)), levels=tuple(levels),
+            traces=tuple(traces), num_graphs=num_graphs, labels=_t(labels),
+            children=tuple(_t(c[0]) for c in children),
+            child_counts=tuple(_t(c[1]) for c in children))
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ valid rows of graph g,
 import torch
 
 from stinet_tpu_torch.ops import _cuda
+from stinet_tpu_torch.utils.profiling import span
 
 
 def masked_instance_norm(x, graph_id, num_graphs, num_valid, eps=1e-5,
@@ -75,19 +76,23 @@ class _InstanceNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # the first read of a checkpointed block's saved tensors reruns
+        # its forward: the span opens after it, so that the rerun's ops
+        # are not counted as this backward's
         x, num_valid, graph_id = ctx.saved_tensors
-        w = _valid_weight(x, num_valid)
-        total, rows = _per_graph(graph_id, ctx.num_graphs, w.dtype)
-        xa, ga = x.to(w.dtype), g.to(w.dtype)
-        n = torch.clamp(total(w), min=1.0)
-        mean = total(xa * w) / n
-        c = (xa - rows(mean)) * w
-        r = rows((total(c * c) / n + ctx.eps) ** -0.5)
-        n_rows = torch.clamp(rows(n), min=1.0)   # pad rows: no graph, 0
-        y = c * r
-        g_c = r * (ga - y * rows(total(w * ga * y)) / n_rows)
-        dx = w * (g_c - rows(total(w * g_c)) / n_rows)
-        return dx.to(x.dtype), None, None, None, None, None
+        with span("op.k2.backward"):
+            w = _valid_weight(x, num_valid)
+            total, rows = _per_graph(graph_id, ctx.num_graphs, w.dtype)
+            xa, ga = x.to(w.dtype), g.to(w.dtype)
+            n = torch.clamp(total(w), min=1.0)
+            mean = total(xa * w) / n
+            c = (xa - rows(mean)) * w
+            r = rows((total(c * c) / n + ctx.eps) ** -0.5)
+            n_rows = torch.clamp(rows(n), min=1.0)   # pad rows: no graph, 0
+            y = c * r
+            g_c = r * (ga - y * rows(total(w * ga * y)) / n_rows)
+            dx = w * (g_c - rows(total(w * g_c)) / n_rows)
+            return dx.to(x.dtype), None, None, None, None, None
 
 
 def masked_instance_norm_plain(x, graph_id, num_graphs, num_valid, eps=1e-5):

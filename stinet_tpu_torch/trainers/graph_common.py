@@ -22,6 +22,7 @@ from stinet_tpu_torch.graph.hierarchy import HierarchicalGraph, scene_of
 from stinet_tpu_torch.metrics import graph_metrics as gm
 from stinet_tpu_torch.parallel import multihost
 from stinet_tpu_torch.serving import PackedPlacer, full_f32_matmuls
+from stinet_tpu_torch.utils.profiling import span
 
 
 def build_optimizer(params, opt_config: Dict):
@@ -267,8 +268,9 @@ class _TrainStep:
             loss, aux = self._backward(graph, lr)
             self.mini_step = (self.mini_step + 1) % self.accumulate
             if self.mini_step == 0:
-                set_lr(self.optimizer, lr)
-                self.optimizer.step()
+                with span("step.optimizer"):
+                    set_lr(self.optimizer, lr)
+                    self.optimizer.step()
             with torch.no_grad():
                 return self.metrics_of(graph, loss.detach(), aux)
 
@@ -281,8 +283,11 @@ class _TrainStep:
         """The call's loss / accumulate backpropagated into the gradients;
         returns (loss, aux)."""
         held = self._grads.hold()
-        loss, aux = self._loss(graph, lr)
-        (loss / self.accumulate if self.accumulate > 1 else loss).backward()
+        with span("step.forward"):
+            loss, aux = self._loss(graph, lr)
+        with span("step.backward"):
+            (loss / self.accumulate if self.accumulate > 1
+             else loss).backward()
         self._grads.reduce(held)
         return loss, aux
 
@@ -357,8 +362,10 @@ class _StackedTrainStep(_TrainStep):
         held = self._grads.hold()
         wsum, composites = 0.0, []
         for g in scenes:
-            w, _, composite = self.loss_of(g)
-            (w / (n * self.accumulate)).backward()
+            with span("step.forward"):
+                w, _, composite = self.loss_of(g)
+            with span("step.backward"):
+                (w / (n * self.accumulate)).backward()
             wsum = wsum + w.detach()
             composites.append(composite.detach())
         self._grads.reduce(held)
@@ -510,10 +517,25 @@ def skip_probe(data_loader):
 
 
 def host_metrics(metrics) -> Dict[str, float]:
-    """A step's metric dict as Python floats, in ONE device-to-host copy."""
-    values = torch.stack([v.detach().to(torch.float32).reshape(())
-                          for v in metrics.values()]).cpu().tolist()
+    """A step's metric dict as Python floats, in ONE device-to-host copy:
+    the host's wait for the card at a step's end."""
+    with span("step.sync"):
+        values = torch.stack([v.detach().to(torch.float32).reshape(())
+                              for v in metrics.values()]).cpu().tolist()
     return dict(zip(metrics, values))
+
+
+def _waited(it):
+    """Iterate `it`, each wait for its next item in a "loop.wait" span
+    named for the batch it brought."""
+    while True:
+        with span("loop.wait") as wait:
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            wait.batch = item[1]
+        yield item
 
 
 def iter_placed(batches, device: torch.device, slots: int = 3):
@@ -534,7 +556,7 @@ def iter_placed(batches, device: torch.device, slots: int = 3):
     src = iter(batches)
     try:
         if device.type != "cuda":
-            for graph, names in src:
+            for graph, names in _waited(src):
                 yield graph.to(device), names
             return
         placer = PackedPlacer(device, slots=slots,
@@ -542,12 +564,13 @@ def iter_placed(batches, device: torch.device, slots: int = 3):
 
         def placed():
             for graph, names in src:
-                packed = placer.pack(graph)
+                with span("place.pack", names):
+                    packed = placer.pack(graph)
                 yield placer.put(packed), names, packed.slot
 
         it = PrefetchIterator(placed(), buffer_size=slots - 2)
         try:
-            for graph, names, slot in it:
+            for graph, names, slot in _waited(it):
                 placer.ready(slot)
                 yield graph, names
                 placer.release(slot)

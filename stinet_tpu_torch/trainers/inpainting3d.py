@@ -24,6 +24,14 @@ sum their gradients, losses and metrics over the ranks
 (`graph_common.maybe_data_mesh`); rank 0's weights and optimizer state are
 broadcast at the start.
 
+With `trainer.profile` (and not a dry run) an `utils/profiling.py:
+EpochProfiler` traces the train steps its schedule picks into
+`<log_dir>/profile`, stepped at the top of each train batch, as the 2D
+trainer's; `train()` closes it at the end. The trace holds the program's
+spans (`utils/profiling.py:span`: the loader's reads, transforms and
+build stages, the placer's packing, the step's forward, backward,
+optimizer and sync) beside the kernels.
+
 The JAX trainer reads one batch at construction for its parameter
 template, which advances the train loader's epoch key and shuffle by one
 iteration. The port needs no template, but advances the loader the same
@@ -44,7 +52,8 @@ from stinet_tpu_torch.trainers.graph_common import (
     CONCATENATED_REFUSAL, build_optimizer, host_metrics, iter_placed,
     make_inpainting_steps, make_stacked_inpainting_steps, maybe_data_mesh,
     replicate_to_mesh, skip_probe, step_lr)
-from stinet_tpu_torch.utils.profiling import device_memory_stats
+from stinet_tpu_torch.utils.profiling import (
+    EpochProfiler, device_memory_stats)
 
 METRICS = ("loss", "l1", "mse", "graph_tv", "graph_lap_var", "psnr",
            "psnr_mask_only", "mem_allocated", "mem_reserved")
@@ -111,6 +120,9 @@ class Inpainting3DTrainer(SingleModelTrainer):
         self.use_mask_weighted_loss = tcfg.get("use_mask_weighted_loss", False)
         self.do_validation = tcfg.get("do_validation", True)
         self.batches_per_log = tcfg.get("batches_per_log", 1)
+        self.profiler = None
+        if tcfg.get("profile", False) and not config.dry_run:
+            self.profiler = EpochProfiler(config.log_dir / "profile")
 
         # the loader decides the layout, the trainer follows
         self._stacked = bool(getattr(self.data_loader, "stacked", False))
@@ -136,6 +148,15 @@ class Inpainting3DTrainer(SingleModelTrainer):
         # each step waited for its batch}
         self.epoch_timings = []
 
+    def train(self):
+        """The epoch loop; the profiler's open window, if any, is written
+        at its end."""
+        try:
+            super().train()
+        finally:
+            if self.profiler is not None:
+                self.profiler.close()
+
     # ------------------------------------------------------------------
     def _train_epoch(self, epoch):
         check_nan_in_params(self.model, self.logger)
@@ -149,6 +170,8 @@ class Inpainting3DTrainer(SingleModelTrainer):
         for batch_idx, (graph, names) in enumerate(_timed(
                 iter_placed(loader, self.device), waits)):
             self.writer.set_step((epoch - 1) * len_epoch + batch_idx)
+            if self.profiler is not None:
+                self.profiler.step()
             for k, v in device_memory_stats(self.device).items():
                 self.train_metrics.update(k, v)
             m = host_metrics(self._train_step(graph, lr))

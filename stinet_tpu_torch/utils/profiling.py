@@ -5,14 +5,119 @@ skip/wait/warmup/active schedule through `torch.profiler`, as the
 reference's 2D trainer did (inpainting2d_trainer.py:319-325), and writes
 TensorBoard traces; `SyncedTimer` times named sections with a device
 synchronisation and drops warmup runs (the reference's utils/util.py:
-58-86); `device_memory_stats` reads the caching allocator's counters."""
+58-86); `device_memory_stats` reads the caching allocator's counters.
+
+`span` marks a stretch of the program's own work (a loader's read, a
+build stage, a step's forward) on whatever thread runs it: its wall and
+thread-CPU time go into a bounded ring of records that `span_records`
+copies out, and while a torch profiler records, the span is also a
+`record_function` range in its trace."""
+import collections
+import threading
 import time
 from contextlib import contextmanager
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from stinet_tpu_torch.graph.hierarchy import tensor_leaves
+# the newest records are kept: at a few dozen spans a step, this many
+# hold hundreds of steps in a few MB
+SPAN_RECORDS_MAX = 1 << 16
+
+
+class SpanRecord(NamedTuple):
+    """One finished span: `thread` is `threading.get_ident()` of the thread
+    that ran it, `start_ns`/`end_ns` read `time.perf_counter_ns()`,
+    `cpu_ns` is the thread's CPU time inside it (`time.thread_time_ns()`),
+    `parent` the name of the span it ran in, and `batch` the scene names
+    of the batch it worked on (None where the code has none)."""
+    name: str
+    thread: int
+    start_ns: int
+    end_ns: int
+    cpu_ns: int
+    parent: Optional[str]
+    batch: Optional[Tuple[str, ...]]
+
+
+_records = collections.deque(maxlen=SPAN_RECORDS_MAX)
+# thread ident -> the names of the thread's open spans, innermost last
+# (each thread touches its own entry only)
+_open = {}
+
+
+class _Span:
+    __slots__ = ("name", "batch", "parent", "_range", "_thread", "_t0",
+                 "_c0")
+
+    def __init__(self, name, batch, parent):
+        self.name, self.batch, self.parent = name, batch, parent
+        self._range = None
+
+    def __enter__(self):
+        thread = self._thread = threading.get_ident()
+        names = _open.get(thread)
+        if names is None:
+            names = _open[thread] = []
+        if self.parent is None and names:
+            self.parent = names[-1]
+        names.append(self.name)
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        # the wall clock's reads hold the CPU clock's between them, so
+        # the CPU time is never above the wall
+        self._t0 = time.perf_counter_ns()
+        self._c0 = time.thread_time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        c1 = time.thread_time_ns()
+        t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        names = _open[self._thread]
+        names.pop()
+        if not names:
+            del _open[self._thread]
+        batch = None if self.batch is None else tuple(self.batch)
+        # tuple.__new__ skips the named tuple's Python-level constructor;
+        # deque.append is atomic, so the threads need no lock
+        _records.append(tuple.__new__(SpanRecord, (
+            self.name, self._thread, self._t0, t1, c1 - self._c0,
+            self.parent, batch)))
+        return False
+
+
+def span(name: str, batch=None, parent: Optional[str] = None):
+    """A context manager that records the work inside it as one
+    `SpanRecord` (an exception inside it is recorded, then raised on).
+    `batch`: the scene names it works on (settable on the object the
+    `with` gives, for a span that learns them inside); `parent`: the
+    enclosing span's name, for work handed to another thread (by default
+    the innermost span open on this thread)."""
+    return _Span(name, batch, parent)
+
+
+def span_records():
+    """A list copy of the kept records, oldest first (by end)."""
+    while True:
+        try:
+            return list(_records)
+        except RuntimeError:    # another thread appended during the copy
+            continue
+
+
+def _all_threads_config():
+    """The profiler option that records `record_function` ranges on every
+    thread (the loader's, its pool's), where this torch has it; else
+    None, and only the thread that started the profiler and the autograd
+    engine's are recorded."""
+    try:
+        return torch.profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
 
 
 class EpochProfiler:
@@ -33,7 +138,9 @@ class EpochProfiler:
     `<host>_<pid>.<ms>.pt.trace.json` file under `log_dir`
     (`torch.profiler.tensorboard_trace_handler`), its steps marked
     `ProfilerStep#k`. CPU activity is traced, and CUDA activity where
-    there is a card."""
+    there is a card, on every thread where torch can record them
+    (`_all_threads_config`), so the loader's and the build's spans show
+    beside the step's."""
 
     def __init__(self, log_dir, skip_first=1, wait=2, warmup=1, active=3,
                  repeat=4, enabled=True):
@@ -52,8 +159,12 @@ class EpochProfiler:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
+            extra = {}
+            config = _all_threads_config()
+            if config is not None:
+                extra["experimental_config"] = config
             self._prof = torch.profiler.profile(
-                activities=activities,
+                activities=activities, **extra,
                 schedule=torch.profiler.schedule(
                     skip_first=skip, wait=wait, warmup=warmup,
                     active=active, repeat=repeat),
@@ -85,6 +196,8 @@ class SyncedTimer:
         """Time the body as section `name`; with `sync_value` (a tensor, or
         a tuple, dict or graph of them) wait for the card that holds its
         first tensor before the clock stops (nothing for a CPU tensor)."""
+        # imported here: `graph/build.py` imports this module
+        from stinet_tpu_torch.graph.hierarchy import tensor_leaves
         t0 = time.perf_counter()
         yield
         if sync_value is not None:
