@@ -288,10 +288,12 @@ builds the kernels and runs only phase 3's K1 forward calls and phase 6's
 K1 forward, dp and dq calls, held and timed as above, and prints their sums
 as one JSON line; with --tree, on the stinet_tpu_torch package of the
 checkout DIR (an A/B of two versions of the kernels, each in its own
-process, by this script's code).
+process, by this script's code). DIR's package has to take the EdgeConv
+mean in its slot sums (`ops/ell.py:mean_scale`), as this one does.
 """
 import contextlib
 import copy
+import inspect
 import json
 import math
 import pathlib
@@ -309,6 +311,7 @@ K2_RTOL, K2_ATOL = 1e-5, 1e-5   # reduction order differs from torch's
 K2_DEVICE_LAUNCHES = 2      # statistics, then normalization
 ENQUEUES = 300              # calls of the host/device split of a K2 call
 QUEUED = 200                # calls queued behind a sleeping kernel
+FOLD_QUEUED = 20            # the same for a kernel against kernel + torch ops
 SLEEP_CYCLES = 100_000_000  # that kernel's clock cycles, about 50 ms
 PROFILE_PADS = (0.3, 2.0, 6.0)   # idle seconds each side of a profiler window
 PATH_TOL = 1e-3             # flagship output, kernel path vs plain path
@@ -397,13 +400,15 @@ def device_kernels(torch, fn, expected):
             for e in found]
 
 
-def host_device_us(torch, fn):
+def host_device_us(torch, fn, queued=QUEUED):
     """(host, events, device) microseconds a call of fn(). host: the wall
     time of ENQUEUES calls enqueued with no synchronisation between them;
     events: the CUDA-event time of the same calls, which is what a caller
     in a loop gets, the slower of host and device; device: the CUDA-event
-    time of QUEUED calls enqueued while a sleeping kernel holds the stream,
-    so that the card runs them back to back with no wait for the host."""
+    time of `queued` calls enqueued while a sleeping kernel holds the
+    stream, so that the card runs them back to back with no wait for the
+    host (fewer for a call of many launches, whose enqueues would outlast
+    the sleep)."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -421,13 +426,47 @@ def host_device_us(torch, fn):
     torch.cuda._sleep(SLEEP_CYCLES)
     gate.record()
     start.record()
-    for _ in range(QUEUED):
+    for _ in range(queued):
         fn()
     end.record()
     check(not gate.query(), "the sleeping kernel ended before the host had "
-          f"enqueued {QUEUED} calls: no device-only time")
+          f"enqueued {queued} calls: no device-only time")
     end.synchronize()
-    return host, events, start.elapsed_time(end) / QUEUED * 1e3
+    return host, events, start.elapsed_time(end) / queued * 1e3
+
+
+def fold_check(torch, label, folded, parent):
+    """A call whose torch ops moved into its kernel's epilogue: `folded()`
+    against `parent()` (the kernel without the epilogue, then the torch
+    ops it replaced, as before the move) bit for bit, both timed back to
+    back and by the card alone. Returns {"fold_ms", "tail_ms",
+    "fold_device_ms", "tail_device_ms"}, ms a call."""
+    got, want = folded(), parent()
+    torch.cuda.synchronize()
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    check(got.dtype == want.dtype and torch.equal(got.view(view),
+                                                  want.view(view)),
+          f"{label}: the kernel with its epilogue and the kernel followed "
+          "by the torch ops differ")
+    _, _, dev = host_device_us(torch, folded, FOLD_QUEUED)
+    _, _, tail_dev = host_device_us(torch, parent, FOLD_QUEUED)
+    return {"fold_ms": median_ms(torch, folded),
+            "tail_ms": median_ms(torch, parent),
+            "fold_device_ms": dev / 1e3, "tail_device_ms": tail_dev / 1e3}
+
+
+def fold_text(f):
+    return (f"epilogue bitwise the kernel plus torch ops: {f['fold_ms']:.4f}"
+            f" ms against {f['tail_ms']:.4f}, device alone "
+            f"{f['fold_device_ms'] * 1e3:.1f} against "
+            f"{f['tail_device_ms'] * 1e3:.1f} us")
+
+
+def aggregate_counts():
+    """(folded, tail): edge_conv_aggregate's calls so far that took the
+    mean inside the slot sum, and that took it in torch ops."""
+    from stinet_tpu_torch.ops.message_passing import edge_conv_aggregate
+    return edge_conv_aggregate.folded, edge_conv_aggregate.tail
 
 
 def k2_use_record(torch, phase, use, calls, library):
@@ -568,8 +607,9 @@ def build_kernels():
 
 def capture_kernel_inputs(server, graph):
     """Run one plain forward with hooks that record what each kernel of the
-    path would be given: (p, q, nbr, ell_degree) per EdgeConv aggregation,
-    (x, level) per instance norm."""
+    path would be given: (p, q, nbr, ell_degree, mean degree) per EdgeConv
+    aggregation (the total degree where the mean is taken in the kernel,
+    else None), (x, level) per instance norm."""
     from stinet_tpu_torch.models.stinet import EdgeConvFilter, GraphNormLayer
     k1, k2, handles = [], [], []
 
@@ -577,7 +617,8 @@ def capture_kernel_inputs(server, graph):
         x, edges = args[0], args[1]
         p, q = mod.projections(x)
         deg = edges.degree if edges.ell_degree is None else edges.ell_degree
-        k1.append((p, q, edges.nbr, deg))
+        mean = edges.degree if edges.spill_src is None else None
+        k1.append((p, q, edges.nbr, deg, mean))
 
     def on_norm(mod, args):
         if mod.norm_type == "instance":
@@ -707,27 +748,39 @@ def k1_wrapper_costs(torch, p, q, nbr, deg):
 def check_k1(torch, calls):
     """Phase 3's K1 calls: each bitwise its plain version, timed back to
     back, split into host and card alone (`host_device_us`), with its
-    bound and plan."""
-    from stinet_tpu_torch.ops.ell import (
-        ell_edge_conv_sum_kernel, ell_edge_conv_sum_plain)
+    bound and plan; a call that takes the mean in its epilogue also
+    against the kernel without it followed by the torch ops (`fold_check`),
+    both timed."""
+    from stinet_tpu_torch.ops import ell
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, device_ms=0.0,
                host_us=0.0)
+    fold_tot = {}
     err, kinds = 0.0, set()
-    for i, (p, q, nbr, deg) in enumerate(calls):
+    for i, args in enumerate(calls):
+        p, q, nbr, deg, mean = args
         check(nbr is not None, f"K1 call {i}: edge set has no ELL table")
-        got = ell_edge_conv_sum_kernel(p, q, nbr, deg)
-        want = ell_edge_conv_sum_plain(p, q, nbr, deg)
+        got = ell.ell_edge_conv_sum_kernel(*args)
+        want = ell.ell_edge_conv_sum_plain(*args)
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int32), want.view(torch.int32))
         check(same, f"K1 call {i} {tuple(nbr.shape)}x{p.shape[1]}: kernel "
               "and plain version differ")
-        note = k1_plan_note(torch, "sum", (p, q, nbr, deg), want)
+        note = k1_plan_note(torch, "sum", args, want)
+        if mean is not None:
+            f = fold_check(
+                torch, f"K1 call {i}",
+                lambda: ell.ell_edge_conv_sum_kernel(*args),
+                lambda: ell.mean_scale_plain(
+                    ell.ell_edge_conv_sum_kernel(p, q, nbr, deg), mean))
+            for k, val in f.items():
+                fold_tot[k] = fold_tot.get(k, 0.0) + val
+            note += "; mean " + fold_text(f)
         err = max(err, (got - want).abs().max().item())
-        ms = median_ms(torch, lambda: ell_edge_conv_sum_kernel(p, q, nbr, deg))
+        ms = median_ms(torch, lambda: ell.ell_edge_conv_sum_kernel(*args))
         plain = median_ms(torch,
-                          lambda: ell_edge_conv_sum_plain(p, q, nbr, deg))
+                          lambda: ell.ell_edge_conv_sum_plain(*args))
         host, _, dev = host_device_us(
-            torch, lambda: ell_edge_conv_sum_kernel(p, q, nbr, deg))
+            torch, lambda: ell.ell_edge_conv_sum_kernel(*args))
         v, h = p.shape
         # what this call's data needs: deg and out for every row, the live
         # slots of nbr, p of each row with an edge, q of each sender once
@@ -747,8 +800,12 @@ def check_k1(torch, calls):
             f"call, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
             f"{nbytes / ms / 1e6:.0f} GB/s; {note}")
     tot["host_us"] /= max(len(calls), 1)
+    if fold_tot:
+        n = sum(1 for c in calls if c[4] is not None)
+        say("K1", f"{n} of {len(calls)} calls take the mean in the kernel; "
+            f"summed over them, {fold_text(fold_tot)}")
     small = min(calls, key=lambda c: c[0].numel())
-    k1_wrapper_costs(torch, *small)
+    k1_wrapper_costs(torch, *small[:4])
     return dict(tot, max_abs_err=err, library_ms=None,
                 bound_by="bytes" if kinds == {"bytes"} else "operations")
 
@@ -1036,17 +1093,23 @@ def windowed_build(torch, scene, model):
 
 @contextlib.contextmanager
 def record_calls(targets):
-    """Swap each module function named in `targets` ({key: (module,
-    name)}) for a wrapper that records its arguments; yields {key: [args,
-    ...]}."""
+    """Swap each module function named in `targets` ({key: (module, name)
+    or a list of them, for a function that modules import by name}) for a
+    wrapper that records its arguments, bound to its parameters with their
+    defaults (one positional tuple a call, whether the caller passed them
+    by keyword or not); yields {key: [args, ...]}."""
     calls = {k: [] for k in targets}
     saved = []
-    for key, (mod, name) in targets.items():
+    for key, mod, name in [(k, *site) for k, v in targets.items()
+                           for site in (v if isinstance(v, list) else [v])]:
         fn = getattr(mod, name)
 
-        def wrapper(*args, _fn=fn, _key=key):
-            calls[_key].append(args)
-            return _fn(*args)
+        def wrapper(*args, _fn=fn, _key=key, _sig=inspect.signature(fn),
+                    **kwargs):
+            bound = _sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls[_key].append(bound.args)
+            return _fn(*args, **kwargs)
 
         saved.append((mod, name, fn))
         setattr(mod, name, wrapper)
@@ -1059,14 +1122,17 @@ def record_calls(targets):
 
 def train_targets():
     """The plain functions of every kernel on the train path, for
-    `record_calls`: {key: (module, name)}."""
+    `record_calls`: {key: (module, name) or a list of them}. "mean" is the
+    EdgeConv mean's backward pass (`ell_mean_rows` on the kernel path),
+    which the ELL and the windowed Functions each call by name."""
     from stinet_tpu_torch.ops import ell, norms, windowed
     return {"k3a": (windowed, "windowed_edge_conv_sum"),
             "k3c": (windowed, "windowed_dq"),
             "k1": (ell, "ell_edge_conv_sum_plain"),
             "k1dp": (ell, "ell_edge_conv_dp_plain"),
             "k1dq": (ell, "ell_edge_conv_dq_plain"),
-            "k2": (norms, "masked_instance_norm_plain")}
+            "k2": (norms, "masked_instance_norm_plain"),
+            "mean": [(ell, "mean_scale"), (windowed, "mean_scale")]}
 
 
 def capture_train_calls(torch, model, graph, cfg):
@@ -1077,9 +1143,14 @@ def capture_train_calls(torch, model, graph, cfg):
     opt, lr = gc.build_optimizer(model.parameters(), cfg["optimizer"])
     step, _ = gc.make_inpainting_steps(
         model, opt, cfg["trainer"]["use_mask_weighted_loss"], impl="plain")
+    before = aggregate_counts()
     with record_calls(train_targets()) as calls:
         step(graph, lr)
         torch.cuda.synchronize()
+    folded, tail = (a - b for a, b in zip(aggregate_counts(), before))
+    say("train-kernels", f"edge_conv_aggregate in one step (the forward and "
+        f"the checkpointed blocks' reruns): {folded} calls took the mean in "
+        f"the slot sum, {tail} in torch ops")
     return calls
 
 
@@ -1141,17 +1212,25 @@ def check_train_kernels(torch, calls):
     """Phase 6, second half: every recorded call on the kernel and on the
     plain version (bitwise; K2 within K2_RTOL/K2_ATOL), timed, with its
     bound; each K3 call also timed with K1's kernel on the same banded
-    inputs, each K2 call with `F.batch_norm`."""
+    inputs, each K2 call with `F.batch_norm`, each mean pass with one
+    torch multiply of the same bytes."""
     import torch.nn.functional as F
     from stinet_tpu_torch.ops import ell, norms, windowed
-    rows = {}
+    rows, fold_tot = {}, {}
 
     def run(key, label, kernel, plain, nbytes, flops, ab=None, tol=None,
-            lib=None, note=None, alone=False):
+            lib=None, note=None, alone=False, fold=None,
+            lib_name="batch_norm"):
         got = kernel()
         want = plain()
         if note is not None:
             label = f"{label}; {note(want)}"
+        if fold is not None:
+            f = fold_check(torch, label, kernel, fold)
+            label = f"{label}; {fold_text(f)}"
+            for k, val in f.items():
+                fold_tot.setdefault(key, {}).setdefault(k, 0.0)
+                fold_tot[key][k] += val
         torch.cuda.synchronize()
         check(got.dtype == want.dtype and got.shape == want.shape,
               f"{label}: kernel gives {got.dtype} {tuple(got.shape)}, plain "
@@ -1198,26 +1277,42 @@ def check_train_kernels(torch, calls):
         if lib is not None:
             lib_ms = median_ms(torch, lib)
             r["library_ms"] += lib_ms
-            extra = f"; batch_norm {lib_ms:.4f} ms"
+            extra += f"; {lib_name} {lib_ms:.4f} ms"
         say("train-kernels", f"{label}: {verdict}; kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){extra}")
 
-    for i, (p, q, nbr, deg, halo, tile, mode, _) in enumerate(calls["k3a"]):
+    for i, (p, q, nbr, deg, halo, tile, mode, _, mean, g) in enumerate(
+            calls["k3a"]):
         v, h = p.shape
-        nbytes, slots = _slot_bytes(nbr, deg, 2, h, 1)
-        ones = torch.ones_like(p)
-        run("k3a", f"K3a {mode} {i:2d} V={v} H={h} D={nbr.shape[1]} "
+        # dp's step sum reads g too
+        nbytes, slots = _slot_bytes(nbr, deg, 2, h, 1 + (g is not None))
+        ones = torch.ones_like(p) if g is None else g
+        if mean is not None:
+            fold = (lambda: ell.mean_scale_plain(
+                windowed.windowed_edge_conv_sum_kernel(
+                    p, q, nbr, deg, halo, tile, "relu"), mean))
+        elif g is not None:
+            fold = (lambda: (g.to(torch.float32) * windowed.
+                             windowed_edge_conv_sum_kernel(
+                                 p, q, nbr, deg, halo, tile, "step")
+                             .to(torch.float32)).to(torch.bfloat16))
+        else:
+            fold = None
+        what = mode + (" mean" if mean is not None
+                       else " dp" if g is not None else "")
+        run("k3a", f"K3a {what} {i:2d} V={v} H={h} D={nbr.shape[1]} "
             f"halo={halo} tile={tile} live slots a row "
             f"{slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
             lambda: windowed.windowed_edge_conv_sum_kernel(
-                p, q, nbr, deg, halo, tile, mode),
+                p, q, nbr, deg, halo, tile, mode, mean, g),
             lambda: windowed.windowed_edge_conv_sum_plain(p, q, nbr, deg,
-                                                          mode),
+                                                          mode, mean, g),
             nbytes, 4 * h * slots,
-            ab=(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
+            ab=(lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg, mean))
             if mode == "relu" else
             (lambda: ell.ell_edge_conv_dp_kernel(p, q, nbr, deg, ones)),
-            note=lambda _: plan_note(q, halo, tile, 1, nbr.shape[1]))
+            note=lambda _: plan_note(q, halo, tile, 1, nbr.shape[1]),
+            fold=fold)
     for i, (q, g, p, rev, dout, halo, tile, _) in enumerate(calls["k3c"]):
         v, h = q.shape
         nbytes, slots = _dq_bytes(rev, dout, 2, h)
@@ -1230,16 +1325,19 @@ def check_train_kernels(torch, calls):
             nbytes, 4 * h * slots,
             ab=lambda: ell.ell_edge_conv_dq_kernel(q, g, p, rev, dout),
             note=lambda _: plan_note(g, halo, tile, 2, rev.shape[1]))
-    for i, (p, q, nbr, deg) in enumerate(calls["k1"]):
+    for i, args in enumerate(calls["k1"]):
+        p, q, nbr, deg, mean = args
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 1)
-        run("k1", f"K1 {p.dtype} {i:2d} V={v} H={h} D={nbr.shape[1]} live "
-            f"slots a row {slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
-            lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg),
-            lambda: ell.ell_edge_conv_sum_plain(p, q, nbr, deg),
+        run("k1", f"K1 {p.dtype}{'' if mean is None else ' mean'} {i:2d} "
+            f"V={v} H={h} D={nbr.shape[1]} live slots a row "
+            f"{slots / max(int(torch.count_nonzero(deg)), 1):.2f}",
+            lambda: ell.ell_edge_conv_sum_kernel(*args),
+            lambda: ell.ell_edge_conv_sum_plain(*args),
             nbytes, 4 * h * slots, alone=True,
-            note=lambda want: k1_plan_note(torch, "sum", (p, q, nbr, deg),
-                                           want))
+            note=lambda want: k1_plan_note(torch, "sum", args, want),
+            fold=None if mean is None else (lambda: ell.mean_scale_plain(
+                ell.ell_edge_conv_sum_kernel(p, q, nbr, deg), mean)))
     for i, (p, q, nbr, deg, g) in enumerate(calls["k1dp"]):
         v, h = p.shape
         nbytes, slots = _slot_bytes(nbr, deg, p.element_size(), h, 2)
@@ -1260,6 +1358,20 @@ def check_train_kernels(torch, calls):
             nbytes, 4 * h * slots, alone=True,
             note=lambda want: k1_plan_note(torch, "dq", (q, g, p, rev, dout),
                                            want))
+    for i, (x, mean, _) in enumerate(calls["mean"]):
+        x = x.contiguous()   # as ops/ell.py:mean_scale hands it on
+        v, h = x.shape
+        scale = (1.0 / torch.clamp(mean.to(x.dtype).float(), min=1.0)).to(
+            x.dtype)[:, None]
+        # x read and out written once, the degrees once
+        run("mean", f"mean pass (ell_mean_rows) {x.dtype} {i:2d} V={v} H={h}",
+            lambda: ell.mean_scale_kernel(x, mean),
+            lambda: ell.mean_scale_plain(x, mean),
+            2 * x.element_size() * v * h + 4 * v, v * h, alone=True,
+            lib=lambda: x * scale, lib_name="one torch multiply")
+    for key, f in fold_tot.items():
+        say("train-kernels", f"{key}, summed over its calls with an "
+            f"epilogue: {fold_text(f)}")
     for i, (x, _, _, nv, eps) in enumerate(calls["k2"]):
         v, c = x.shape
         n = int(nv)
@@ -1302,7 +1414,8 @@ def train_slice(torch, card, model, graph, cfg, captured):
                 "k1": ell.ell_edge_conv_sum_kernel,
                 "k1dp": ell.ell_edge_conv_dp_kernel,
                 "k1dq": ell.ell_edge_conv_dq_kernel,
-                "k2": norms.masked_instance_norm_kernel}
+                "k2": norms.masked_instance_norm_kernel,
+                "mean": ell.mean_scale_kernel}
     weighted = cfg["trainer"]["use_mask_weighted_loss"]
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
@@ -1483,7 +1596,8 @@ def _train_counters():
             "k1": (ell.ell_edge_conv_sum_kernel, "launches"),
             "k1dp": (ell.ell_edge_conv_dp_kernel, "launches"),
             "k1dq": (ell.ell_edge_conv_dq_kernel, "launches"),
-            "k2": (k2, "launches"), "k2mg": (k2, "multigraph_launches")}
+            "k2": (k2, "launches"), "k2mg": (k2, "multigraph_launches"),
+            "mean": (ell.mean_scale_kernel, "launches")}
 
 
 class StepProbe:
@@ -4098,31 +4212,46 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
     row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, k1_same_inputs_ms=0.0,
                device_ms=0.0, k1_device_ms=0.0,
                max_abs_err=0.0, library_ms=None, kinds=set())
-    for i, (p, q, nbr, deg, halo, tile, _) in enumerate(calls):
+    fold_tot = {}
+    for i, (p, q, nbr, deg, halo, tile, _, mean) in enumerate(calls):
         v, h = p.shape
         got = windowed.windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
-                                                         halo, tile)
+                                                         halo, tile, mean)
         note = plan_note(q, halo, tile, 1, nbr.shape[1])
         want = windowed.windowed_edge_conv_sum_f32(p, q, nbr, deg, halo,
-                                                   tile, impl="plain")
-        k1 = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
+                                                   tile, "plain", mean)
+        k1 = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg, mean)
+        if mean is not None:
+            f = fold_check(
+                torch, f"K3b call {i}",
+                lambda: windowed.windowed_edge_conv_sum_f32_kernel(
+                    p, q, nbr, deg, halo, tile, mean),
+                lambda: ell.mean_scale_plain(
+                    windowed.windowed_edge_conv_sum_f32_kernel(
+                        p, q, nbr, deg, halo, tile), mean))
+            for k, val in f.items():
+                fold_tot[k] = fold_tot.get(k, 0.0) + val
+            note += "; mean " + fold_text(f)
         torch.cuda.synchronize()
         for other, what in ((want, "its plain version"), (k1, "f32 K1")):
             check(torch.equal(got.view(torch.int32), other.view(torch.int32)),
                   f"K3b call {i} V={v} H={h}: kernel and {what} differ")
         ms = median_ms(torch, lambda: windowed.
                        windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg,
-                                                         halo, tile))
+                                                         halo, tile, mean))
         plain_ms = median_ms(torch, lambda: windowed.
                              windowed_edge_conv_sum_f32(p, q, nbr, deg, halo,
-                                                        tile, impl="plain"))
+                                                        tile, "plain",
+                                                        mean))
         k1_ms = median_ms(torch, lambda: ell.ell_edge_conv_sum_kernel(
-            p, q, nbr, deg))
+            p, q, nbr, deg, mean))
         host, _, dev = host_device_us(torch, lambda: windowed.
                                       windowed_edge_conv_sum_f32_kernel(
-                                          p, q, nbr, deg, halo, tile))
+                                          p, q, nbr, deg, halo, tile,
+                                          mean))
         _, _, k1_dev = host_device_us(
-            torch, lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg))
+            torch, lambda: ell.ell_edge_conv_sum_kernel(p, q, nbr, deg,
+                                                        mean))
         nbytes, slots = _slot_bytes(nbr, deg, 4, h, 1)
         b_ms, b_by = bound(nbytes, 3 * h * slots)
         for k, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
@@ -4141,6 +4270,9 @@ def serving_windowed(torch, card, scene, whost, weights, ref_out):
             f"bound {b_ms:.4f} ms ({b_by})")
     row["bound_by"] = "bytes" if row.pop("kinds") == {"bytes"} else \
         "operations"
+    if fold_tot:
+        say("serving-windowed", "K3b, summed over its calls with the mean: "
+            + fold_text(fold_tot))
 
     counters = _counters()
     _zero(counters)
@@ -4688,10 +4820,11 @@ PART_BF16_MEAN_TOL, PART_BF16_MAX_TOL = 0.03, 0.25
 PART_REPS = 5               # timed predict_partitioned calls a P
 
 
-def k1_call_bound(torch, p, q, nbr, deg):
+def k1_call_bound(torch, p, q, nbr, deg, mean=None):
     """(bytes, operations) one K1 forward call's data needs: deg and out
     for every row, the live slots of nbr, p of each row with an edge, q of
-    each sender once."""
+    each sender once (a recorded call's mean degree is not counted, as
+    `h100_bench/benchlib/counts.py` does not count it)."""
     v, h = p.shape
     es = p.element_size()
     live = torch.arange(nbr.shape[1], device=deg.device) < deg[:, None]
@@ -4801,9 +4934,9 @@ def partitioned_phase(torch, card, model, weights, scenes, flagship_scene):
                       f"{phase}: {len(k1_calls) - len(ragged)} K1 calls at "
                       f"P={n_parts} with q no longer than p")
                 err = 0.0
-                for i, (p, q, nbr, deg) in enumerate(k1_calls):
-                    a = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg)
-                    b = ell.ell_edge_conv_sum_plain(p, q, nbr, deg)
+                for i, (p, q, nbr, deg, mean) in enumerate(k1_calls):
+                    a = ell.ell_edge_conv_sum_kernel(p, q, nbr, deg, mean)
+                    b = ell.ell_edge_conv_sum_plain(p, q, nbr, deg, mean)
                     torch.cuda.synchronize()
                     err = max(err, float((a.float() - b.float()).abs().max()))
                     view = torch.int16 if a.dtype == torch.bfloat16 \
@@ -4923,7 +5056,7 @@ def partitioned_training_phase(torch, card, scene):
     t_phase = time.perf_counter()
     counters = dict(_train_counters(), **_counters())
     targets = {k: v for k, v in train_targets().items()
-               if k in ("k1", "k1dp", "k1dq")}
+               if k in ("k1", "k1dp", "k1dq", "mean")}
     graph = build_hierarchical_graph([scene]).to("cuda")
     placer = PackedPlacer(torch.device("cuda"))
     rows = None
@@ -5176,7 +5309,7 @@ def _tp_rank_work(torch, rank, world, weights_path, out_dir):
         for key, kernel, plain, need in (
                 ("k1", ell.ell_edge_conv_sum_kernel,
                  ell.ell_edge_conv_sum_plain,
-                 lambda p, q, nbr, deg: k1_call_bound(torch, p, q, nbr, deg)),
+                 lambda *c: k1_call_bound(torch, *c)),
                 ("k1dp", ell.ell_edge_conv_dp_kernel,
                  ell.ell_edge_conv_dp_plain,
                  lambda p, q, nbr, deg, g: _tp_grad_need(
@@ -5379,8 +5512,8 @@ def export_phase(torch, card, model, weights, scene):
 def capture_k1_calls(torch):
     """The K1 calls of one flagship f32 forward (phase 3's) and of one bf16
     train step (phase 6's), recorded on the plain path: (f32 forward calls,
-    a list of (p, q, nbr, deg); {"k1", "k1dp", "k1dq": the step's forward,
-    dp and dq calls})."""
+    a list of (p, q, nbr, deg, mean degree); {"k1", "k1dp", "k1dq": the
+    step's forward, dp and dq calls})."""
     from stinet_tpu_torch.models.factory import FLAGSHIP, define_G
     from stinet_tpu_torch.serving import SceneInpainter
     from stinet_tpu_torch.utils.synthetic import (
@@ -5410,7 +5543,8 @@ def k1_only(torch, card):
         f"{pathlib.Path(stinet_tpu_torch.__file__).resolve().parent}")
     f32_calls, step_calls = capture_k1_calls(torch)
     f32 = check_k1(torch, f32_calls)
-    step = check_train_kernels(torch, dict(step_calls, k3a=[], k3c=[], k2=[]))
+    step = check_train_kernels(torch, dict(step_calls, k3a=[], k3c=[], k2=[],
+                                                    mean=[]))
     sums = {"f32": f32, "bf16": step["k1"], "dp": step["k1dp"],
             "dq": step["k1dq"]}
     for name, row in (("f32 forward", f32), ("bf16 train step", sums["bf16"]),
@@ -5478,7 +5612,9 @@ def main(argv=None):
     ell_edge_conv_sum_kernel.launches = 0
     masked_instance_norm_kernel.launches = 0
     before = native_calls()
+    counts = aggregate_counts()
     out = server.predict(scene)
+    folded, tail = (a - b for a, b in zip(aggregate_counts(), counts))
     n_native = check_native("slice", before)
     launches = {"ell_edge_conv_sum": ell_edge_conv_sum_kernel.launches,
                 "masked_instance_norm": masked_instance_norm_kernel.launches}
@@ -5498,7 +5634,8 @@ def main(argv=None):
           f"{path_err:.3e} > {PATH_TOL}")
     say("slice", f"predict {list(out.shape)} finite in [-1, 1]; launches "
         f"{launches}; native build calls {n_native}; kernel vs plain path "
-        f"max |diff| {path_err:.3e}")
+        f"max |diff| {path_err:.3e}; edge_conv_aggregate: {folded} calls "
+        f"took the mean in the slot sum, {tail} in torch ops")
 
     small = synthetic_scene(**dict(FLAGSHIP_SCENE,
                                      num_vertices=SMALL_VERTICES))
@@ -5546,7 +5683,7 @@ def main(argv=None):
                if key in ("k3a", "k3c") else "")
             + (f"; device alone {r['device_ms']:.4f} ms, host "
                f"{r['host_us']:.1f} us a call"
-               if key in ("k1", "k1dp", "k1dq") else ""))
+               if key in ("k1", "k1dp", "k1dq", "mean") else ""))
     train_launches = train_slice(torch, card, train_model, wgraph, cfg,
                                  captured)
 
@@ -5611,11 +5748,13 @@ def main(argv=None):
             ("k3c", "windowed_dq", "windowed_edge_conv.cu",
              "stinet_tpu/ops/pallas/onehot_gather.py:307"),
             ("k2", "masked_instance_norm_train_step", "instance_norm.cu",
-             "stinet_tpu/ops/pallas/instance_norm.py:77")):
+             "stinet_tpu/ops/pallas/instance_norm.py:77"),
+            ("mean", "ell_mean_rows", "ell_edge_conv.cu",
+             "stinet_tpu/ops/message_passing.py:158")):
         row = dict(train_rows[key])
         if key in ("k3a", "k3c"):
             row["k1_same_inputs_ms"] = row["ab_ms"]
-        elif key in ("k1", "k1dp", "k1dq"):
+        elif key in ("k1", "k1dp", "k1dq", "mean"):
             del row["k1_device_ms"]
         else:
             del row["device_ms"], row["k1_device_ms"], row["host_us"]

@@ -93,26 +93,29 @@ _I64 = ctypes.c_int64
 # C signatures of the launchers: every launcher returns a cudaError_t
 _SIGNATURES = {
     "ell_edge_conv": {
-        # p, q, nbr, deg, out, V, H, D, then the plan (lanes, chunks,
-        # groups, blocks, vector), device, stream
-        "ell_edge_conv_sum_fwd_f32": [_VP] * 5 + [_I] * 9 + [_VP],
-        "ell_edge_conv_sum_fwd_bf16": [_VP] * 5 + [_I] * 9 + [_VP],
+        # p, q, nbr, deg, mean_deg (or null), out, V, H, D, then the plan
+        # (lanes, chunks, groups, blocks, vector), device, stream
+        "ell_edge_conv_sum_fwd_f32": [_VP] * 6 + [_I] * 9 + [_VP],
+        "ell_edge_conv_sum_fwd_bf16": [_VP] * 6 + [_I] * 9 + [_VP],
         # p, q, nbr, deg, g, out, V, H, D, the plan, device, stream
         "ell_edge_conv_dp_f32": [_VP] * 6 + [_I] * 9 + [_VP],
         "ell_edge_conv_dp_bf16": [_VP] * 6 + [_I] * 9 + [_VP],
         # q, g, p, rev, deg_out, out, V, H, D, the plan, device, stream
         "ell_edge_conv_dq_f32": [_VP] * 6 + [_I] * 9 + [_VP],
         "ell_edge_conv_dq_bf16": [_VP] * 6 + [_I] * 9 + [_VP],
+        # x, mean_deg, out, V, H, device, stream
+        "ell_mean_rows_f32": [_VP] * 3 + [_I] * 3 + [_VP],
+        "ell_mean_rows_bf16": [_VP] * 3 + [_I] * 3 + [_VP],
     },
     "windowed_edge_conv": {
-        # p, q, nbr, deg, out, V, H, D, then the plan (tile, halo, W, cs,
-        # sub, ring, bufs, buf_rows, strip_tiles, strips, smem), mode,
-        # device, stream
+        # p, q, nbr, deg, mean_deg (or null), g (or null), out, V, H, D,
+        # then the plan (tile, halo, W, cs, sub, ring, bufs, buf_rows,
+        # strip_tiles, strips, smem), mode, device, stream
         "windowed_edge_conv_sum_bf16":
-            [_VP] * 5 + [_I] * 16 + [_VP],
-        # the same without mode
+            [_VP] * 7 + [_I] * 16 + [_VP],
+        # the same without g and mode
         "windowed_edge_conv_sum_f32":
-            [_VP] * 5 + [_I] * 15 + [_VP],
+            [_VP] * 6 + [_I] * 15 + [_VP],
         # q, g, p, rev, deg_out, out, V, H, D, the plan, device, stream
         "windowed_dq_bf16":
             [_VP] * 6 + [_I] * 15 + [_VP],

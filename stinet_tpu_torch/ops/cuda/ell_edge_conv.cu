@@ -12,7 +12,12 @@
 //
 // All three, f32 and bf16, are one row loop (rows_body below) behind three
 // kernels: ell_fwd_rows (the forward), ell_dp_rows and ell_dq_rows. The
-// arithmetic is slot_loop.cuh's: p + q rounded to the row type, relu and
+// forward can also divide by the edge set's total degree, the EdgeConv mean
+// (ops/message_passing.py:edge_conv_aggregate): given `mean_deg`, a row's
+// f32 sums are rounded to the row type, times 1 / max(degree, 1) in f32 and
+// rounded again, the roundings of the torch ops it replaces, in their
+// order. The mean's backward scales g once (mean_rows) before dp and dq.
+// The arithmetic is slot_loop.cuh's: p + q rounded to the row type, relu and
 // step in f32 (relu as x < 0 ? 0 : x), f32 sums in slot order from +0.0
 // with one acc + g * step(z) a live slot (g is never factored out, so an
 // inf or NaN g gives NaN as the plain version's inf * 0 does), dead slots
@@ -116,13 +121,15 @@ __device__ __forceinline__ uint4 load_chunk(const T* ptr, int left) {
 // kKind. own: the row's own operand (p for the forward and dp, q for dq);
 // own_g: dp's own g (else unused); rows_a, rows_b: the gathered rows (q for
 // the forward and dp; g and p for dq, rows_b unused otherwise); idx, count:
-// nbr and deg, or rev and deg_out.
+// nbr and deg, or rev and deg_out; mean_deg: the forward's total degrees,
+// null for the sum itself (unused by dp and dq).
 template <typename T, int kKind, bool kVec, int kChunks>
 __device__ __forceinline__ void rows_body(
     const T* __restrict__ own, const T* __restrict__ own_g,
     const T* __restrict__ rows_a, const T* __restrict__ rows_b,
     const int* __restrict__ idx, const float* __restrict__ count,
-    T* __restrict__ out, int V, int H, int D, int lanes, int groups) {
+    const float* __restrict__ mean_deg, T* __restrict__ out, int V, int H,
+    int D, int lanes, int groups) {
   using Vec = stinet::Vec16<T>;
   constexpr int kN = Vec::kN;
   constexpr int kLoads = kKind == kSum ? kLoadsInFlight : kGradLoadsInFlight;
@@ -171,6 +178,10 @@ __device__ __forceinline__ void rows_body(
   const int* irow = idx + r64 * D;
   int mine = live_row && lane < D ? __ldg(irow + lane) : 0;
   const int dv = live_row ? min(static_cast<int>(count[row]), D) : 0;
+  // the forward's mean: the row's scale, its degree read beside the count
+  const bool mean = kKind == kSum && mean_deg != nullptr;
+  const float scale =
+      mean && live_row ? stinet::mean_scale<T>(__ldg(mean_deg + row)) : 1.f;
   const int dmax = __reduce_max_sync(0xffffffffu, dv);
   for (int d0 = 0; d0 < dmax; d0 += lanes) {
     if (d0 > 0) mine = d0 + lane < dv ? __ldg(irow + d0 + lane) : 0;
@@ -233,7 +244,9 @@ __device__ __forceinline__ void rows_body(
   }
 #pragma unroll
   for (int c = 0; c < kChunks; ++c) {
-    if (has[c]) stinet::store16(out + base + col[c], acc[c], H - col[c], kVec);
+    if (!has[c]) continue;
+    if (mean) stinet::scale_rounded<T, kN>(acc[c], scale);
+    stinet::store16(out + base + col[c], acc[c], H - col[c], kVec);
   }
 }
 
@@ -243,9 +256,11 @@ __device__ __forceinline__ void rows_body(
   const T *__restrict__ own, const T *__restrict__ own_g,                 \
       const T *__restrict__ rows_a, const T *__restrict__ rows_b,         \
       const int *__restrict__ idx, const float *__restrict__ count,       \
-      T *__restrict__ out, int V, int H, int D, int lanes, int groups
+      const float *__restrict__ mean_deg, T *__restrict__ out, int V,     \
+      int H, int D, int lanes, int groups
 #define STINET_ELL_ROWS_CALL \
-  own, own_g, rows_a, rows_b, idx, count, out, V, H, D, lanes, groups
+  own, own_g, rows_a, rows_b, idx, count, mean_deg, out, V, H, D, lanes, \
+      groups
 
 template <typename T, bool kVec, int kChunks>
 __global__ void __launch_bounds__(stinet::kThreads, kMinBlocks)
@@ -271,8 +286,8 @@ bool aligned16(const void* ptr) {
 
 template <typename T>
 using RowsKernel = void (*)(const T*, const T*, const T*, const T*,
-                            const int*, const float*, T*, int, int, int, int,
-                            int);
+                            const int*, const float*, const float*, T*, int,
+                            int, int, int, int);
 
 template <typename T, int kKind, bool kVec, int kChunks>
 RowsKernel<T> kernel_of() {
@@ -302,7 +317,8 @@ constexpr int kRecord = 6;
 int g_last[kKinds][kRecord];
 
 // Launch the sum of kind kKind with the plan of ops/ell.py:ell_plan (lanes
-// a group, chunks a lane, groups a row, blocks, 16-byte loads or not). A
+// a group, chunks a lane, groups a row, blocks, 16-byte loads or not), the
+// forward's mean over `mean_deg` where that is not null. A
 // plan that does not describe the shapes (a lane count that is not a power
 // of two up to 32, chunks outside [1, kMaxChunks], groups that leave a
 // chunk uncovered or one empty, a grid of another size, 16-byte loads on
@@ -311,9 +327,9 @@ int g_last[kKinds][kRecord];
 template <typename T, int kKind>
 int launch_rows(const void* own, const void* own_g, const void* rows_a,
                 const void* rows_b, const int* idx, const float* count,
-                void* out, int V, int H, int D, int lanes, int chunks,
-                int groups, int blocks, int vector, int device,
-                cudaStream_t stream) {
+                const float* mean_deg, void* out, int V, int H, int D,
+                int lanes, int chunks, int groups, int blocks, int vector,
+                int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (V <= 0 || H <= 0) return cudaSuccess;
@@ -346,7 +362,49 @@ int launch_rows(const void* own, const void* own_g, const void* rows_a,
   kernel<<<blocks, stinet::kThreads, 0, stream>>>(
       static_cast<const T*>(own), static_cast<const T*>(own_g),
       static_cast<const T*>(rows_a), static_cast<const T*>(rows_b), idx,
-      count, static_cast<T*>(out), V, H, D, lanes, groups);
+      count, mean_deg, static_cast<T*>(out), V, H, D, lanes, groups);
+  return cudaGetLastError();
+}
+
+// out[v, :] = T(f32(x[v, :]) * mean_scale(mean_deg[v])): the mean's
+// backward, what the autograd of its torch tail computes (g to f32, times
+// the scale, back to T), in one pass of 16 bytes a thread (2 + 2 bytes an
+// element in bf16 against the tail's 20). Bound: bytes.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(stinet::kThreads)
+    mean_rows(const T* __restrict__ x, const float* __restrict__ mean_deg,
+              T* __restrict__ out, int V, int H) {
+  constexpr int kN = stinet::Vec16<T>::kN;
+  const int row_chunks = (H + kN - 1) / kN;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * stinet::kThreads +
+                    threadIdx.x;
+  if (i >= static_cast<int64_t>(V) * row_chunks) return;
+  const int row = static_cast<int>(i / row_chunks);
+  const int col = static_cast<int>(i - static_cast<int64_t>(row) * row_chunks)
+                  * kN;
+  const int64_t at = static_cast<int64_t>(row) * H + col;
+  float f[kN];
+  stinet::Vec16<T>::unpack(load_chunk<T, kVec>(x + at, H - col), f);
+  stinet::scale_rounded<T, kN>(f,
+                               stinet::mean_scale<T>(__ldg(mean_deg + row)));
+  stinet::store16(out + at, f, H - col, kVec);
+}
+
+template <typename T>
+int launch_mean_rows(const void* x, const float* mean_deg, void* out, int V,
+                     int H, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (V <= 0 || H <= 0) return cudaSuccess;
+  constexpr int kN = stinet::Vec16<T>::kN;
+  const int64_t chunks = static_cast<int64_t>(V) * ((H + kN - 1) / kN);
+  const int64_t blocks = (chunks + stinet::kThreads - 1) / stinet::kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const bool vec = (static_cast<int64_t>(H) * sizeof(T)) % 16 == 0 &&
+                   aligned16(x) && aligned16(out);
+  const auto kernel = vec ? mean_rows<T, true> : mean_rows<T, false>;
+  kernel<<<static_cast<unsigned>(blocks), stinet::kThreads, 0, stream>>>(
+      static_cast<const T*>(x), mean_deg, static_cast<T*>(out), V, H);
   return cudaGetLastError();
 }
 
@@ -369,29 +427,48 @@ extern "C" void ell_last_launch(int kind, int* out) {
 // the launch error.
 
 // p, q, out: [V, H] f32 (q may have any row count the indices stay inside);
-// nbr: [V, D] int32 with every live slot a valid row of q; deg: [V] f32.
+// nbr: [V, D] int32 with every live slot a valid row of q; deg: [V] f32;
+// mean_deg: null (out is the sum) or [V] f32 total degrees (out is the
+// mean over them).
 extern "C" int ell_edge_conv_sum_fwd_f32(const void* p, const void* q,
                                          const int* nbr, const float* deg,
-                                         void* out, int V, int H, int D,
-                                         int lanes, int chunks, int groups,
-                                         int blocks, int vector, int device,
+                                         const float* mean_deg, void* out,
+                                         int V, int H, int D, int lanes,
+                                         int chunks, int groups, int blocks,
+                                         int vector, int device,
                                          cudaStream_t stream) {
-  return launch_rows<float, kSum>(p, nullptr, q, nullptr, nbr, deg, out, V,
-                                  H, D, lanes, chunks, groups, blocks, vector,
-                                  device, stream);
+  return launch_rows<float, kSum>(p, nullptr, q, nullptr, nbr, deg, mean_deg,
+                                  out, V, H, D, lanes, chunks, groups, blocks,
+                                  vector, device, stream);
 }
 
 // The same sum on bf16 rows: z = bf16(p + q) (round to nearest even),
-// relu and accumulation in f32, output rounded to bf16.
+// relu and accumulation in f32, output rounded to bf16 (the mean: the
+// rounded sum times the scale in f32, rounded to bf16 again).
 extern "C" int ell_edge_conv_sum_fwd_bf16(const void* p, const void* q,
                                           const int* nbr, const float* deg,
-                                          void* out, int V, int H, int D,
-                                          int lanes, int chunks, int groups,
-                                          int blocks, int vector, int device,
+                                          const float* mean_deg, void* out,
+                                          int V, int H, int D, int lanes,
+                                          int chunks, int groups, int blocks,
+                                          int vector, int device,
                                           cudaStream_t stream) {
-  return launch_rows<bf16, kSum>(p, nullptr, q, nullptr, nbr, deg, out, V, H,
-                                 D, lanes, chunks, groups, blocks, vector,
-                                 device, stream);
+  return launch_rows<bf16, kSum>(p, nullptr, q, nullptr, nbr, deg, mean_deg,
+                                 out, V, H, D, lanes, chunks, groups, blocks,
+                                 vector, device, stream);
+}
+
+// out = x * 1 / max(mean_deg, 1) row by row, rounded as the torch tail
+// rounds (mean_rows); x, out: [V, H] of one dtype, mean_deg: [V] f32.
+extern "C" int ell_mean_rows_f32(const void* x, const float* mean_deg,
+                                 void* out, int V, int H, int device,
+                                 cudaStream_t stream) {
+  return launch_mean_rows<float>(x, mean_deg, out, V, H, device, stream);
+}
+
+extern "C" int ell_mean_rows_bf16(const void* x, const float* mean_deg,
+                                  void* out, int V, int H, int device,
+                                  cudaStream_t stream) {
+  return launch_mean_rows<bf16>(x, mean_deg, out, V, H, device, stream);
 }
 
 // dp = sum_d g * step(p + q[nbr]); p, q, g, out: [V, H] of one dtype.
@@ -401,9 +478,9 @@ extern "C" int ell_edge_conv_dp_f32(const void* p, const void* q,
                                     int D, int lanes, int chunks, int groups,
                                     int blocks, int vector, int device,
                                     cudaStream_t stream) {
-  return launch_rows<float, kDp>(p, g, q, nullptr, nbr, deg, out, V, H, D,
-                                 lanes, chunks, groups, blocks, vector, device,
-                                 stream);
+  return launch_rows<float, kDp>(p, g, q, nullptr, nbr, deg, nullptr, out, V,
+                                 H, D, lanes, chunks, groups, blocks, vector,
+                                 device, stream);
 }
 
 extern "C" int ell_edge_conv_dp_bf16(const void* p, const void* q,
@@ -412,9 +489,9 @@ extern "C" int ell_edge_conv_dp_bf16(const void* p, const void* q,
                                      int D, int lanes, int chunks, int groups,
                                      int blocks, int vector, int device,
                                      cudaStream_t stream) {
-  return launch_rows<bf16, kDp>(p, g, q, nullptr, nbr, deg, out, V, H, D,
-                                lanes, chunks, groups, blocks, vector, device,
-                                stream);
+  return launch_rows<bf16, kDp>(p, g, q, nullptr, nbr, deg, nullptr, out, V,
+                                H, D, lanes, chunks, groups, blocks, vector,
+                                device, stream);
 }
 
 // dq[s] = sum_j g[rev[s, j]] * step(p[rev[s, j]] + q[s]); rev: [V, D].
@@ -424,8 +501,8 @@ extern "C" int ell_edge_conv_dq_f32(const void* q, const void* g,
                                     int H, int D, int lanes, int chunks,
                                     int groups, int blocks, int vector,
                                     int device, cudaStream_t stream) {
-  return launch_rows<float, kDq>(q, nullptr, g, p, rev, deg_out, out, V, H,
-                                 D, lanes, chunks, groups, blocks, vector,
+  return launch_rows<float, kDq>(q, nullptr, g, p, rev, deg_out, nullptr, out,
+                                 V, H, D, lanes, chunks, groups, blocks, vector,
                                  device, stream);
 }
 
@@ -435,7 +512,7 @@ extern "C" int ell_edge_conv_dq_bf16(const void* q, const void* g,
                                      int H, int D, int lanes, int chunks,
                                      int groups, int blocks, int vector,
                                      int device, cudaStream_t stream) {
-  return launch_rows<bf16, kDq>(q, nullptr, g, p, rev, deg_out, out, V, H, D,
-                                lanes, chunks, groups, blocks, vector, device,
-                                stream);
+  return launch_rows<bf16, kDq>(q, nullptr, g, p, rev, deg_out, nullptr, out,
+                                V, H, D, lanes, chunks, groups, blocks, vector,
+                                device, stream);
 }

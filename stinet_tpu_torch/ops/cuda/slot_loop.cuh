@@ -12,7 +12,9 @@
 // r = rev[s, j]:
 //   out[s] = sum_j g[r] * step(T(p[r] + q[s]))
 // The windowed forward sums (relu(z), and step(z) alone) use the same
-// arithmetic.
+// arithmetic. The mean over the total degree can be taken in the same
+// epilogue (mean_scale, scale_rounded): round to T, times the scale in f32,
+// round to T, the plain tail's roundings in its order.
 //
 // Bit-identity with the plain torch versions (ops/ell.py, ops/windowed.py):
 // the add p + q rounds to the element type T as torch's add does (f32 add,
@@ -43,6 +45,8 @@ struct Elem<float> {
     return a + b;
   }
   static __device__ __forceinline__ float put(float v) { return v; }
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float get(float v) { return v; }
   static __device__ __forceinline__ float zero() { return 0.f; }
 };
 
@@ -54,6 +58,13 @@ struct Elem<__nv_bfloat16> {
   static __device__ __forceinline__ __nv_bfloat16 put(float v) {
     return __float2bfloat16_rn(v);
   }
+  // v rounded to bf16 and back: put's value as an f32
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ float get(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
   static __device__ __forceinline__ __nv_bfloat16 zero() {
     return __float2bfloat16_rn(0.f);
   }
@@ -61,6 +72,25 @@ struct Elem<__nv_bfloat16> {
 
 __device__ __forceinline__ float relu(float x) { return x < 0.f ? 0.f : x; }
 __device__ __forceinline__ float step(float x) { return x > 0.f ? 1.f : 0.f; }
+
+// The EdgeConv mean's scale of a row whose total degree is `degree`, as the
+// plain tail computes it (ops/ell.py:mean_scale_plain): the degree rounded
+// to T, clamped at 1 (a NaN stays NaN, as torch.clamp leaves it) and
+// inverted with IEEE round to nearest, which is torch's reciprocal.
+template <typename T>
+__device__ __forceinline__ float mean_scale(float degree) {
+  const float d = Elem<T>::round(degree);
+  return __frcp_rn(d < 1.f ? 1.f : d);
+}
+
+// f32 values as the plain tail leaves them before its last cast: each
+// rounded to T, then times `scale` in f32 (round to nearest, never
+// contracted). The store rounds to T once more.
+template <typename T, int kN>
+__device__ __forceinline__ void scale_rounded(float* x, float scale) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) x[i] = __fmul_rn(Elem<T>::round(x[i]), scale);
+}
 
 // Sixteen bytes of channels, what a lane loads, computes and stores: 4 f32
 // or 8 bf16, unpacked to f32 exactly and packed with round to nearest even

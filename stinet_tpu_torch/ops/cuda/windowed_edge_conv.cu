@@ -13,11 +13,15 @@
 //
 // with f32 accumulation in slot order and an output of the row type T, the
 // arithmetic of slot_loop.cuh (bit for bit the plain versions in
-// ops/windowed.py). Relu runs on bf16 rows (K3a) and on f32 rows (K3b);
-// step and dq on bf16 rows. K3b is bit for bit the f32 K1
-// (ell_edge_conv.cu). The TPU split each f32 row into three bf16 planes
-// because its one-hot MXU gather is exact only in bf16; the card copies the
-// f32 rows themselves.
+// ops/windowed.py). Two epilogues fold in the torch ops that followed the
+// sums, in their roundings: relu with `mean_deg`, the EdgeConv mean
+// (ops/message_passing.py:edge_conv_aggregate), each row's sums rounded to
+// T, times 1 / max(degree, 1) in f32, rounded to T; step with `g`, the
+// K3d backward's dp, out[v] = T(f32(g[v]) * f32(T(count))). Relu runs on
+// bf16 rows (K3a) and on f32 rows (K3b); step and dq on bf16 rows. K3b is
+// bit for bit the f32 K1 (ell_edge_conv.cu). The TPU split each f32 row
+// into three bf16 planes because its one-hot MXU gather is exact only in
+// bf16; the card copies the f32 rows themselves.
 //
 // Contract: every live slot of a tile [i*T, (i+1)*T) points into the tile's
 // window [w0, w0 + W), w0 = clamp(i*T - halo, 0, V - W),
@@ -85,7 +89,8 @@ constexpr long long kHangCycles = 1LL << 32;
 struct Plan {
   int V, H, D, tile, halo, W;
   int cs, sub, ring, bufs, buf_rows, strip_tiles;
-  int tma;  // 1: TMA fills the ring; 0: the producer warp's loads
+  int tma;    // 1: TMA fills the ring; 0: the producer warp's loads
+  int g_vec;  // 1: 16-byte loads of the step epilogue's g; 0: by element
 };
 
 __device__ __forceinline__ int window_start(const Plan& pl, int i) {
@@ -161,6 +166,22 @@ __device__ __forceinline__ uint4 load16(const T* ptr) {
 using stinet::store16;
 using stinet::Vec16;
 
+// A lane's channels [c, c + kN) of a row in device memory, as f32, zero
+// past channel H (`left` of them inside the row): one 16-byte load where
+// `whole`, else element loads.
+template <typename T>
+__device__ __forceinline__ void load_row(const T* ptr, int left, bool whole,
+                                         float* f) {
+  if (whole) {
+    Vec16<T>::unpack(__ldg(reinterpret_cast<const uint4*>(ptr)), f);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::kN; ++i) {
+    f[i] = i < left ? stinet::Elem<T>::get(ptr[i]) : 0.f;
+  }
+}
+
 // The gathered rows of one tile, read from the ring: row x of the strip
 // lives in ring row (x - base) mod R. local() traps on a row outside the
 // tile's window, which is resident as a whole while the tile computes.
@@ -193,10 +214,13 @@ struct Chunk {
 // lanes a row, and the arithmetic element by element as there (the add
 // rounded to T, compare and relu in f32, f32 sums in slot order, dead slots
 // skipped), so the bits are the plain versions'. Channels at or past H hold
-// zeros and are not stored.
+// zeros and are not stored. mean_deg (relu) and g (step), where not null,
+// take the epilogues of the file's head.
 template <typename T, int kMode>
 __device__ void ring_receiver(const Plan& pl, const Chunk<T>& ch,
-                              const RingRows<T>& q, T* __restrict__ out,
+                              const RingRows<T>& q,
+                              const float* __restrict__ mean_deg,
+                              const T* __restrict__ g, T* __restrict__ out,
                               int c0) {
   using V = Vec16<T>;
   const int lanes = pl.cs / V::kN;
@@ -208,6 +232,10 @@ __device__ void ring_receiver(const Plan& pl, const Chunk<T>& ch,
     V::unpack(load16(ch.x + rl * pl.cs + off), pv);
 #pragma unroll
     for (int i = 0; i < V::kN; ++i) acc[i] = 0.f;
+    const int64_t row = ch.r0 + rl;
+    const bool mean = kMode == stinet::kRelu && mean_deg != nullptr;
+    const float scale =
+        mean ? stinet::mean_scale<T>(__ldg(mean_deg + row)) : 1.f;
     const int dv = min(static_cast<int>(ch.count[rl]), pl.D);
     const int* irow = ch.idx + rl * pl.D;
     for (int d0 = 0; d0 < dv; d0 += stinet::kAhead) {
@@ -229,8 +257,16 @@ __device__ void ring_receiver(const Plan& pl, const Chunk<T>& ch,
         }
       }
     }
-    store16(out + static_cast<int64_t>(ch.r0 + rl) * pl.H + c, acc,
-            pl.H - c, pl.tma);
+    if (mean) stinet::scale_rounded<T, V::kN>(acc, scale);
+    if (kMode == stinet::kStep && g != nullptr) {
+      float gv[V::kN];
+      load_row(g + row * pl.H + c, pl.H - c, pl.g_vec, gv);
+#pragma unroll
+      for (int i = 0; i < V::kN; ++i) {
+        acc[i] = __fmul_rn(gv[i], stinet::Elem<T>::round(acc[i]));
+      }
+    }
+    store16(out + row * pl.H + c, acc, pl.H - c, pl.tma);
   }
 }
 
@@ -516,7 +552,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
                       __grid_constant__ const CUtensorMap p_map,
                       const T* __restrict__ p, const T* __restrict__ q,
                       const int* __restrict__ nbr,
-                      const float* __restrict__ deg, T* __restrict__ out,
+                      const float* __restrict__ deg,
+                      const float* __restrict__ mean_deg,
+                      const T* __restrict__ g, T* __restrict__ out,
                       const Plan pl) {
   extern __shared__ __align__(1024) unsigned char smem[];
   const Shared<T, 1> sm = setup<T, 1>(pl, smem);
@@ -530,7 +568,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   consume<T, 1>(pl, st, sm, [&](int r0, int w0, int o, int b) {
     const Chunk<T> ch{sm.x(b), sm.idx(b), sm.count(b), r0};
     const RingRows<T> rows{sm.ring[0], w0, pl.W, o, pl.ring, pl.cs};
-    ring_receiver<T, kMode>(pl, ch, rows, out, c0);
+    ring_receiver<T, kMode>(pl, ch, rows, mean_deg, g, out, c0);
   });
 }
 
@@ -687,18 +725,24 @@ int launch_setup(Kernel kernel, const Plan& pl, int arrays, int elem,
 
 Plan make_plan(int V, int H, int D, int tile, int halo, int W, int cs,
                int sub, int ring, int bufs, int buf_rows, int strip_tiles) {
-  return Plan{V,  H,   D,    tile,     halo,        W,
-              cs, sub, ring, bufs, buf_rows, strip_tiles, 0};
+  return Plan{V,  H,   D,    tile,     halo,        W, cs,
+              sub, ring, bufs, buf_rows, strip_tiles, 0, 0};
 }
 
+// mean_deg goes with relu mode only, g with step mode only.
 template <typename T>
 int receiver(const T* p, const T* q, const int* nbr, const float* deg,
-             T* out, Plan pl, int strips, int smem, int mode, int device,
-             cudaStream_t stream, CUtensorMapDataType type) {
+             const float* mean_deg, const T* g, T* out, Plan pl, int strips,
+             int smem, int mode, int device, cudaStream_t stream,
+             CUtensorMapDataType type) {
   if (pl.V <= 0 || pl.H <= 0) return cudaSuccess;
-  if (mode != stinet::kRelu && mode != stinet::kStep) {
+  if ((mode != stinet::kRelu || g != nullptr) &&
+      (mode != stinet::kStep || mean_deg != nullptr)) {
     return cudaErrorInvalidValue;
   }
+  pl.g_vec = g != nullptr &&
+             (static_cast<int64_t>(pl.H) * sizeof(T)) % 16 == 0 &&
+             (reinterpret_cast<uintptr_t>(g) & 15u) == 0;
   auto kernel = mode == stinet::kRelu ? windowed_receiver<T, stinet::kRelu>
                                       : windowed_receiver<T, stinet::kStep>;
   CUtensorMap maps[2] = {};
@@ -711,7 +755,7 @@ int receiver(const T* p, const T* q, const int* nbr, const float* deg,
                               &grid);
   if (rc != cudaSuccess) return rc;
   kernel<<<grid, kBlock, smem, stream>>>(maps[0], maps[1], p, q, nbr, deg,
-                                         out, pl);
+                                         mean_deg, g, out, pl);
   return cudaGetLastError();
 }
 
@@ -729,31 +773,36 @@ extern "C" void windowed_last_launch(int* out) {
 }
 
 // p, q, out: [V, H] bf16; nbr: [V, D] int32; deg: [V] f32. mode 0 = relu,
-// 1 = step. tile divides V; halo is the band bound rounded up to 32;
+// 1 = step. mean_deg: null, or with relu the [V] f32 total degrees to take
+// the mean over; g: null, or with step the [V, H] bf16 gradient to multiply
+// the counts by. tile divides V; halo is the band bound rounded up to 32;
 // W = min(tile + 2*halo, V); cs, sub, ring, bufs, buf_rows, strip_tiles,
 // strips and smem are ops/windowed.py:window_plan's. Launches on `stream`,
 // returns the launch error.
 extern "C" int windowed_edge_conv_sum_bf16(
-    const void* p, const void* q, const int* nbr, const float* deg, void* out,
-    int V, int H, int D, int tile, int halo, int W, int cs, int sub,
-    int ring, int bufs, int buf_rows, int strip_tiles, int strips, int smem,
-    int mode, int device, cudaStream_t stream) {
+    const void* p, const void* q, const int* nbr, const float* deg,
+    const float* mean_deg, const void* g, void* out, int V, int H, int D,
+    int tile, int halo, int W, int cs, int sub, int ring, int bufs,
+    int buf_rows, int strip_tiles, int strips, int smem, int mode, int device,
+    cudaStream_t stream) {
   return receiver(static_cast<const bf16*>(p), static_cast<const bf16*>(q),
-                  nbr, deg, static_cast<bf16*>(out),
+                  nbr, deg, mean_deg, static_cast<const bf16*>(g),
+                  static_cast<bf16*>(out),
                   make_plan(V, H, D, tile, halo, W, cs, sub, ring, bufs,
                             buf_rows, strip_tiles),
                   strips, smem, mode, device, stream,
                   CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
-// K3b, the relu sum on f32 rows. p, q, out: [V, H] f32; the rest as for
-// windowed_edge_conv_sum_bf16.
+// K3b, the relu sum (or mean) on f32 rows. p, q, out: [V, H] f32; the rest
+// as for windowed_edge_conv_sum_bf16.
 extern "C" int windowed_edge_conv_sum_f32(
     const float* p, const float* q, const int* nbr, const float* deg,
-    float* out, int V, int H, int D, int tile, int halo, int W, int cs,
-    int sub, int ring, int bufs, int buf_rows, int strip_tiles, int strips,
-    int smem, int device, cudaStream_t stream) {
-  return receiver(p, q, nbr, deg, out,
+    const float* mean_deg, float* out, int V, int H, int D, int tile,
+    int halo, int W, int cs, int sub, int ring, int bufs, int buf_rows,
+    int strip_tiles, int strips, int smem, int device, cudaStream_t stream) {
+  return receiver(p, q, nbr, deg, mean_deg, static_cast<const float*>(nullptr),
+                  out,
                   make_plan(V, H, D, tile, halo, W, cs, sub, ring, bufs,
                             buf_rows, strip_tiles),
                   strips, smem, stinet::kRelu, device, stream,

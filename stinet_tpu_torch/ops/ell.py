@@ -17,6 +17,10 @@ On a CUDA tensor each of the three launches a hand-written kernel
 impl="plain", it runs the plain torch slot loop beside it. Both do the
 arithmetic of the JAX code: p + q in the working dtype, compare and relu in
 f32, f32 accumulation in slot order, one rounding to the working dtype.
+The forward can take the EdgeConv mean as well (`mean_degree`): the sum
+times 1/max(degree, 1), rounded as `mean_scale_plain` rounds, in the
+kernel's epilogue on a CUDA tensor; its backward scales g once
+(`mean_scale`) before dp and dq.
 
 Children-table pooling: the trace map (fine -> coarse) induces a children
 table (coarse -> its fine vertices). Pooling is a gather + reduce over child
@@ -34,34 +38,43 @@ from stinet_tpu_torch.ops import _cuda
 
 
 def ell_edge_conv_sum(p, q, nbr, deg, rev_dst=None, out_degree=None,
-                      impl=None):
+                      impl=None, mean_degree=None):
     """out[v] = sum_{d < deg[v]} relu(p[v] + q[nbr[v, d]]).
 
     p, q: [V, H] f32 or bf16; nbr: [V, D] int32 (every slot a valid row of
     q, pad slots at the trash row); deg: [V] f32 count of ELL-resident
     edges. Differentiable in p and q; the backward needs `rev_dst` and
-    `out_degree` ([V] f32). Callers divide by the TOTAL degree (after adding
-    any COO spill) for mean aggregation."""
-    return _EllEdgeConvSum.apply(p, q, nbr, deg, rev_dst, out_degree, impl)
+    `out_degree` ([V] f32). With `mean_degree` ([V] f32, the TOTAL degree)
+    out is the mean instead, `mean_scale_plain(sum, mean_degree)` bit for
+    bit; a caller with a COO spill adds it to the sum and divides
+    itself."""
+    return _EllEdgeConvSum.apply(p, q, nbr, deg, rev_dst, out_degree, impl,
+                                 mean_degree)
 
 
 class _EllEdgeConvSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, p, q, nbr, deg, rev_dst, out_degree, impl):
+    def forward(ctx, p, q, nbr, deg, rev_dst, out_degree, impl, mean_degree):
         ctx.impl = impl
-        ctx.save_for_backward(p, q, nbr, deg, rev_dst, out_degree)
+        ctx.save_for_backward(p, q, nbr, deg, rev_dst, out_degree,
+                              mean_degree)
         if impl is None and torch.compiler.is_exporting():
             from stinet_tpu_torch.ops import library
-            return library.ell_edge_conv_sum(p, q, nbr, deg)
+            out = library.ell_edge_conv_sum(p, q, nbr, deg)
+            return (out if mean_degree is None
+                    else mean_scale_plain(out, mean_degree))
         if _cuda.use_kernel(p, impl):
-            return ell_edge_conv_sum_kernel(p, q, nbr, deg)
-        return ell_edge_conv_sum_plain(p, q, nbr, deg)
+            return ell_edge_conv_sum_kernel(p, q, nbr, deg, mean_degree)
+        return ell_edge_conv_sum_plain(p, q, nbr, deg, mean_degree)
 
     @staticmethod
     def backward(ctx, g):
-        dp, dq = ell_edge_conv_grads(*ctx.saved_tensors, g, ctx.impl,
+        *saved, mean_degree = ctx.saved_tensors
+        if mean_degree is not None:
+            g = mean_scale(g, mean_degree, ctx.impl)
+        dp, dq = ell_edge_conv_grads(*saved, g, ctx.impl,
                                      ctx.needs_input_grad[:2])
-        return dp, dq, None, None, None, None, None
+        return dp, dq, None, None, None, None, None, None
 
 
 def ell_edge_conv_grads(p, q, nbr, deg, rev_dst, out_degree, g, impl=None,
@@ -90,9 +103,30 @@ def _acc_dtype(t):
     return torch.promote_types(t.dtype, torch.float32)
 
 
-def ell_edge_conv_sum_plain(p, q, nbr, deg):
+def mean_scale_plain(x, mean_degree):
+    """x[v] / max(mean_degree[v], 1) row by row, as the JAX code takes the
+    EdgeConv mean (a multiply by 1/max(degree, 1); a division would round
+    otherwise): the degree rounded to x's dtype, as the JAX model passes
+    it, the reciprocal in >= f32, x times it in >= f32, rounded back to x's
+    dtype. The same expression on g is the mean's backward, as autograd of
+    it gives."""
+    acc_dt = _acc_dtype(x)
+    inv = 1.0 / torch.clamp(mean_degree.to(x.dtype).to(acc_dt), min=1.0)
+    return (x.to(acc_dt) * inv[:, None]).to(x.dtype)
+
+
+def mean_scale(x, mean_degree, impl=None):
+    """`mean_scale_plain`, by `ell_mean_rows_{f32,bf16}` on a CUDA tensor:
+    the backward of the mean that the forward kernels take."""
+    if _cuda.use_kernel(x, impl):
+        return mean_scale_kernel(x.contiguous(), mean_degree)
+    return mean_scale_plain(x, mean_degree)
+
+
+def ell_edge_conv_sum_plain(p, q, nbr, deg, mean_degree=None):
     """Plain torch version: slots accumulated in f32 in order d=0..D-1, as
-    stinet_tpu/ops/ell.py:_forward does, so the two agree bit for bit."""
+    stinet_tpu/ops/ell.py:_forward does, so the two agree bit for bit; with
+    `mean_degree`, the mean of `mean_scale_plain`."""
     acc_dt = _acc_dtype(p)
     deg_i = deg.to(torch.int32)
     acc = torch.zeros(p.shape, dtype=acc_dt, device=p.device)
@@ -100,7 +134,8 @@ def ell_edge_conv_sum_plain(p, q, nbr, deg):
     for d in range(nbr.shape[1]):
         m = torch.relu(p + q.index_select(0, nbr[:, d]))
         acc = acc + torch.where((d < deg_i)[:, None], m.to(acc_dt), zero)
-    return acc.to(p.dtype)
+    out = acc.to(p.dtype)
+    return out if mean_degree is None else mean_scale_plain(out, mean_degree)
 
 
 def ell_edge_conv_dp_plain(p, q, nbr, deg, g):
@@ -166,6 +201,16 @@ def _check_table(idx, count, v, dev):
     if idx.shape[0] != v or count.shape[0] != v:
         raise ValueError(f"tables of {idx.shape[0]} / {count.shape[0]} rows "
                          f"for {v} rows of features")
+
+
+def _check_mean(mean_degree, v, dev):
+    """Raise unless `mean_degree` is None or [v] f32 on `dev`."""
+    if mean_degree is None:
+        return
+    _cuda.check_tensor("mean degree", mean_degree, torch.float32, 1, dev)
+    if mean_degree.shape[0] != v:
+        raise ValueError(f"mean degree of {mean_degree.shape[0]} rows for "
+                         f"{v} rows of features")
 
 
 # The row kernels' layout (ops/cuda/ell_edge_conv.cu: ell_fwd_rows,
@@ -288,13 +333,13 @@ _ROWS = {"sum": (0, 1), "dp": (0, 1, 4), "dq": (0, 1, 2)}
 
 def _launch(kind, tensors, d, plan=None):
     """Launch the row kernel of `kind` on checked tensors, in the C
-    launcher's order, on the current stream, with `plan`, by default
-    `ell_plan`'s for their shape and alignment (out is a fresh allocation,
-    so 16-byte aligned like every block the caching allocator hands out;
-    the launcher checks it anyway); out is shaped as the first tensor.
-    Raises on a failed launch; counts nothing."""
+    launcher's order (None for a null pointer), on the current stream,
+    with `plan`, by default `ell_plan`'s for their shape and alignment (out
+    is a fresh allocation, so 16-byte aligned like every block the caching
+    allocator hands out; the launcher checks it anyway); out is shaped as
+    the first tensor. Raises on a failed launch; counts nothing."""
     first = tensors[0]
-    ptrs = [t.data_ptr() for t in tensors]
+    ptrs = [0 if t is None else t.data_ptr() for t in tensors]
     if plan is None:
         rows = 0
         for i in _ROWS[kind]:
@@ -309,11 +354,12 @@ def _launch(kind, tensors, d, plan=None):
     return out
 
 
-def launch_sum(plan, p, q, nbr, deg):
+def launch_sum(plan, p, q, nbr, deg, mean_degree=None):
     """Launch the forward of p's dtype with `plan` (from `ell_plan`) on the
-    current stream, on checked tensors; returns out. Raises on a failed
-    launch. Counts nothing: `ell_edge_conv_sum_kernel` does."""
-    return _launch("sum", (p, q, nbr, deg), nbr.shape[1], plan)
+    current stream, on checked tensors; returns out, the sum or, with
+    `mean_degree`, the mean. Raises on a failed launch. Counts nothing:
+    `ell_edge_conv_sum_kernel` does."""
+    return _launch("sum", (p, q, nbr, deg, mean_degree), nbr.shape[1], plan)
 
 
 def launch_dp(plan, p, q, nbr, deg, g):
@@ -327,11 +373,12 @@ def launch_dq(plan, q, g, p, rev_dst, out_degree):
                    plan)
 
 
-def ell_edge_conv_sum_kernel(p, q, nbr, deg):
+def ell_edge_conv_sum_kernel(p, q, nbr, deg, mean_degree=None):
     """Launch `ell_edge_conv_sum_fwd_{f32,bf16}` (ops/cuda/ell_edge_conv.cu)
-    on the current stream with `ell_plan`'s layout. Raises on a tensor it
-    does not take or a failed launch; it never falls back to the plain
-    version."""
+    on the current stream with `ell_plan`'s layout: the sum, or with
+    `mean_degree` the mean, bit for bit `ell_edge_conv_sum_plain`. Raises
+    on a tensor it does not take or a failed launch; it never falls back to
+    the plain version."""
     dev = p.device
     _cuda.check_tensor("p", p, p.dtype, 2, dev)
     _cuda.check_tensor("q", q, p.dtype, 2, dev)
@@ -342,12 +389,33 @@ def ell_edge_conv_sum_kernel(p, q, nbr, deg):
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, q "
                          f"{tuple(q.shape)}")
     _check_table(nbr, deg, p.shape[0], dev)
-    out = _launch("sum", (p, q, nbr, deg), nbr.shape[1])
+    _check_mean(mean_degree, p.shape[0], dev)
+    out = _launch("sum", (p, q, nbr, deg, mean_degree), nbr.shape[1])
     ell_edge_conv_sum_kernel.launches += 1
     return out
 
 
 ell_edge_conv_sum_kernel.launches = 0
+
+
+def mean_scale_kernel(x, mean_degree):
+    """Launch `ell_mean_rows_{f32,bf16}` (ops/cuda/ell_edge_conv.cu) on the
+    current stream: `mean_scale_plain(x, mean_degree)` bit for bit. Raises
+    as `ell_edge_conv_sum_kernel`."""
+    _check_rows(("x",), (x,), x.device)
+    _check_mean(mean_degree, x.shape[0], x.device)
+    out = torch.empty_like(x)
+    name = f"ell_mean_rows_{_DTYPES[x.dtype]}"
+    lib = _cuda.library("ell_edge_conv")
+    rc = getattr(lib, name)(x.data_ptr(), mean_degree.data_ptr(),
+                            out.data_ptr(), *x.shape, x.device.index,
+                            _cuda.stream_of(x.device))
+    _cuda.check_status(lib, name, rc)
+    mean_scale_kernel.launches += 1
+    return out
+
+
+mean_scale_kernel.launches = 0
 
 
 def last_launch(kind: str = "sum") -> dict:

@@ -17,7 +17,7 @@ It also holds the plain neighbourhood mean of the SageConv filters
 import torch
 
 from stinet_tpu_torch.graph.hierarchy import EdgeSet
-from stinet_tpu_torch.ops.ell import ell_edge_conv_sum
+from stinet_tpu_torch.ops.ell import ell_edge_conv_sum, mean_scale_plain
 from stinet_tpu_torch.ops.segment import segment_mean, segment_sum
 from stinet_tpu_torch.ops.windowed import (
     WindowedEdgeConvSum, WindowedEdgeConvSumF32, default_tile)
@@ -47,36 +47,49 @@ def edge_conv_aggregate(p, q, edges: EdgeSet, impl=None):
 
     With ELL tables the slot sum runs through the windowed op of the row
     dtype where `windowed_kernel_applies`, else through `ell_edge_conv_sum`
-    (each a kernel on a CUDA tensor); the spilled edges are added by an f32
-    segment sum, and the total is multiplied by 1/max(degree, 1) as the JAX
-    code does (a division would round differently), with the degree
-    rounded to the working dtype first as the JAX model passes it. Edge
-    sets with no ELL table take the COO segment mean. Pad edges point at
+    (each a kernel on a CUDA tensor). The mean multiplies by
+    1/max(degree, 1) as the JAX code does (a division would round
+    otherwise), with the degree rounded to the working dtype first as the
+    JAX model passes it (ops/ell.py:mean_scale_plain). An edge set with no
+    COO spill takes it inside the slot sum (`mean_degree`: the kernel's
+    epilogue on a CUDA tensor, its backward one pass over g) and counts in
+    `edge_conv_aggregate.folded`; one with a spill adds the spilled edges by
+    an f32 segment sum first and then scales in torch ops, as does an edge
+    set with no ELL table (the COO segment mean): those count in
+    `edge_conv_aggregate.tail`. Both give the same bits. Pad edges point at
     the trash row, so their messages never reach a valid row."""
     num_segments = edges.degree.shape[0]
-    acc_dt = torch.promote_types(p.dtype, torch.float32)
-    degree = edges.degree.to(p.dtype)
     if edges.nbr is None:
+        edge_conv_aggregate.tail += 1
         m = torch.relu(p.index_select(0, edges.dst)
                        + q.index_select(0, edges.src))
-        return segment_mean(m, edges.dst, num_segments, counts=degree)
+        return segment_mean(m, edges.dst, num_segments,
+                            counts=edges.degree.to(p.dtype))
     ell_deg = edges.degree if edges.ell_degree is None else edges.ell_degree
+    mean = edges.degree if edges.spill_src is None else None
     if windowed_kernel_applies(p, edges.halo):
         fn = (WindowedEdgeConvSum if p.dtype == torch.bfloat16
               else WindowedEdgeConvSumF32)
         out = fn.apply(
             p, q, edges.nbr, edges.rev_dst, ell_deg, edges.out_degree,
-            edges.halo, default_tile(p.shape[0]), impl)
+            edges.halo, default_tile(p.shape[0]), impl, mean)
     else:
         out = ell_edge_conv_sum(p, q, edges.nbr, ell_deg, edges.rev_dst,
-                                edges.out_degree, impl=impl)
-    if edges.spill_src is not None:
-        m = torch.relu(p.index_select(0, edges.spill_dst)
-                       + q.index_select(0, edges.spill_src))
-        out = out + segment_sum(m.to(acc_dt), edges.spill_dst,
-                                num_segments).to(out.dtype)
-    inv = 1.0 / torch.clamp(degree.to(acc_dt), min=1.0)
-    return (out.to(acc_dt) * inv[:, None]).to(p.dtype)
+                                edges.out_degree, impl=impl, mean_degree=mean)
+    if mean is not None:
+        edge_conv_aggregate.folded += 1
+        return out
+    edge_conv_aggregate.tail += 1
+    acc_dt = torch.promote_types(p.dtype, torch.float32)
+    m = torch.relu(p.index_select(0, edges.spill_dst)
+                   + q.index_select(0, edges.spill_src))
+    out = out + segment_sum(m.to(acc_dt), edges.spill_dst,
+                            num_segments).to(out.dtype)
+    return mean_scale_plain(out, edges.degree)
+
+
+edge_conv_aggregate.folded = 0
+edge_conv_aggregate.tail = 0
 
 
 def neighbor_mean(x, edges: EdgeSet, degree):

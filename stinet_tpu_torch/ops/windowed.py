@@ -24,6 +24,10 @@ ELL sum of ops/ell.py; its backward is the ELL backward, as JAX's f32 VJP
 reuses ops/ell.py's. The plain versions are the slot loops of ops/ell.py,
 which is what the one-hot gather computes exactly; a CUDA tensor takes the
 kernel, a CPU tensor (or impl="plain") the plain version.
+
+Two epilogues take the torch ops that followed a sum into the kernel, with
+their roundings: relu with `mean_degree`, the EdgeConv mean
+(ops/ell.py:mean_scale_plain); step with `g`, K3d's dp = g * (step sum).
 """
 import ctypes
 import functools
@@ -34,8 +38,9 @@ import torch
 
 from stinet_tpu_torch.ops import _cuda
 from stinet_tpu_torch.ops.ell import (
-    _check_rows, _check_table, ell_edge_conv_dq_plain, ell_edge_conv_grads,
-    ell_edge_conv_sum_plain)
+    _check_mean, _check_rows, _check_table, ell_edge_conv_dq_plain,
+    ell_edge_conv_grads, ell_edge_conv_sum_plain, mean_scale,
+    mean_scale_plain)
 
 _MODES = {"relu": 0, "step": 1}
 
@@ -258,32 +263,48 @@ def last_launch() -> dict:
     return dict(zip(keys, out))
 
 
-def windowed_edge_conv_sum(p, q, nbr, deg, halo, tile, mode="relu",
-                           impl=None):
-    """The relu (forward) or step (dp factor) slot sum over a banded
-    window. p, q: [V, H] (cast to bf16); nbr: [V, D] int32; deg: [V] f32.
-    Returns [V, H] bf16."""
+def _check_mode(mode, mean_degree, g):
     if mode not in _MODES:
         raise ValueError(f"mode must be 'relu' or 'step', got {mode!r}")
+    if (mean_degree is not None and mode != "relu") or (
+            g is not None and mode != "step"):
+        raise ValueError("mean_degree goes with mode 'relu', g with 'step'")
+
+
+def windowed_edge_conv_sum(p, q, nbr, deg, halo, tile, mode="relu",
+                           impl=None, mean_degree=None, g=None):
+    """The relu (forward) or step (dp factor) slot sum over a banded
+    window. p, q: [V, H] (cast to bf16); nbr: [V, D] int32; deg: [V] f32.
+    Returns [V, H] bf16. With `mean_degree` ([V] f32, relu) the mean of
+    ops/ell.py:mean_scale_plain; with `g` ([V, H], step, cast to bf16) K3d's
+    dp, bf16(f32(g) * f32(step sum))."""
     p16, q16 = p.to(torch.bfloat16), q.to(torch.bfloat16)
+    g16 = None if g is None else g.to(torch.bfloat16)
     if _cuda.use_kernel(p, impl):
         return windowed_edge_conv_sum_kernel(p16, q16, nbr, deg, halo, tile,
-                                             mode)
-    return windowed_edge_conv_sum_plain(p16, q16, nbr, deg, mode)
+                                             mode, mean_degree, g16)
+    return windowed_edge_conv_sum_plain(p16, q16, nbr, deg, mode,
+                                        mean_degree, g16)
 
 
-def windowed_edge_conv_sum_plain(p, q, nbr, deg, mode="relu"):
-    """The bf16 slot loop: relu mode is `ell_edge_conv_sum_plain`, step
-    mode counts the live slots with p + q > 0."""
+def windowed_edge_conv_sum_plain(p, q, nbr, deg, mode="relu",
+                                 mean_degree=None, g=None):
+    """The bf16 slot loop: relu mode is `ell_edge_conv_sum_plain` (with
+    `mean_degree`, its mean), step mode counts the live slots with
+    p + q > 0 (with `g`, times g in f32, rounded to bf16)."""
+    _check_mode(mode, mean_degree, g)
     if mode == "relu":
-        return ell_edge_conv_sum_plain(p, q, nbr, deg)
+        return ell_edge_conv_sum_plain(p, q, nbr, deg, mean_degree)
     deg_i = deg.to(torch.int32)
     acc = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     zero = torch.zeros((), dtype=torch.float32, device=p.device)
     for d in range(nbr.shape[1]):
         m = (p + q.index_select(0, nbr[:, d]) > 0).to(torch.float32)
         acc = acc + torch.where((d < deg_i)[:, None], m, zero)
-    return acc.to(p.dtype)
+    out = acc.to(p.dtype)
+    if g is None:
+        return out
+    return (g.to(torch.float32) * out.to(torch.float32)).to(p.dtype)
 
 
 def windowed_dq(q, g, p, rev_dst, deg_out, halo, tile, impl=None):
@@ -296,13 +317,15 @@ def windowed_dq(q, g, p, rev_dst, deg_out, halo, tile, impl=None):
     return ell_edge_conv_dq_plain(q16, g16, p16, rev_dst, deg_out)
 
 
-def windowed_edge_conv_sum_f32(p, q, nbr, deg, halo, tile, impl=None):
+def windowed_edge_conv_sum_f32(p, q, nbr, deg, halo, tile, impl=None,
+                               mean_degree=None):
     """K3b: the relu slot sum over a banded window on f32 rows, bit for bit
-    the f32 `ell_edge_conv_sum`. p, q: [V, H] f32; nbr: [V, D] int32; deg:
-    [V] f32. Returns [V, H] f32."""
+    the f32 `ell_edge_conv_sum` (with `mean_degree`, its mean). p, q:
+    [V, H] f32; nbr: [V, D] int32; deg: [V] f32. Returns [V, H] f32."""
     if _cuda.use_kernel(p, impl):
-        return windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile)
-    return ell_edge_conv_sum_plain(p, q, nbr, deg)
+        return windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile,
+                                                 mean_degree)
+    return ell_edge_conv_sum_plain(p, q, nbr, deg, mean_degree)
 
 
 def _check(names, rows, idx, count, dev, dtype="bf16"):
@@ -313,17 +336,23 @@ def _check(names, rows, idx, count, dev, dtype="bf16"):
     _check_table(idx, count, rows[0].shape[0], dev)
 
 
-def launch_sum(plan, p, q, nbr, deg, mode="relu"):
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def launch_sum(plan, p, q, nbr, deg, mode="relu", mean_degree=None, g=None):
     """Launch the receiver kernel of p's dtype with `plan` on the current
-    stream (checked tensors; `plan` from `window_plan`); returns out.
-    Raises on a failed launch. Counts nothing: the wrappers below do."""
+    stream (checked tensors; `plan` from `window_plan`; `mean_degree` with
+    relu, `g` with step on bf16 rows, or None); returns out. Raises on a
+    failed launch. Counts nothing: the wrappers below do."""
     f32 = p.dtype == torch.float32
     name = ("windowed_edge_conv_sum_f32" if f32
             else "windowed_edge_conv_sum_bf16")
     out = torch.empty_like(p)
     lib = _cuda.library("windowed_edge_conv")
     args = [p.data_ptr(), q.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
-            out.data_ptr(), plan.v, plan.h, nbr.shape[1], *_plan_args(plan)]
+            _ptr(mean_degree), *([] if f32 else [_ptr(g)]), out.data_ptr(),
+            plan.v, plan.h, nbr.shape[1], *_plan_args(plan)]
     rc = getattr(lib, name)(*args, *([] if f32 else [_MODES[mode]]),
                             p.device.index, _cuda.stream_of(p.device))
     _cuda.check_status(lib, name, rc)
@@ -343,17 +372,20 @@ def launch_dq(plan, q, g, p, rev_dst, deg_out):
     return out
 
 
-def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu"):
+def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu",
+                                  mean_degree=None, g=None):
     """Launch `windowed_edge_conv_sum_bf16`
     (ops/cuda/windowed_edge_conv.cu) on the current stream with
-    `window_plan`'s layout; every live slot of `nbr` must lie in its tile's
+    `window_plan`'s layout, with the epilogue of `mean_degree` (relu) or
+    `g` (step) where given; every live slot of `nbr` must lie in its tile's
     window. Raises on a tensor it does not take, a window that fits no
     block, or a failed launch; never falls back."""
-    _check(("p", "q"), (p, q), nbr, deg, p.device)
-    if mode not in _MODES:
-        raise ValueError(f"mode must be 'relu' or 'step', got {mode!r}")
+    _check_mode(mode, mean_degree, g)
+    _check(("p", "q") + (() if g is None else ("g",)),
+           (p, q) + (() if g is None else (g,)), nbr, deg, p.device)
+    _check_mean(mean_degree, p.shape[0], p.device)
     out = launch_sum(launch_plan(q, halo, tile, 1, nbr.shape[1]), p, q, nbr,
-                     deg, mode)
+                     deg, mode, mean_degree, g)
     windowed_edge_conv_sum_kernel.launches += 1
     return out
 
@@ -361,12 +393,15 @@ def windowed_edge_conv_sum_kernel(p, q, nbr, deg, halo, tile, mode="relu"):
 windowed_edge_conv_sum_kernel.launches = 0
 
 
-def windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile):
+def windowed_edge_conv_sum_f32_kernel(p, q, nbr, deg, halo, tile,
+                                      mean_degree=None):
     """Launch `windowed_edge_conv_sum_f32` (ops/cuda/windowed_edge_conv.cu)
-    as `windowed_edge_conv_sum_kernel` does."""
+    as `windowed_edge_conv_sum_kernel` does (relu, with `mean_degree` the
+    mean)."""
     _check(("p", "q"), (p, q), nbr, deg, p.device, "f32")
+    _check_mean(mean_degree, p.shape[0], p.device)
     out = launch_sum(launch_plan(q, halo, tile, 1, nbr.shape[1]), p, q, nbr,
-                     deg)
+                     deg, "relu", mean_degree)
     windowed_edge_conv_sum_f32_kernel.launches += 1
     return out
 
@@ -404,50 +439,64 @@ def band_violations(idx, count, halo, tile):
 class WindowedEdgeConvSum(torch.autograd.Function):
     """K3d: the windowed forward with its windowed backward
     (onehot_gather.py:319-349). dp = g * (step sum, in bf16 as the TPU
-    kernel returns it), dq from the banded reverse table."""
+    kernel returns it), taken in the step sum's epilogue; dq from the
+    banded reverse table. With `mean_degree` the forward is the mean
+    (ops/ell.py:mean_scale_plain) and the backward scales g first."""
 
     @staticmethod
     def forward(ctx, p, q, nbr, rev_dst, deg_in, deg_out, halo, tile,
-                impl=None):
+                impl=None, mean_degree=None):
         ctx.halo, ctx.tile, ctx.impl = halo, tile, impl
-        ctx.save_for_backward(p, q, nbr, rev_dst, deg_in, deg_out)
+        ctx.save_for_backward(p, q, nbr, rev_dst, deg_in, deg_out,
+                              mean_degree)
         if impl is None and torch.compiler.is_exporting():
             from stinet_tpu_torch.ops import library
-            return library.windowed_edge_conv_sum(
+            out = library.windowed_edge_conv_sum(
                 p, q, nbr, deg_in, halo, tile).to(p.dtype)
+            return (out if mean_degree is None
+                    else mean_scale_plain(out, mean_degree))
         return windowed_edge_conv_sum(p, q, nbr, deg_in, halo, tile, "relu",
-                                      impl).to(p.dtype)
+                                      impl, mean_degree=mean_degree
+                                      ).to(p.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        p, q, nbr, rev_dst, deg_in, deg_out = ctx.saved_tensors
+        p, q, nbr, rev_dst, deg_in, deg_out, mean_degree = ctx.saved_tensors
         g = g.contiguous()
-        step_sum = windowed_edge_conv_sum(p, q, nbr, deg_in, ctx.halo,
-                                          ctx.tile, "step", ctx.impl)
-        dp = (g.to(torch.float32) * step_sum.to(torch.float32)).to(p.dtype)
+        if mean_degree is not None:
+            g = mean_scale(g, mean_degree, ctx.impl)
+        dp = windowed_edge_conv_sum(p, q, nbr, deg_in, ctx.halo, ctx.tile,
+                                    "step", ctx.impl, g=g).to(p.dtype)
         dq = windowed_dq(q, g, p, rev_dst, deg_out, ctx.halo, ctx.tile,
                          ctx.impl).to(q.dtype)
-        return dp, dq, None, None, None, None, None, None, None
+        return dp, dq, None, None, None, None, None, None, None, None
 
 
 class WindowedEdgeConvSumF32(torch.autograd.Function):
     """The f32 K3d (onehot_gather.py:352-375): K3b forward, and the ELL
     backward (dp, and dq through rev_dst), each a kernel on a CUDA
-    tensor."""
+    tensor; `mean_degree` as in `WindowedEdgeConvSum`."""
 
     @staticmethod
     def forward(ctx, p, q, nbr, rev_dst, deg_in, deg_out, halo, tile,
-                impl=None):
+                impl=None, mean_degree=None):
         ctx.impl = impl
-        ctx.save_for_backward(p, q, nbr, deg_in, rev_dst, deg_out)
+        ctx.save_for_backward(p, q, nbr, deg_in, rev_dst, deg_out,
+                              mean_degree)
         if impl is None and torch.compiler.is_exporting():
             from stinet_tpu_torch.ops import library
-            return library.windowed_edge_conv_sum_f32(p, q, nbr, deg_in,
-                                                      halo, tile)
-        return windowed_edge_conv_sum_f32(p, q, nbr, deg_in, halo, tile, impl)
+            out = library.windowed_edge_conv_sum_f32(p, q, nbr, deg_in, halo,
+                                                     tile)
+            return (out if mean_degree is None
+                    else mean_scale_plain(out, mean_degree))
+        return windowed_edge_conv_sum_f32(p, q, nbr, deg_in, halo, tile, impl,
+                                          mean_degree)
 
     @staticmethod
     def backward(ctx, g):
-        dp, dq = ell_edge_conv_grads(*ctx.saved_tensors, g, ctx.impl,
+        *saved, mean_degree = ctx.saved_tensors
+        if mean_degree is not None:
+            g = mean_scale(g, mean_degree, ctx.impl)
+        dp, dq = ell_edge_conv_grads(*saved, g, ctx.impl,
                                      ctx.needs_input_grad[:2])
-        return dp, dq, None, None, None, None, None, None, None
+        return dp, dq, None, None, None, None, None, None, None, None

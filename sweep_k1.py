@@ -107,7 +107,8 @@ def captured_calls(torch):
     """{(kind, dtype, V, H, D): [tensors, count]}: one call of each distinct
     shape among the K1 forward calls of a flagship f32 forward and the K1
     forward, dp and dq calls of a bf16 train step, with its tensors in the
-    C launcher's order, and how often the path makes it."""
+    C launcher's order (the forward's mean degree, or None for a null
+    pointer, after deg), and how often the path makes it."""
     f32, step = cs.capture_k1_calls(torch)
     shapes = collections.OrderedDict()
     for kind, calls in (("sum", list(f32) + list(step["k1"])),
@@ -150,7 +151,8 @@ def main():
         view = torch.int16 if rows.dtype == torch.bfloat16 else torch.int32
         v, h = rows.shape
         aligned = all(t.data_ptr() % 16 == 0 for t in args
-                      if t.dim() == 2 and t.dtype == rows.dtype)
+                      if t is not None and t.dim() == 2
+                      and t.dtype == rows.dtype)
         for key, lib in libs.items():
             fn = getattr(lib, ell.launcher_name(kind, rows.dtype))
             per = times[key].setdefault(shape, {})
@@ -163,7 +165,8 @@ def main():
                 out = torch.empty_like(rows)
 
                 def call(fn=fn, plan=plan, out=out):
-                    rc = fn(*[t.data_ptr() for t in args], out.data_ptr(),
+                    rc = fn(*[0 if t is None else t.data_ptr()
+                              for t in args], out.data_ptr(),
                             v, h, d, *ell._plan_args(plan), dev.index,
                             _cuda.stream_of(dev))
                     cs.check(rc == 0, f"{key} {shape}: cudaError {rc}")

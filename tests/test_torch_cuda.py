@@ -449,8 +449,9 @@ def test_ell_forward_rows_bitwise(dev, d, h, dtype):
 
 
 def _fwd_raw(lib_fn, p, q, nbr, deg, out, plan):
+    # the sum: no mean degree (a null pointer)
     return lib_fn(p.data_ptr(), q.data_ptr(), nbr.data_ptr(),
-                  deg.data_ptr(), out.data_ptr(), p.shape[0], p.shape[1],
+                  deg.data_ptr(), 0, out.data_ptr(), p.shape[0], p.shape[1],
                   nbr.shape[1], *ell._plan_args(plan), p.device.index,
                   _cuda.stream_of(p.device))
 
@@ -862,7 +863,7 @@ def test_windowed_launcher_checks_the_plan(dev):
 
     def rc(pl):
         return lib.windowed_edge_conv_sum_bf16(
-            p.data_ptr(), p.data_ptr(), nbr.data_ptr(), deg.data_ptr(),
+            p.data_ptr(), p.data_ptr(), nbr.data_ptr(), deg.data_ptr(), 0, 0,
             p.data_ptr(), v, h, 4, *windowed._plan_args(pl), 0, dev.index,
             _cuda.stream_of(dev))
 

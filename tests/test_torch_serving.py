@@ -101,10 +101,10 @@ def _windowed_f32_predict_matches_jax(monkeypatch):
 
     class PortSpy(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, p, q, nbr, rev, deg_in, deg_out, halo, tile, impl):
+        def forward(ctx, p, q, nbr, rev, deg_in, deg_out, halo, tile, *rest):
             port_calls.append((tuple(p.shape), halo, tile))
             return port_fn.forward(
-                ctx, p, q, nbr, rev, deg_in, deg_out, halo, tile, impl)
+                ctx, p, q, nbr, rev, deg_in, deg_out, halo, tile, *rest)
 
     monkeypatch.setattr(onehot_gather, "windowed_ell_edge_conv_sum_f32",
                         jax_spy)
